@@ -1,0 +1,10 @@
+"""directxtex_tpu_torch — the PyTorch / CUDA port of directxtex_tpu.
+
+The JAX package beside it is the reference; this package holds the same
+functions on torch tensors, with the TPU's Pallas kernels rewritten as
+hand-written CUDA kernels for Hopper (sm_90a). Its first slice is the BC7
+default tier for opaque images: search, MOMENT winner-refine and decode.
+It imports torch and numpy only, never jax.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,6 @@
+"""BC7 block compression on torch tensors, batched over blocks."""
+
+from . import bc67
+from .common import blocks_to_image, image_to_blocks
+
+__all__ = ["bc67", "blocks_to_image", "image_to_blocks"]

@@ -1,0 +1,89 @@
+"""The port stands alone and its kernel gate: directxtex_tpu_torch imports
+no jax and nothing of directxtex_tpu, its CUDA launchers import without
+nvcc, a CPU tensor takes the plain twin, and unsupported settings raise."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from directxtex_tpu_torch.bc import bc67, cuda_kernels
+
+
+def test_package_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import directxtex_tpu_torch, directxtex_tpu_torch._build\n"
+        "from directxtex_tpu_torch.bc import bc67, common, cuda_kernels\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.split('.')[0] == 'directxtex_tpu']\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_launchers_import_without_building():
+    # importing and resetting touches no compiler and no device
+    cuda_kernels.reset_launch_counts()
+    assert cuda_kernels.launch_counts() == {
+        "bc7_decode": 0, "bc7_encode": 0, "bc7_refine": 0}
+
+
+def _blocks(nb=32, seed=3):
+    rng = np.random.default_rng(seed)
+    blocks = rng.random((nb, 16, 4)).astype(np.float32)
+    blocks[..., 3] = 1.0
+    return torch.from_numpy(blocks)
+
+
+def test_cpu_tensors_take_the_plain_twins():
+    cuda_kernels.reset_launch_counts()
+    blocks = _blocks()
+    px = bc67._quantize_ldr(blocks).reshape(64, -1).contiguous()
+    err, words = bc67.bc7_search_words(px)
+    ref_err, ref_words = bc67._bc7_search_plain(px)
+    assert torch.equal(words, ref_words) and torch.equal(err, ref_err)
+    refined = bc67.bc7_refine_words(px, words)
+    assert torch.equal(refined, bc67._bc7_refine_plain(px, words))
+    texels = bc67.bc7_decode_words(refined)
+    assert torch.equal(texels, bc67._bc7_decode_plain(refined))
+    assert set(cuda_kernels.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("launcher,args", [
+    ("bc7_decode", lambda: (torch.zeros((4, 8), dtype=torch.int32),)),
+    ("bc7_encode", lambda: (torch.zeros((64, 8), dtype=torch.int32),)),
+    ("bc7_refine", lambda: (torch.zeros((64, 8), dtype=torch.int32),
+                            torch.zeros((4, 8), dtype=torch.int32),
+                            (1, 3, 5, 4))),
+])
+def test_launchers_refuse_cpu_tensors(launcher, args):
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(cuda_kernels, launcher)(*args())
+
+
+def test_wrappers_check_shapes_and_types():
+    with pytest.raises(ValueError):
+        bc67.bc7_decode_words(torch.zeros((4, 8), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        bc67.bc7_search_words(torch.zeros((16, 4, 8), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        bc67.decode_bc7(torch.zeros((8, 8), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"flags": 0x100000}, {"flags": 0x200000}, {"flags": 0x80000},
+    {"opaque": False}, {"alpha_weight": 2.0}])
+def test_unsupported_encode_settings_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        bc67.encode_bc7(_blocks(4), **kwargs)
+
+
+def test_unsupported_refine_settings_raise():
+    px_i = torch.zeros((16, 4, 4), dtype=torch.int32)
+    words = torch.zeros((4, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError):
+        bc67.refine_bc7_words(px_i, words, ladder=(2, (2, 1)))
+    with pytest.raises(NotImplementedError):
+        bc67.refine_bc7_words(px_i, words, modes=(1, 3, 5, 6, 4))

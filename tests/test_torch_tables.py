@@ -1,0 +1,78 @@
+"""The PyTorch port's carried state and block layout, pinned to the JAX
+package: the BC7 spec tables, the search constants, the packed tables in
+the CUDA header, and image_to_blocks / blocks_to_image."""
+
+import dataclasses
+import pathlib
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from directxtex_tpu.bc import bc67 as jbc67
+from directxtex_tpu.bc import bc67_tables as jtables
+from directxtex_tpu.bc import common as jcommon
+from directxtex_tpu_torch.bc import bc67, common
+
+CUH = (pathlib.Path(__file__).resolve().parent.parent
+       / "directxtex_tpu_torch" / "csrc" / "bc7_common.cuh")
+
+
+@pytest.mark.parametrize("name", ["PARTITIONS", "FIXUPS", "WEIGHTS2",
+                                  "WEIGHTS3", "WEIGHTS4"])
+def test_spec_tables_equal(name):
+    got = bc67.tables_as_numpy()[name]
+    ref = getattr(jtables, name)
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("name", [
+    "BC7_SHAPE_CANDIDATES", "_ON_AXIS_W", "_MODE4_IMS", "_MODE45_ROTS",
+    "_POWER_ITERS", "BC7_SHARED2SUB_IPREC", "BC7_SHARED2SUB_ROUNDS",
+    "BC7_SHARED45_ROUNDS", "LADDER_MOMENT"])
+def test_search_constants_equal(name):
+    assert bc67.tables_as_numpy()[name] == getattr(jbc67, name)
+
+
+def test_default_tier_settings_match_reference():
+    # the port implements the shared fits without the float keep-better
+    assert jbc67.BC7_SHARED2SUB and jbc67.BC7_SHARED45
+    assert not jbc67.BC7_SHARED_KEEPBETTER
+
+
+@pytest.mark.parametrize("mode", range(8))
+def test_mode_table_equal(mode):
+    assert dataclasses.astuple(bc67._BC7_MODES[mode]) == \
+        dataclasses.astuple(jbc67._BC7_MODES[mode])
+
+
+def _cuh_array(name):
+    body = re.search(name + r"\[64\] = \{(.*?)\};", CUH.read_text(),
+                     re.S).group(1)
+    return [int(v.rstrip("u"), 16) for v in re.findall(r"0x[0-9a-f]+u?",
+                                                        body)]
+
+
+@pytest.mark.parametrize("parts,pp_name,pa_name",
+                         [(1, "c_pp2", "c_pa2"), (2, "c_pp3", "c_pa3")])
+def test_cuda_header_tables_equal(parts, pp_name, pa_name):
+    pp, pa = jbc67._packed_shape_tables_bc7(parts, 64)
+    assert _cuh_array(pp_name) == list(pp)
+    assert _cuh_array(pa_name) == list(pa)
+
+
+@pytest.mark.parametrize("h,w", [(8, 12), (13, 7), (4, 4), (1, 9)])
+def test_image_to_blocks_equal(h, w):
+    rng = np.random.default_rng(h * 100 + w)
+    img = rng.random((h, w, 4)).astype(np.float32)
+    ref, nbh, nbw = jcommon.image_to_blocks(jnp.asarray(img))
+    got, gbh, gbw = common.image_to_blocks(torch.from_numpy(img))
+    assert (gbh, gbw) == (nbh, nbw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    back = common.blocks_to_image(got, h, w)
+    np.testing.assert_array_equal(
+        back.numpy(), np.asarray(jcommon.blocks_to_image(ref, h, w)))
+    np.testing.assert_array_equal(back.numpy(), img)
