@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one GPU.
 
-Drives the port's BC7 default tier (image_to_blocks -> encode_bc7 ->
-decode_bc7) through its three hand-written CUDA kernels, K1 decode, K2
-search and K3 MOMENT refine, and holds every kernel against its plain
-PyTorch twin on the card:
+Drives the port's two paths through their six hand-written CUDA kernels
+and holds every kernel against its plain PyTorch twin on the card:
+
+- the BC7 default tier (image_to_blocks -> encode_bc7 -> decode_bc7): K1
+  decode, K2 search, K3 MOMENT refine;
+- BC6H (BASELINE config 4, hdr_cubemap_pipeline -> decode_bc6h, and the
+  mid / maxq tiers of encode_bc6h): K4 decode, K5 search, K6 refine.
+
+Phases:
 
   0. device: the card's name and power limit, torch, CUDA and nvcc;
   1. build: nvcc builds the kernels from directxtex_tpu_torch/csrc;
@@ -14,9 +19,24 @@ PyTorch twin on the card:
      corpus.npz contents, under the near-tie rule;
   4. K3: kernel refine vs plain refine on the same input words: equal;
   5. 512^2 gate: encode_bc7 -> decode_bc7 PSNR >= the frozen reference's;
-  6. the 2048^2 bench image through the whole slice, with launch counts,
+  6. the 2048^2 bench image through the BC7 path, with launch counts,
      CUDA-event times of the path and of each kernel, and one run of the
-     plain path on the same inputs, held against the kernels' output.
+     plain path on the same inputs, held against the kernels' output;
+  7. K4: bit-exact on the golden BC6H vectors (unsigned and signed) and
+     equal to the plain decode on 262,144 random words per mode;
+  8. K5 and K6 (mid, maxq): kernel vs plain on the five HDR corpus
+     contents and the 200-block random / bimodal set, unsigned and
+     signed: words equal, and K5's search errors equal;
+  9. BC6H gates: the corpus PSNR floors and the frozen reference's
+     bc6h_hdr_psnr through encode_bc6h -> decode_bc6h on the card;
+ 10. config 4 at face 512: the path with launch counts and CUDA-event
+     times, each kernel's time at the path's shapes, one run of each plain
+     twin held against its kernel, and the mid / maxq tiers on the same
+     faces;
+ 11. the kernels line: every kernel's launches, error against its twin,
+     time, plain time and bound (bytes or operations, whichever is
+     larger, at the H100's published peaks, for the work each block of
+     the run needs).
 
 Each phase prints one JSON line; any failure raises, so the script exits
 nonzero without the final ok line. Run from the repository root:
@@ -43,11 +63,51 @@ SOURCES = {
                    "directxtex_tpu/bc/pallas_kernels.py:2020"),
     "bc7_refine": ("directxtex_tpu_torch/csrc/bc7_refine.cu",
                    "directxtex_tpu/bc/pallas_kernels.py:2667"),
+    "bc6h_decode": ("directxtex_tpu_torch/csrc/bc6h_decode.cu",
+                    "directxtex_tpu/bc/pallas_kernels.py:2784"),
+    "bc6h_encode": ("directxtex_tpu_torch/csrc/bc6h_encode.cu",
+                    "directxtex_tpu/bc/pallas_kernels.py:3744"),
+    "bc6h_refine": ("directxtex_tpu_torch/csrc/bc6h_refine.cu",
+                    "directxtex_tpu/bc/pallas_kernels.py:3704"),
 }
+# Operations each kernel's function needs per 4x4 block, as printed by
+# `PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_op_counts.py`:
+# the JAX twins' elementwise operations without their lane masking, a
+# two-region candidate's per-pixel work over its subsets' own 16 pixels.
+# The searches do the same work for every block; the decoders and the
+# refines do one mode's (one winner class's) work, weighed here by the
+# blocks of the run that have it.
+BC7_SEARCH_OPS = 89073
+BC6H_SEARCH_OPS = 173630
+BC7_DECODE_OPS = (1461, 1337, 1557, 1295, 859, 816, 518, 1373)  # per mode
+BC7_REFINE_OPS = {1: 5612, 3: 5432, 5: 4869, 4: 6908}  # others pass through
+BC6H_DECODE_OPS = (1436, 1442, 1432, 1440, 1436, 1436, 1432, 1444, 1444,
+                   1410, 598, 668, 680, 644)      # per mode row, unsigned
+# the maxq refine of a one-region (rows 10-13) and a two-region winner
+BC6H_REFINE_OPS = {"one_region": 815084, "two_region": 1294096}
+# bytes each block must move, inputs read once and outputs written once at
+# the data's own width: u8 texels, f16 pixels and halves, 16-byte words
+BYTES_PER_BLOCK = {"bc7_decode": 16 + 64, "bc7_encode": 64 + 16,
+                   "bc7_refine": 64 + 16 + 16, "bc6h_decode": 16 + 96,
+                   "bc6h_encode": 96 + 16, "bc6h_refine": 96 + 16 + 16}
+# H100 SXM published peaks: HBM bytes/s, and
+# f32 elementwise operations/s = 132 SMs x 128 lanes x 1.98 GHz (the
+# 67 TFLOP/s figure counts an FMA as two; the kernels build with
+# --fmad=false, so every operation issues on its own)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 132 * 128 * 1.98e9
 OPAQUE_CORPUS = ("albedo", "tworegion", "normal", "photo_china",
                  "photo_flower")
 SLICE_SIZE = 2048          # the bench image's side (bench.py:89)
 RANDOM_BLOCKS = 262144     # random words for the K1 check
+HDR_CORPUS = ("hdr", "hdr_china", "hdr_flower", "hdr_sun", "hdr_signed")
+# tests/test_golden.py PSNR_FLOORS of the BC6H contents: log-PSNR for
+# the unsigned ones, peak-linear for hdr_signed (encoded signed)
+BC6H_FLOORS = {"hdr": 45.24, "hdr_china": 32.68, "hdr_flower": 31.38,
+               "hdr_sun": 51.02, "hdr_signed": 29.75}
+FACE = 512                 # config 4's face (benchmarks/run_all.py:146)
+MAXQ_PLAIN_BLOCKS = 16384  # blocks of the maxq plain twin run at face 512
+N_BIMODAL = 40             # degenerate blocks of the signed random set
 
 
 def emit(obj) -> None:
@@ -57,6 +117,13 @@ def emit(obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def per_mode_ops(torch, modes, table: dict) -> float:
+    """Operations of a run whose blocks have `modes` (a [NB] tensor) at
+    table[mode] each, 0 for a mode not in the table (reserved modes)."""
+    counts = torch.bincount(modes[modes >= 0].to(torch.int64)).tolist()
+    return float(sum(n * table.get(m, 0) for m, n in enumerate(counts)))
 
 
 def main() -> None:
@@ -195,7 +262,8 @@ def main() -> None:
     enc = bc67.encode_bc7(blocks2k, opaque=True)
     dec = bc67.decode_bc7(enc)
     torch.cuda.synchronize()
-    counts = cuda_kernels.launch_counts()
+    counts = {k: v for k, v in cuda_kernels.launch_counts().items()
+              if k.startswith("bc7_")}
     check(all(v > 0 for v in counts.values()), f"launch counts {counts}")
     check(tuple(dec.shape) == (size * size // 16, 16, 4)
           and bool(torch.isfinite(dec).all()), "2K output shape / finite")
@@ -244,14 +312,280 @@ def main() -> None:
           "encode_mtexels_per_s": mtexels, "kernel_ms": k_ms,
           "plain_ms": plain_ms, "search_words_differ_vs_plain": n2k})
 
+    nb_of = {"bc7_decode": px2k.shape[1], "bc7_encode": px2k.shape[1],
+             "bc7_refine": px2k.shape[1]}
+    ops_of = {
+        "bc7_decode": per_mode_ops(torch, bc67._mode_of(
+            bc67._words_i64(w_final)), dict(enumerate(BC7_DECODE_OPS))),
+        "bc7_encode": BC7_SEARCH_OPS * float(px2k.shape[1]),
+        "bc7_refine": per_mode_ops(torch, bc67._mode_of(
+            bc67._words_i64(w_search)), BC7_REFINE_OPS),
+    }
+    launches = dict(counts)
+
+    plain_nb = dict(nb_of)
+    r = bc6h_phases(torch, dev, to_dev, event_ms, smi)
+    launches.update(r["launches"])
+    k_ms.update(r["k_ms"])
+    plain_ms.update(r["plain_ms"])
+    max_err.update(r["max_err"])
+    nb_of.update(r["nb"])
+    plain_nb.update(r["plain_nb"])
+    ops_of.update(r["ops"])
+
+    lines = []
+    for k in SOURCES:
+        b_ms = BYTES_PER_BLOCK[k] * nb_of[k] / HBM_BYTES_PER_S * 1e3
+        o_ms = ops_of[k] / OPS_PER_S * 1e3
+        lines.append({
+            "name": k, "route": "cuda", "source": SOURCES[k][0],
+            "replaces": SOURCES[k][1], "launches": launches[k],
+            "max_abs_err": max_err[k], "ms": k_ms[k],
+            "plain_ms": plain_ms[k], "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms > o_ms else "operations",
+            "library_ms": None, "blocks": nb_of[k],
+            "plain_blocks": plain_nb[k], "ops": ops_of[k]})
     print(smi)
-    emit({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCES[k][0],
-         "replaces": SOURCES[k][1], "launches": counts[k],
-         "max_abs_err": max_err[k], "ms": k_ms[k],
-         "plain_ms": plain_ms[k]} for k in SOURCES]})
+    emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
+
+
+def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
+    """Phases 7-10. Returns the BC6H kernels' launches (from the paths'
+    runs), times, plain times, errors against the twins and block counts."""
+    from directxtex_tpu_torch.bc import bc6h, cuda_kernels
+    from directxtex_tpu_torch.bc.common import image_to_blocks
+    from directxtex_tpu_torch.models import pipelines
+
+    def same(a, b, what):
+        """Kernel and twin agree word for word, and the search errors bit
+        for bit (infinities included): the twins sum in the kernels' order
+        with the kernels' rounding."""
+        check(a.shape == b.shape and torch.equal(a, b),
+              f"{what} differs from plain")
+
+    def word_diff(a, b):
+        return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    # 7. K4 -------------------------------------------------------------
+    vec = np.load(os.path.join(GOLDEN, "decode_vectors.npz"))
+    words_g = to_dev(vec["bc6h_blocks"]).view(torch.int32).t().contiguous()
+    rng = np.random.default_rng(2027)
+    raw = rng.integers(0, 256, (RANDOM_BLOCKS, 16), dtype=np.uint8)
+    words_r = to_dev(raw).view(torch.int32).t().contiguous()
+    n_reserved = int((bc6h._mode_rows(bc6h._words_i64(words_r)) < 0).sum())
+    for signed, key in ((False, "bc6h_uf_bits"), (True, "bc6h_sf_bits")):
+        got = cuda_kernels.bc6h_decode(words_g, signed)
+        ref = vec[key][..., :3].astype(np.int32).transpose(1, 2, 0)
+        check(np.array_equal(got.cpu().numpy(), ref.reshape(48, -1)),
+              f"K4 golden vectors signed={signed}")
+        check(torch.equal(cuda_kernels.bc6h_decode(words_r, signed),
+                          bc6h._bc6h_decode_plain(words_r, signed)),
+              f"K4 vs plain on random words signed={signed}")
+    emit({"phase": "K4", "golden_bit_exact": True,
+          "random_blocks": RANDOM_BLOCKS, "reserved_blocks": n_reserved,
+          "random_equal": True, "signed": [False, True]})
+
+    # 8. K5 and K6 against their twins ----------------------------------
+    corpus = np.load(os.path.join(GOLDEN, "corpus.npz"))
+
+    def random_set(signed):
+        """benchmarks/verify_bc6h_tpu.py:41-52: 200 random blocks; the
+        first 40 signed ones sign-crossing bimodal."""
+        r = np.random.default_rng(17)
+        scale = 4.0 if signed else 8.0
+        rgb = r.random((200, 16, 3)).astype(np.float32) * scale
+        if signed:
+            rgb -= scale / 2
+            rgb[:N_BIMODAL, 8:, :] += scale
+            rgb[:N_BIMODAL, :8, :] -= scale
+        return np.concatenate([rgb, np.ones((200, 16, 1), np.float32)], -1)
+
+    tiers = (("mid", bc6h.BC6H_LADDER_MID, False),
+             ("maxq", bc6h.BC6H_LADDER_MAXQ, True))
+    for signed in (False, True):
+        contents = [(c, image_to_blocks(to_dev(corpus[c]))[0])
+                    for c in HDR_CORPUS]
+        contents.append(("random", to_dev(random_set(signed))))
+        for label, blocks in contents:
+            px = bc6h.px_of_blocks(blocks, signed)
+            e_k, w_k = cuda_kernels.bc6h_encode(px, signed)
+            e_p, w_p = bc6h._bc6h_search_plain(px, signed)
+            what = f"{label} signed={signed}"
+            same(w_k, w_p, f"K5 words {what}")
+            same(e_k, e_p, f"K5 errors {what}")
+            out = {"phase": "K5", "content": label, "signed": signed,
+                   "blocks": px.shape[1], "words_equal": True,
+                   "errors_equal": True,
+                   "no_row_fits": int((~torch.isfinite(e_k)).sum())}
+            for tier, lad, cross2 in tiers:
+                r_k = cuda_kernels.bc6h_refine(px, w_k, lad, lad, signed,
+                                               True, cross2)
+                r_p = bc6h._bc6h_refine_plain(px, w_k, lad, signed, True,
+                                              cross2)
+                same(r_k, r_p, f"K6 {tier} {what}")
+                out[f"K6_{tier}_words_equal"] = True
+                out[f"K6_{tier}_refined_blocks"] = int(
+                    (r_k != w_k).any(dim=0).sum())
+            emit(out)
+
+    # 9. BC6H quality gates (tests/test_golden.py:118-177, :314-329) ----
+    def log_psnr(a, b):
+        a = np.maximum(a[..., :3], 0) + 1e-4
+        b = np.maximum(b[..., :3], 0) + 1e-4
+        m = float(np.mean((np.log2(a) - np.log2(b)) ** 2))
+        return 10 * np.log10(36.0 / max(m, 1e-30))
+
+    gates = {}
+    for c in HDR_CORPUS:
+        signed = c == "hdr_signed"
+        blocks = image_to_blocks(to_dev(corpus[c]))[0]
+        dec = bc6h.decode_bc6h(bc6h.encode_bc6h(blocks, signed), signed)
+        dec, src = dec.cpu().numpy(), blocks.cpu().numpy()
+        if signed:
+            peak = float(np.abs(src[..., :3]).max())
+            m = float(np.mean((dec[..., :3] - src[..., :3]) ** 2))
+            psnr = 10 * np.log10(peak * peak / max(m, 1e-30))
+            frozen = float(corpus["psnr_bc6hs_hdr_signed"])
+        else:
+            psnr = log_psnr(dec, src)
+            frozen = float(corpus[f"psnr_bc6h_{c}"])
+        check(psnr >= BC6H_FLOORS[c] and psnr >= frozen - 0.05,
+              f"BC6H {c}: {psnr} dB < floor {BC6H_FLOORS[c]} / frozen "
+              f"{frozen}")
+        gates[c] = psnr
+    ref = np.load(os.path.join(GOLDEN, "ref_encodes.npz"))
+    blocks = image_to_blocks(to_dev(corpus["hdr"]))[0]
+    dec = bc6h.decode_bc6h(bc6h.encode_bc6h(blocks, False), False)
+    peak = float(ref["bc6h_hdr_peak"])
+    mse = float(((dec[..., :3] - blocks[..., :3]).to(torch.float64) ** 2)
+                .mean())
+    ref_gate = 10 * np.log10(peak * peak / max(mse, 1e-30))
+    check(ref_gate >= float(ref["bc6h_hdr_psnr"]),
+          f"bc6h_hdr_psnr {ref_gate} < {float(ref['bc6h_hdr_psnr'])}")
+    emit({"phase": "bc6h_gates", "psnr": gates, "floors": BC6H_FLOORS,
+          "ref_parity_psnr": ref_gate,
+          "ref_psnr": float(ref["bc6h_hdr_psnr"])})
+
+    # 10. config 4 at face 512 (benchmarks/run_all.py:141-153) ---------
+    rng = np.random.default_rng(2)
+    eq = to_dev(rng.random((FACE * 2, FACE * 4, 4)).astype(np.float32)
+                * 4.0)
+    pipe = pipelines.hdr_cubemap_pipeline()
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    packed = torch.cat(pipe(eq))
+    dec = bc6h.decode_bc6h(packed, False)
+    torch.cuda.synchronize()
+    counts = cuda_kernels.launch_counts()
+    check(counts["bc6h_encode"] == 1 and counts["bc6h_decode"] == 1,
+          f"config 4 launch counts {counts}")
+    faces = pipelines.cube_faces(eq)
+    blocks4 = torch.cat([image_to_blocks(faces[i])[0] for i in range(6)])
+    nb4 = blocks4.shape[0]
+    check(tuple(dec.shape) == (nb4, 16, 4)
+          and bool(torch.isfinite(dec).all()), "config 4 output")
+    psnr4 = log_psnr(dec.cpu().numpy(), blocks4.cpu().numpy())
+    launches = {"bc6h_encode": counts["bc6h_encode"],
+                "bc6h_decode": counts["bc6h_decode"]}
+
+    # the mid and maxq tiers on the same faces: K5 then K6 per encode
+    cuda_kernels.reset_launch_counts()
+    enc_mid = bc6h.encode_bc6h(blocks4, False, bc6h._BC6H_MID)
+    enc_maxq = bc6h.encode_bc6h(blocks4, False, bc6h._BC7_MAXQUALITY)
+    torch.cuda.synchronize()
+    counts_t = cuda_kernels.launch_counts()
+    check(counts_t["bc6h_encode"] == 2 and counts_t["bc6h_refine"] == 2,
+          f"mid / maxq launch counts {counts_t}")
+    launches["bc6h_refine"] = counts_t["bc6h_refine"]
+    psnr_t = {t: log_psnr(bc6h.decode_bc6h(e, False).cpu().numpy(),
+                          blocks4.cpu().numpy())
+              for t, e in (("mid", enc_mid), ("maxq", enc_maxq))}
+
+    px4 = bc6h.px_of_blocks(blocks4, False)
+    e5, w5 = cuda_kernels.bc6h_encode(px4, False)
+    check(torch.equal(w5.t().contiguous().view(torch.uint8).reshape(-1, 16),
+                      packed), "config 4 words = K5's")
+    mid_args = (bc6h.BC6H_LADDER_MID, bc6h.BC6H_LADDER_MID, False, True,
+                False)
+    maxq_args = (bc6h.BC6H_LADDER_MAXQ, bc6h.BC6H_LADDER_MAXQ, False, True,
+                 True)
+    w_mid = cuda_kernels.bc6h_refine(px4, w5, *mid_args)
+    w_maxq = cuda_kernels.bc6h_refine(px4, w5, *maxq_args)
+    path_ms = float(np.median(event_ms(lambda: pipe(eq), 7)))
+    # the path's pieces: face sampling, block layout + F16-int pixels
+    faces_ms = float(np.median(event_ms(
+        lambda: pipelines.cube_faces(eq), 7)))
+    prep_ms = float(np.median(event_ms(lambda: bc6h.px_of_blocks(torch.cat(
+        [image_to_blocks(faces[i])[0] for i in range(6)]), False), 7)))
+    k_ms = {
+        "bc6h_encode": float(np.median(event_ms(
+            lambda: cuda_kernels.bc6h_encode(px4, False), 7))),
+        "bc6h_decode": float(np.median(event_ms(
+            lambda: cuda_kernels.bc6h_decode(w5, False), 7))),
+        "bc6h_refine": float(np.median(event_ms(
+            lambda: cuda_kernels.bc6h_refine(px4, w5, *maxq_args), 7))),
+    }
+    mid_ms = float(np.median(event_ms(
+        lambda: cuda_kernels.bc6h_refine(px4, w5, *mid_args), 7)))
+    tier_ms = {t: float(np.median(event_ms(
+        lambda: bc6h.encode_bc6h(blocks4, False, f), 7)))
+        for t, f in (("mid", bc6h._BC6H_MID),
+                     ("maxq", bc6h._BC7_MAXQUALITY))}
+
+    # one run of each plain twin on the same inputs, held against the kernel
+    out = {}
+    plain_ms = {}
+    plain_ms["bc6h_encode"] = event_ms(
+        lambda: out.update(search=bc6h._bc6h_search_plain(px4, False)))[0]
+    plain_ms["bc6h_decode"] = event_ms(
+        lambda: out.update(decode=bc6h._bc6h_decode_plain(w5, False)))[0]
+    px_q, w5_q = px4[:, :MAXQ_PLAIN_BLOCKS], w5[:, :MAXQ_PLAIN_BLOCKS]
+    plain_ms["bc6h_refine"] = event_ms(
+        lambda: out.update(maxq=bc6h._bc6h_refine_plain(
+            px_q, w5_q, bc6h.BC6H_LADDER_MAXQ, False, True, True)))[0]
+    mid_plain_ms = event_ms(lambda: out.update(mid=bc6h._bc6h_refine_plain(
+        px4, w5, bc6h.BC6H_LADDER_MID, False, True, False)))[0]
+    same(w5, out["search"][1], "K5 words face 512")
+    same(e5, out["search"][0], "K5 errors face 512")
+    same(out["decode"], cuda_kernels.bc6h_decode(w5, False), "K4 face 512")
+    same(w_mid, out["mid"], "K6 mid face 512")
+    same(w_maxq[:, :MAXQ_PLAIN_BLOCKS], out["maxq"], "K6 maxq face 512")
+    fin = torch.isfinite(e5)
+    max_err = {
+        "bc6h_encode": float((e5 - out["search"][0])[fin].abs().max())
+        if bool(fin.any()) else 0.0,
+        "bc6h_decode": word_diff(out["decode"],
+                                 cuda_kernels.bc6h_decode(w5, False)),
+        "bc6h_refine": word_diff(out["maxq"],
+                                 w_maxq[:, :MAXQ_PLAIN_BLOCKS]),
+    }
+    texels = 6 * FACE * FACE
+    emit({"phase": "config4", "card": smi, "face": FACE, "blocks": nb4,
+          "launches": launches, "log_psnr": psnr4,
+          "log_psnr_mid": psnr_t["mid"], "log_psnr_maxq": psnr_t["maxq"],
+          "path_ms": path_ms,
+          "path_mtexels_per_s": texels / (path_ms * 1e-3) / 1e6,
+          "cube_faces_ms": faces_ms, "blocks_to_px_ms": prep_ms,
+          "encode_mid_ms": tier_ms["mid"], "encode_maxq_ms": tier_ms["maxq"],
+          "kernel_ms": k_ms, "kernel_mid_refine_ms": mid_ms,
+          "plain_ms": plain_ms, "plain_mid_refine_ms": mid_plain_ms,
+          "maxq_plain_blocks": MAXQ_PLAIN_BLOCKS,
+          "words_equal_plain": ["bc6h_encode", "bc6h_decode", "mid",
+                                "maxq"]})
+    nb = {"bc6h_encode": nb4, "bc6h_decode": nb4, "bc6h_refine": nb4}
+    plain_nb = dict(nb, bc6h_refine=px_q.shape[1])
+    rows = bc6h._mode_rows(bc6h._words_i64(w5))
+    # reserved blocks pass through the refine
+    ops = {"bc6h_decode": per_mode_ops(torch, rows, dict(enumerate(
+               BC6H_DECODE_OPS))),
+           "bc6h_encode": BC6H_SEARCH_OPS * float(nb4),
+           "bc6h_refine": per_mode_ops(torch, rows, {
+               r: BC6H_REFINE_OPS["one_region" if r >= 10 else "two_region"]
+               for r in range(14)})}
+    return {"launches": launches, "k_ms": k_ms, "plain_ms": plain_ms,
+            "max_err": max_err, "nb": nb, "plain_nb": plain_nb, "ops": ops}
 
 
 if __name__ == "__main__":

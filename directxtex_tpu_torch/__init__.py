@@ -2,9 +2,11 @@
 
 The JAX package beside it is the reference; this package holds the same
 functions on torch tensors, with the TPU's Pallas kernels rewritten as
-hand-written CUDA kernels for Hopper (sm_90a). Its first slice is the BC7
-default tier for opaque images: search, MOMENT winner-refine and decode.
-It imports torch and numpy only, never jax.
+hand-written CUDA kernels for Hopper (sm_90a). It has the BC7 default
+tier for opaque images (search, MOMENT winner-refine, decode), the BC6H
+codec (decode, the shared-fit search, the mid and maxq refine tiers) and
+BASELINE config 4 (models.pipelines.hdr_cubemap_pipeline). It imports
+torch and numpy only, never jax.
 """
 
 __version__ = "0.1.0"

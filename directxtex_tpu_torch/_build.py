@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-`nvcc` compiles every `csrc/*.cu` of this package into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds).
+`nvcc` compiles every `csrc/*.cu` of this package, one process per source
+and all at once, and links the objects into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds).
 The library lands in `_build/` beside this file, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one
 loads the earlier build. Nothing is built or loaded at import time.
@@ -28,8 +29,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _library: ctypes.CDLL | None = None
@@ -72,18 +72,38 @@ def build() -> pathlib.Path:
         build_info.update(seconds=0.0, path=str(out), log="(cached)")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), *cu]
+    tag = f"{_source_key()}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    compiles = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(obj),
+               str(src)]
+        compiles.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    failed = []
+    for cmd, _, proc in compiles:
+        text = proc.communicate()[0]
+        log.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{text}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+           "-o", str(tmp), *(str(obj) for _, obj, _ in compiles)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    for _, obj, _ in compiles:
+        obj.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)          # atomic: concurrent builds all succeed
-    build_info.update(seconds=seconds, path=str(out),
-                      log=proc.stdout + proc.stderr)
+    build_info.update(seconds=time.perf_counter() - t0, path=str(out),
+                      log="".join(log) + proc.stdout + proc.stderr)
     return out
 
 

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from . import cuda_kernels
-from .bc67_tables import FIXUPS, PARTITIONS, WEIGHTS2, WEIGHTS3, WEIGHTS4
+from .bc67_tables import (BC6H_DESC, BC6H_MODE_INFO, BC6H_MODE_TO_INFO,
+                          FIXUPS, PARTITIONS, WEIGHTS2, WEIGHTS3, WEIGHTS4)
 
 __all__ = ["decode_bc7", "encode_bc7", "refine_bc7_words", "tables_as_numpy",
            "bc7_decode_words", "bc7_search_words", "bc7_refine_words"]
@@ -84,11 +85,13 @@ REFINE_MODES = (1, 3, 5, 4)
 
 
 def tables_as_numpy() -> dict:
-    """The codec's carried state: the BC7 spec tables and the default
-    tier's search constants."""
+    """The codec's carried state: the BC6H/BC7 spec tables and the BC7
+    default tier's search constants."""
     return {
         "PARTITIONS": PARTITIONS, "FIXUPS": FIXUPS,
         "WEIGHTS2": WEIGHTS2, "WEIGHTS3": WEIGHTS3, "WEIGHTS4": WEIGHTS4,
+        "BC6H_DESC": BC6H_DESC, "BC6H_MODE_INFO": BC6H_MODE_INFO,
+        "BC6H_MODE_TO_INFO": BC6H_MODE_TO_INFO,
         "BC7_SHAPE_CANDIDATES": BC7_SHAPE_CANDIDATES,
         "_ON_AXIS_W": _ON_AXIS_W,
         "_MODE4_IMS": _MODE4_IMS,
@@ -146,13 +149,19 @@ def _tables(device: torch.device) -> dict:
     for prec in (3, 2):                 # modes 1 and 3 emit per-shape layouts
         t["offs", 1, prec] = torch.tensor(_index_layout(1, prec)[0],
                                           device=device)
-    # shape-estimate masks: rows = every (subset, shape) pair, subset-major
-    m_host = np.concatenate(
-        [(PARTITIONS[1] == p).astype(np.float32) for p in range(2)], axis=0)
-    n_inv = 1.0 / np.maximum(m_host.sum(axis=1), 1.0)
-    t["est_masks"] = torch.tensor(m_host, device=device)          # [128, 16]
-    t["est_ninv"] = torch.tensor(n_inv, dtype=torch.float32, device=device)
     return t
+
+
+@functools.lru_cache(maxsize=None)
+def _est_tables(device: torch.device, n_shapes: int):
+    """Shape-estimate masks [2 * n_shapes, 16] (rows = every (subset,
+    shape) pair of the first n_shapes two-subset shapes, subset-major) and
+    their inverse pixel counts."""
+    m_host = np.concatenate([(PARTITIONS[1][:n_shapes] == p)
+                             .astype(np.float32) for p in range(2)], axis=0)
+    n_inv = 1.0 / np.maximum(m_host.sum(axis=1), 1.0)
+    return (torch.tensor(m_host, device=device),
+            torch.tensor(n_inv, dtype=torch.float32, device=device))
 
 
 def _sum0(x: torch.Tensor) -> torch.Tensor:
@@ -760,12 +769,15 @@ def _dual_anchor_fix(w1, w2, prec1: int, prec2: int):
 # search (bc67.py:908-1595, :2003-2041)
 # ---------------------------------------------------------------------------
 
-def _shape_estimates_table(px_f):
-    """[64, NB] off-axis error proxy for every two-subset shape
-    (_shape_estimates_table(partitions=1, off_axis=True), bc67.py:1243):
-    per (shape, subset) the within-subset RGB SSE minus 0.95x its
-    dominant-axis variance (3 power iterations), floored at 0."""
-    tabs = _tables(px_f.device)
+def _shape_estimates_table(px_f, n_shapes: int = 64,
+                           axis_w: float = _ON_AXIS_W):
+    """[n_shapes, NB] off-axis error proxy for the first n_shapes
+    two-subset shapes (_shape_estimates_table(partitions=1,
+    off_axis=True), bc67.py:1243): per (shape, subset) the within-subset
+    RGB SSE minus (1 - axis_w)x its dominant-axis variance (3 power
+    iterations), floored at 0. px_f [16, 4, NB]; BC7 ranks its 64 shapes
+    at _ON_AXIS_W, BC6H its 32 at axis_w=0 with a zero alpha plane."""
+    masks, n_inv = _est_tables(px_f.device, n_shapes)
     mu = _sum0(px_f) * (1 / 16)                       # [4, NB]
     xc = px_f - mu[None, :, :]                        # [16, 4, NB]
     q = _sum0((xc * xc).transpose(0, 1))              # [16, NB]
@@ -774,15 +786,14 @@ def _shape_estimates_table(px_f):
                      torch.stack([xc[:, a, :] * xc[:, b, :]
                                   for a, b in pairs], dim=1)], dim=1)
     # masked 16-pixel sums for every (subset, shape) row, in pixel order
-    masks = tabs["est_masks"]                         # [128, 16]
     s_all = masks[:, 0, None, None] * rhs[0][None]
     for k in range(1, 16):
         s_all = s_all + masks[:, k, None, None] * rhs[k][None]
 
-    est = torch.zeros_like(s_all[:64, 0])
+    est = torch.zeros_like(s_all[:n_shapes, 0])
     for p in range(2):
-        sp = s_all[p * 64:(p + 1) * 64]               # [64, 11, NB]
-        ninv = tabs["est_ninv"][p * 64:(p + 1) * 64][:, None]
+        sp = s_all[p * n_shapes:(p + 1) * n_shapes]   # [S, 11, NB]
+        ninv = n_inv[p * n_shapes:(p + 1) * n_shapes][:, None]
         s1 = sp[:, 1:5]
         sse = sp[:, 0] - _sum0((s1 * s1).transpose(0, 1)) * ninv
         cov = {}
@@ -801,7 +812,7 @@ def _shape_estimates_table(px_f):
                            + cov[a, 2] * v[2]) for a in range(1, 3)),
                   start=v[0] * (cov[0, 0] * v[0] + cov[0, 1] * v[1]
                                 + cov[0, 2] * v[2]))
-        est = est + (sse - lam * (1.0 - _ON_AXIS_W)).clamp(min=0.0)
+        est = est + (sse - lam * (1.0 - axis_w)).clamp(min=0.0)
     return est
 
 
@@ -1362,20 +1373,22 @@ def _quantize_ldr(blocks: torch.Tensor) -> torch.Tensor:
     return (x + 0.01).clamp(0.0, 255.0).to(torch.int32)
 
 
-def encode_bc7(blocks: torch.Tensor, flags: int = 0, opaque: bool = True,
+def encode_bc7(blocks: torch.Tensor, flags: int = 0, opaque: bool = False,
                alpha_weight: float = 1.0) -> torch.Tensor:
     """[NB, 16, 4] f32 -> [NB, 16] u8 (D3DXEncodeBC7, BC6HBC7.cpp:2783),
     the default tier for opaque images: the search over modes
     (1, 3, 5, 6, 4), then one MOMENT winner-refine over (1, 3, 5, 4).
-    On a CUDA tensor both run as kernels (K2, K3)."""
+    On a CUDA tensor both run as kernels (K2, K3).
+
+    `opaque=True` is the caller's promise that alpha is 1 everywhere. With
+    the default `opaque=False` the port checks the quantized alpha (one
+    host sync): where no block has alpha, mode 7 scores inf on every block
+    in the JAX package too and the words are the same; a block with alpha
+    needs mode 7, which the port does not have yet, and raises."""
     if flags:
         raise NotImplementedError(
             f"flags {flags:#x}: the port runs the default tier only "
             "(QUICK, MAXQUALITY and USE_3SUBSETS: ROADMAP.md queue 1, "
-            "'The other BC7 tiers')")
-    if not opaque:
-        raise NotImplementedError(
-            "opaque=False needs mode 7 (ROADMAP.md queue 1, "
             "'The other BC7 tiers')")
     _check_default_tier(LADDER_MOMENT, alpha_weight)
     if blocks.dim() != 3 or blocks.shape[1:] != (16, 4):
@@ -1383,6 +1396,11 @@ def encode_bc7(blocks: torch.Tensor, flags: int = 0, opaque: bool = True,
                          f"{tuple(blocks.shape)}")
     nb = blocks.shape[0]
     px = _quantize_ldr(blocks).reshape(64, nb).contiguous()
+    # has_alpha of bc67.py:1915, on the quantized alpha rows
+    if not opaque and bool((px.reshape(16, 4, nb)[:, 3, :] != 255).any()):
+        raise NotImplementedError(
+            "blocks with alpha need mode 7 (ROADMAP.md queue 1 item 5, "
+            "'The other BC7 tiers')")
     _, words = bc7_search_words(px)
     words = bc7_refine_words(px, words, REFINE_MODES)
     return words.t().contiguous().view(torch.uint8).reshape(nb, 16)

@@ -10,8 +10,12 @@ live in bc67.py, and bc67's wrappers call these only for CUDA tensors.
     K1 bc7_decode  csrc/bc7_decode.cu  replaces pallas_kernels.py:2735
     K2 bc7_encode  csrc/bc7_encode.cu  replaces pallas_kernels.py:2020
     K3 bc7_refine  csrc/bc7_refine.cu  replaces pallas_kernels.py:2667
+    K4 bc6h_decode csrc/bc6h_decode.cu replaces pallas_kernels.py:2784
+    K5 bc6h_encode csrc/bc6h_encode.cu replaces pallas_kernels.py:3744
+    K6 bc6h_refine csrc/bc6h_refine.cu replaces pallas_kernels.py:3704
 
-Words cross the C interface as int32 tensors read as uint32_t*.
+Words cross the C interface as int32 tensors read as uint32_t*; `signed`
+crosses as an int.
 """
 
 from __future__ import annotations
@@ -46,6 +50,9 @@ KERNELS = {
     "bc7_decode": CudaKernel("bc7_decode_launch", 2, 1),
     "bc7_encode": CudaKernel("bc7_encode_launch", 3, 1),
     "bc7_refine": CudaKernel("bc7_refine_launch", 3, 2),
+    "bc6h_decode": CudaKernel("bc6h_decode_launch", 2, 2),
+    "bc6h_encode": CudaKernel("bc6h_encode_launch", 3, 2),
+    "bc6h_refine": CudaKernel("bc6h_refine_launch", 3, 8),
 }
 
 
@@ -111,4 +118,64 @@ def bc7_refine(px: torch.Tensor, words: torch.Tensor,
     if nb:
         KERNELS["bc7_refine"].launch((px, words, out), (nb, mode_mask),
                                      px.device)
+    return out
+
+
+def bc6h_decode(words: torch.Tensor, signed: bool) -> torch.Tensor:
+    """K4: words [4, NB] int32 -> half bits [48, NB] int32 (row = pixel *
+    3 + channel; reserved modes give 0)."""
+    _check(words, "words", 4)
+    nb = words.shape[1]
+    out = torch.empty((48, nb), dtype=torch.int32, device=words.device)
+    if nb:
+        KERNELS["bc6h_decode"].launch((words, out), (nb, int(bool(signed))),
+                                      words.device)
+    return out
+
+
+def bc6h_encode(px: torch.Tensor, signed: bool):
+    """K5: px [48, NB] int32 F16-ints (row = channel * 16 + pixel) ->
+    (err [NB] f32, words [4, NB] int32), the shared-fit default search."""
+    _check(px, "px", 48)
+    nb = px.shape[1]
+    err = torch.empty(nb, dtype=torch.float32, device=px.device)
+    words = torch.empty((4, nb), dtype=torch.int32, device=px.device)
+    if nb:
+        KERNELS["bc6h_encode"].launch((px, err, words),
+                                      (nb, int(bool(signed))), px.device)
+    return err, words
+
+
+def _i32(v: int) -> int:
+    """A u32 bit pattern as the C int that carries it."""
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def _ladder_ints(ladder) -> tuple:
+    """(rounds, deltas) -> (rounds, deltas 0-3, deltas 4-7), one byte per
+    delta, low byte first; a zero byte ends the list."""
+    rounds, deltas = ladder
+    if not 1 <= len(deltas) <= 8 or not all(1 <= d <= 255 for d in deltas):
+        raise ValueError(f"K6 takes 1-8 deltas in 1..255, got {deltas}")
+    packed = sum(int(d) << (8 * j) for j, d in enumerate(deltas))
+    return (int(rounds), _i32(packed & 0xFFFFFFFF), _i32(packed >> 32))
+
+
+def bc6h_refine(px: torch.Tensor, words: torch.Tensor, ladder, ladder2,
+                signed: bool, remap: bool, cross2: bool) -> torch.Tensor:
+    """K6: the winner-refine ladder. px [48, NB], words [4, NB] int32 ->
+    words [4, NB] int32. ladder / ladder2: (rounds, deltas) of the
+    one-region and two-region units."""
+    _check(words, "words", 4)
+    nb = words.shape[1]
+    _check(px, "px", 48, nb)
+    if px.device != words.device:
+        raise ValueError(f"px on {px.device}, words on {words.device}")
+    flags = int(bool(signed)) | int(bool(remap)) << 1 | int(bool(cross2)) << 2
+    out = torch.empty_like(words)
+    if nb:
+        KERNELS["bc6h_refine"].launch(
+            (px, words, out),
+            (nb, *_ladder_ints(ladder), *_ladder_ints(ladder2), flags),
+            px.device)
     return out

@@ -8,10 +8,11 @@
 // bc67._bc7_decode_plain; bit-exact against it and against
 // tests/golden/decode_vectors.npz (integer math only).
 //
-// Bound: memory. Each block reads 16 bytes and writes 64 int32 texels
-// (256 bytes), coalesced row by row, against a few hundred integer ops;
-// the design keeps the whole decode in registers and touches device
-// memory once per input and output word.
+// Bound: operations and bytes, close together. Each block reads 16 bytes
+// and needs 64 out (u8 texels; written here as int32, row by row and
+// coalesced) against 518-1,557 integer operations for its own mode
+// (tests/test_torch_op_counts.py); the design keeps the whole decode in
+// registers and touches device memory once per input and output word.
 #include "bc7_common.cuh"
 
 namespace bc7 {

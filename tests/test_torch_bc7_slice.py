@@ -1,7 +1,8 @@
 """The whole BC7 default-tier slice of the PyTorch port on the CPU:
 encode_bc7(opaque=True) -> decode_bc7 held against the JAX package's
 encode on 32x32 crops of the opaque golden-corpus contents (near-tie
-rule), and the golden PSNR floors on the full contents."""
+rule), the default call (opaque=False) against the JAX default call, and
+the golden PSNR floors on the full contents."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +28,15 @@ def test_encode_slice_matches_jax(corpus, content):
     ref = np.asarray(jbc67.encode_bc7(jnp.asarray(blocks), opaque=True))
     got = bc67.encode_bc7(torch.from_numpy(blocks), opaque=True).numpy()
     assert got.shape == ref.shape and got.dtype == np.uint8
+    assert_near_tie(got.view(np.uint32), ref.view(np.uint32), px)
+
+
+def test_default_encode_matches_jax_default(corpus):
+    """encode_bc7(blocks) with no opaque argument, both packages: on opaque
+    content the JAX package's mode 7 scores inf on every block."""
+    blocks, px = _pixels(corpus["albedo"][:32, :32])
+    ref = np.asarray(jbc67.encode_bc7(jnp.asarray(blocks)))
+    got = bc67.encode_bc7(torch.from_numpy(blocks)).numpy()
     assert_near_tie(got.view(np.uint32), ref.view(np.uint32), px)
 
 

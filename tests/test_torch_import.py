@@ -1,6 +1,7 @@
 """The port stands alone and its kernel gate: directxtex_tpu_torch imports
 no jax and nothing of directxtex_tpu, its CUDA launchers import without
-nvcc, a CPU tensor takes the plain twin, and unsupported settings raise."""
+nvcc, a CPU tensor takes the plain twin, a launcher refuses a CPU tensor,
+and unsupported settings raise."""
 
 import subprocess
 import sys
@@ -9,14 +10,17 @@ import numpy as np
 import pytest
 import torch
 
-from directxtex_tpu_torch.bc import bc67, cuda_kernels
+from directxtex_tpu_torch.bc import bc6h, bc67, cuda_kernels
+from directxtex_tpu_torch.models import pipelines
 
 
 def test_package_imports_no_jax():
     code = (
         "import sys\n"
         "import directxtex_tpu_torch, directxtex_tpu_torch._build\n"
-        "from directxtex_tpu_torch.bc import bc67, common, cuda_kernels\n"
+        "from directxtex_tpu_torch.bc import bc6h, bc67, common, "
+        "cuda_kernels\n"
+        "from directxtex_tpu_torch.models import pipelines\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'directxtex_tpu']\n"
         "assert not bad, bad\n")
@@ -27,13 +31,14 @@ def test_launchers_import_without_building():
     # importing and resetting touches no compiler and no device
     cuda_kernels.reset_launch_counts()
     assert cuda_kernels.launch_counts() == {
-        "bc7_decode": 0, "bc7_encode": 0, "bc7_refine": 0}
+        "bc7_decode": 0, "bc7_encode": 0, "bc7_refine": 0,
+        "bc6h_decode": 0, "bc6h_encode": 0, "bc6h_refine": 0}
 
 
-def _blocks(nb=32, seed=3):
+def _blocks(nb=32, seed=3, alpha=1.0):
     rng = np.random.default_rng(seed)
     blocks = rng.random((nb, 16, 4)).astype(np.float32)
-    blocks[..., 3] = 1.0
+    blocks[..., 3] = alpha
     return torch.from_numpy(blocks)
 
 
@@ -51,12 +56,34 @@ def test_cpu_tensors_take_the_plain_twins():
     assert set(cuda_kernels.launch_counts().values()) == {0}
 
 
+@pytest.mark.parametrize("signed", [False, True])
+def test_cpu_tensors_take_the_bc6h_plain_twins(signed):
+    cuda_kernels.reset_launch_counts()
+    blocks = _blocks(16, seed=5) * 6.0 - (3.0 if signed else 0.0)
+    px = bc6h.px_of_blocks(blocks, signed)
+    err, words = bc6h.bc6h_search_words(px, signed)
+    ref_err, ref_words = bc6h._bc6h_search_plain(px, signed)
+    assert torch.equal(words, ref_words) and torch.equal(err, ref_err)
+    refined = bc6h.bc6h_refine_words(px, words, bc6h.BC6H_LADDER_MID,
+                                     signed, remap=True)
+    assert torch.equal(refined, bc6h._bc6h_refine_plain(
+        px, words, bc6h.BC6H_LADDER_MID, signed, remap=True))
+    bits = bc6h.bc6h_decode_words(refined, signed)
+    assert torch.equal(bits, bc6h._bc6h_decode_plain(refined, signed))
+    assert set(cuda_kernels.launch_counts().values()) == {0}
+
+
 @pytest.mark.parametrize("launcher,args", [
     ("bc7_decode", lambda: (torch.zeros((4, 8), dtype=torch.int32),)),
     ("bc7_encode", lambda: (torch.zeros((64, 8), dtype=torch.int32),)),
     ("bc7_refine", lambda: (torch.zeros((64, 8), dtype=torch.int32),
                             torch.zeros((4, 8), dtype=torch.int32),
                             (1, 3, 5, 4))),
+    ("bc6h_decode", lambda: (torch.zeros((4, 8), dtype=torch.int32), False)),
+    ("bc6h_encode", lambda: (torch.zeros((48, 8), dtype=torch.int32), True)),
+    ("bc6h_refine", lambda: (torch.zeros((48, 8), dtype=torch.int32),
+                             torch.zeros((4, 8), dtype=torch.int32),
+                             (1, (4, 1)), (1, (4, 1)), False, True, False)),
 ])
 def test_launchers_refuse_cpu_tensors(launcher, args):
     with pytest.raises(ValueError, match="CUDA"):
@@ -70,14 +97,42 @@ def test_wrappers_check_shapes_and_types():
         bc67.bc7_search_words(torch.zeros((16, 4, 8), dtype=torch.int32))
     with pytest.raises(ValueError):
         bc67.decode_bc7(torch.zeros((8, 8), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        bc6h.bc6h_search_words(torch.zeros((64, 8), dtype=torch.int32), False)
+    with pytest.raises(ValueError):
+        bc6h.decode_bc6h(torch.zeros((8, 8), dtype=torch.uint8), False)
+    with pytest.raises(ValueError):
+        bc6h.bc6h_refine_words(torch.zeros((48, 8), dtype=torch.int32),
+                               torch.zeros((4, 8), dtype=torch.int32),
+                               (1, (4, 0)), False)
 
 
 @pytest.mark.parametrize("kwargs", [
     {"flags": 0x100000}, {"flags": 0x200000}, {"flags": 0x80000},
     {"opaque": False}, {"alpha_weight": 2.0}])
 def test_unsupported_encode_settings_raise(kwargs):
+    # opaque=False raises only where some block has alpha (mode 7)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bc67.encode_bc7(_blocks(4), **kwargs)
+        bc67.encode_bc7(_blocks(4, alpha=0.5), **kwargs)
+
+
+def test_default_encode_bc7_takes_opaque_blocks():
+    blocks = _blocks(8)
+    assert torch.equal(bc67.encode_bc7(blocks),
+                       bc67.encode_bc7(blocks, opaque=True))
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"rows_sel": ("r1",)}, {"flags": 0x100000}, {"flags": 0x80000}])
+def test_unsupported_bc6h_settings_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        bc6h.encode_bc6h(_blocks(4), False, **kwargs)
+
+
+@pytest.mark.parametrize("kind", ["bc1", "bc3", "bc4", "bc5"])
+def test_unported_pipeline_kinds_raise(kind):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pipelines.bc_encode_pipeline(kind)
 
 
 def test_unsupported_refine_settings_raise():
