@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one GPU.
 
-Drives the port's two paths through their six hand-written CUDA kernels
-and holds every kernel against its plain PyTorch twin on the card:
+Drives the port's paths through their hand-written CUDA kernels and holds
+every kernel against its plain PyTorch twin on the card:
 
 - the BC7 default tier (image_to_blocks -> encode_bc7 -> decode_bc7): K1
-  decode, K2 search, K3 MOMENT refine;
+  decode, K2 search, K3 MOMENT refine; on opaque images (K2's opaque
+  variant), on images with alpha (K2's alpha variant with mode 7, K3 with
+  mode 7 in scope), at alpha weights 1.0 and 2.0, and the QUICK tier (K2's
+  quick variant, mode 6 alone);
 - BC6H (BASELINE config 4, hdr_cubemap_pipeline -> decode_bc6h, and the
   mid / maxq tiers of encode_bc6h): K4 decode, K5 search, K6 refine.
 
 Phases:
 
   0. device: the card's name and power limit, torch, CUDA and nvcc;
-  1. build: nvcc builds the kernels from directxtex_tpu_torch/csrc;
+  1. build: nvcc builds the kernels from directxtex_tpu_torch/csrc; ptxas
+     registers, stack and spills per kernel instance;
   2. K1: bit-exact on tests/golden/decode_vectors.npz and equal to the
      plain decode on 262,144 random mixed-mode words;
   3. K2: kernel search vs plain search on bench512.npz and the opaque
@@ -33,7 +37,16 @@ Phases:
      times, each kernel's time at the path's shapes, one run of each plain
      twin held against its kernel, and the mid / maxq tiers on the same
      faces;
- 11. the kernels line: every kernel's launches, error against its twin,
+ 11. K2 alpha and K3 (mode 7 in scope) against their twins on alphagrad,
+     the 200-block mixed set (half opaque) and the 2048^2 image with
+     alpha, at alpha weights 1.0 and 2.0: words and search errors equal;
+ 12. K2 quick against its twin on bench512.npz and both 2048^2 images;
+ 13. BC7 gates on the card: the alphagrad corpus floor and the frozen
+     reference parity of albedo, tworegion, normal and alphagrad;
+ 14. the 2048^2 image with alpha through the default path and the QUICK
+     path (on both 2048^2 images), each with its launch counts, and
+     CUDA-event times of the paths and kernels beside the opaque path's;
+ 15. the kernels line: every kernel's launches, error against its twin,
      time, plain time and bound (bytes or operations, whichever is
      larger, at the H100's published peaks, for the work each block of
      the run needs).
@@ -63,6 +76,12 @@ SOURCES = {
                    "directxtex_tpu/bc/pallas_kernels.py:2020"),
     "bc7_refine": ("directxtex_tpu_torch/csrc/bc7_refine.cu",
                    "directxtex_tpu/bc/pallas_kernels.py:2667"),
+    "bc7_encode_alpha": ("directxtex_tpu_torch/csrc/bc7_encode.cuh",
+                         "directxtex_tpu/bc/pallas_kernels.py:2020"),
+    "bc7_encode_quick": ("directxtex_tpu_torch/csrc/bc7_encode.cuh",
+                         "directxtex_tpu/bc/pallas_kernels.py:2020"),
+    "bc7_refine_alpha": ("directxtex_tpu_torch/csrc/bc7_refine.cu",
+                         "directxtex_tpu/bc/pallas_kernels.py:2667"),
     "bc6h_decode": ("directxtex_tpu_torch/csrc/bc6h_decode.cu",
                     "directxtex_tpu/bc/pallas_kernels.py:2784"),
     "bc6h_encode": ("directxtex_tpu_torch/csrc/bc6h_encode.cu",
@@ -78,9 +97,14 @@ SOURCES = {
 # refines do one mode's (one winner class's) work, weighed here by the
 # blocks of the run that have it.
 BC7_SEARCH_OPS = 89073
+# K2's alpha variant on a block with alpha (an opaque block skips mode 7
+# and costs BC7_SEARCH_OPS), and its quick variant
+BC7_SEARCH_ALPHA_OPS = 112739
+BC7_SEARCH_QUICK_OPS = 4641
 BC6H_SEARCH_OPS = 173630
 BC7_DECODE_OPS = (1461, 1337, 1557, 1295, 859, 816, 518, 1373)  # per mode
-BC7_REFINE_OPS = {1: 5612, 3: 5432, 5: 4869, 4: 6908}  # others pass through
+BC7_REFINE_OPS = {1: 5612, 3: 5432, 5: 4869, 7: 6336,
+                  4: 6908}                     # others pass through
 BC6H_DECODE_OPS = (1436, 1442, 1432, 1440, 1436, 1436, 1432, 1444, 1444,
                    1410, 598, 668, 680, 644)      # per mode row, unsigned
 # the maxq refine of a one-region (rows 10-13) and a two-region winner
@@ -89,7 +113,9 @@ BC6H_REFINE_OPS = {"one_region": 815084, "two_region": 1294096}
 # the data's own width: u8 texels, f16 pixels and halves, 16-byte words
 BYTES_PER_BLOCK = {"bc7_decode": 16 + 64, "bc7_encode": 64 + 16,
                    "bc7_refine": 64 + 16 + 16, "bc6h_decode": 16 + 96,
-                   "bc6h_encode": 96 + 16, "bc6h_refine": 96 + 16 + 16}
+                   "bc6h_encode": 96 + 16, "bc6h_refine": 96 + 16 + 16,
+                   "bc7_encode_alpha": 64 + 16, "bc7_encode_quick": 64 + 16,
+                   "bc7_refine_alpha": 64 + 16 + 16}
 # H100 SXM published peaks: HBM bytes/s, and
 # f32 elementwise operations/s = 132 SMs x 128 lanes x 1.98 GHz (the
 # 67 TFLOP/s figure counts an FMA as two; the kernels build with
@@ -108,6 +134,17 @@ BC6H_FLOORS = {"hdr": 45.24, "hdr_china": 32.68, "hdr_flower": 31.38,
 FACE = 512                 # config 4's face (benchmarks/run_all.py:146)
 MAXQ_PLAIN_BLOCKS = 16384  # blocks of the maxq plain twin run at face 512
 N_BIMODAL = 40             # degenerate blocks of the signed random set
+ALPHA_WEIGHTS = (1.0, 2.0)
+# tests/test_golden.py: the alphagrad BC7 floor and the frozen reference
+# parity margins of the BC7 contents (ref_encodes.npz)
+ALPHAGRAD_FLOOR = 37.17
+REF_PARITY_MARGINS = {"albedo": 0.04, "tworegion": 0.28, "normal": 2.65,
+                      "alphagrad": 0.32}
+# the opaque BC7 path's times in PERF.md section 5 before the alpha path
+# and QUICK were added (NVIDIA H100 80GB HBM3, 700 W), printed beside this
+# run's
+EARLIER_OPAQUE_MS = {"path": 3.396, "bc7_encode": 1.917,
+                     "bc7_refine": 0.866}
 
 
 def emit(obj) -> None:
@@ -117,6 +154,43 @@ def emit(obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def ptxas_summary(log: str) -> dict:
+    """{kernel entry: "registers, stack, spill stores, spill loads"} from
+    nvcc's -Xptxas=-v output (one entry per template instance)."""
+    parts, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            parts[entry] = []
+        elif entry and ("registers" in ln or "spill" in ln):
+            parts[entry].append(ln.split(":")[-1].strip())
+    return {k: "; ".join(v) for k, v in parts.items()}
+
+
+def bench_image(size: int = SLICE_SIZE, alpha: bool = False) -> np.ndarray:
+    """The bench image of bench.py:89-99. With alpha, its alpha is drawn
+    after the RGB noise from the same generator: 1.0 left of column 512
+    (opaque blocks inside an image with alpha), a smooth blend of rows
+    above 1024, and a 0/1 cut-out with hard edges below (foliage)."""
+    rng = np.random.default_rng(0)
+    x = np.linspace(0, 1, size, dtype=np.float32)
+    gx, gy = np.meshgrid(x, x)
+    img = np.stack([gx, (gx * gy), np.abs(np.sin(gx * 37) * 0.5 + 0.3),
+                    np.ones_like(gx)], axis=-1).astype(np.float32)
+    img += (rng.random(img.shape).astype(np.float32) - 0.5) * 0.05
+    img = np.clip(img, 0, 1)
+    img[..., 3] = 1.0
+    if alpha:
+        noise = rng.random((size, size)).astype(np.float32) - 0.5
+        rows = np.arange(size)[:, None]
+        cols = np.arange(size)[None, :]
+        blend = np.clip(0.1 + 0.8 * gy + noise * 0.05, 0, 1)
+        cut = (np.sin(61 * gx) * np.sin(47 * gy) > 0).astype(np.float32)
+        img[..., 3] = np.where(cols < 512, 1.0,
+                               np.where(rows < 1024, blend, cut))
+    return img
 
 
 def per_mode_ops(torch, modes, table: dict) -> float:
@@ -152,10 +226,8 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_info["log"].splitlines()
-             if "entry function" in ln or "registers" in ln
-             or "spill" in ln]
-    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    emit({"phase": "build", "seconds": build_s,
+          "ptxas": ptxas_summary(_build.build_info["log"])})
 
     def to_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -243,15 +315,7 @@ def main() -> None:
 
     # 6. the slice at 2048^2 (bench.py:89-99) -----------------------------
     size = SLICE_SIZE
-    rng = np.random.default_rng(0)
-    x = np.linspace(0, 1, size, dtype=np.float32)
-    gx, gy = np.meshgrid(x, x)
-    img = np.stack([gx, (gx * gy), np.abs(np.sin(gx * 37) * 0.5 + 0.3),
-                    np.ones_like(gx)], axis=-1).astype(np.float32)
-    img += (rng.random(img.shape).astype(np.float32) - 0.5) * 0.05
-    img = np.clip(img, 0, 1)
-    img[..., 3] = 1.0
-    img_d = to_dev(img)
+    img_d = to_dev(bench_image(size))
 
     def encode_path():
         return bc67.encode_bc7(image_to_blocks(img_d)[0], opaque=True)
@@ -263,7 +327,7 @@ def main() -> None:
     dec = bc67.decode_bc7(enc)
     torch.cuda.synchronize()
     counts = {k: v for k, v in cuda_kernels.launch_counts().items()
-              if k.startswith("bc7_")}
+              if k in ("bc7_decode", "bc7_encode", "bc7_refine")}
     check(all(v > 0 for v in counts.values()), f"launch counts {counts}")
     check(tuple(dec.shape) == (size * size // 16, 16, 4)
           and bool(torch.isfinite(dec).all()), "2K output shape / finite")
@@ -310,7 +374,8 @@ def main() -> None:
     mtexels = size * size / (enc_ms * 1e-3) / 1e6
     emit({"phase": "timing2k", "card": smi, "encode_ms": enc_ms,
           "encode_mtexels_per_s": mtexels, "kernel_ms": k_ms,
-          "plain_ms": plain_ms, "search_words_differ_vs_plain": n2k})
+          "plain_ms": plain_ms, "search_words_differ_vs_plain": n2k,
+          "earlier_ms": EARLIER_OPAQUE_MS})
 
     nb_of = {"bc7_decode": px2k.shape[1], "bc7_encode": px2k.shape[1],
              "bc7_refine": px2k.shape[1]}
@@ -332,6 +397,13 @@ def main() -> None:
     nb_of.update(r["nb"])
     plain_nb.update(r["plain_nb"])
     ops_of.update(r["ops"])
+
+    r = bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_d,
+                         enc_ms)
+    for d, key in ((launches, "launches"), (k_ms, "k_ms"),
+                   (plain_ms, "plain_ms"), (max_err, "max_err"),
+                   (nb_of, "nb"), (plain_nb, "nb"), (ops_of, "ops")):
+        d.update(r[key])
 
     lines = []
     for k in SOURCES:
@@ -586,6 +658,180 @@ def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
                for r in range(14)})}
     return {"launches": launches, "k_ms": k_ms, "plain_ms": plain_ms,
             "max_err": max_err, "nb": nb, "plain_nb": plain_nb, "ops": ops}
+
+
+
+def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
+                     opaque_ms) -> dict:
+    """Phases 11-14. Returns the launches (from the paths' runs), times,
+    plain times, errors against the twins, block counts and operations of
+    K2's alpha and quick variants and of K3 with mode 7 in scope."""
+    from directxtex_tpu_torch.bc import bc67, cuda_kernels
+    from directxtex_tpu_torch.bc.common import image_to_blocks
+
+    def px_of(blocks):
+        return bc67._quantize_ldr(blocks).reshape(64, -1).contiguous()
+
+    def same(a, b, what):
+        """Kernel and twin agree word for word, and the search errors bit
+        for bit (the twins sum in the kernels' order)."""
+        check(a.shape == b.shape and torch.equal(a, b),
+              f"{what} differs from plain")
+
+    alpha, quick = bc67.SEARCH_MODES_ALPHA, bc67.SEARCH_MODES_QUICK
+    ralpha = bc67.REFINE_MODES_ALPHA
+    size = SLICE_SIZE
+    img_a = to_dev(bench_image(size, alpha=True))
+    px_a = px_of(image_to_blocks(img_a)[0])
+    px_o = px_of(image_to_blocks(img_opaque)[0])
+
+    # 11. K2 alpha and K3 with mode 7 against their twins ------------------
+    rng = np.random.default_rng(11)
+    mixed = rng.random((200, 16, 4)).astype(np.float32)
+    mixed[:100, :, 3] = 1.0
+    contents = [("alphagrad", px_of(image_to_blocks(
+        to_dev(corpus["alphagrad"]))[0])), ("mixed200", px_of(to_dev(mixed))),
+        (f"alpha{size}", px_a)]
+    plain = {}
+    for label, px in contents:
+        for aw in ALPHA_WEIGHTS:
+            e_k, w_k = cuda_kernels.bc7_encode(px, alpha, aw)
+            r_k = cuda_kernels.bc7_refine(px, w_k, ralpha, aw)
+            t_s = event_ms(lambda: plain.update(
+                search=bc67._bc7_search_plain(px, alpha, aw)))[0]
+            t_r = event_ms(lambda: plain.update(
+                refine=bc67._bc7_refine_plain(px, w_k, ralpha, aw)))[0]
+            e_p, w_p = plain["search"]
+            what = f"{label} aw={aw}"
+            same(w_k, w_p, f"K2 alpha words {what}")
+            same(e_k, e_p, f"K2 alpha errors {what}")
+            same(r_k, plain["refine"], f"K3 alpha {what}")
+            modes = torch.bincount(bc67._mode_of(bc67._words_i64(w_k)),
+                                   minlength=9).tolist()
+            emit({"phase": "K2_alpha", "content": label, "aw": aw,
+                  "blocks": px.shape[1], "words_equal": True,
+                  "errors_equal": True, "K3_words_equal": True,
+                  "refined_blocks": int((r_k != w_k).any(dim=0).sum()),
+                  "search_modes": modes})
+            # mode 7 wins blocks of alphagrad and of the mixed set
+            # (tests/test_torch_bc7_alpha.py); the 2048^2 image reports
+            check(modes[7] > 0 or label == f"alpha{size}",
+                  f"no mode-7 winner on {what}")
+            if label == f"alpha{size}" and aw == 1.0:
+                # the twins' one run at the main path's size
+                w_search_a, plain_ms = w_k, {"bc7_encode_alpha": t_s,
+                                             "bc7_refine_alpha": t_r}
+                max_err = {"bc7_encode_alpha": float(
+                    (e_k - e_p).abs().max()), "bc7_refine_alpha": float(
+                    (r_k.to(torch.int64) - plain["refine"].to(torch.int64))
+                    .abs().max())}
+
+    # 12. K2 quick against its twin ----------------------------------------
+    for label, px in (("bench512", px_of(image_to_blocks(
+            to_dev(b512["img"]))[0])), (f"opaque{size}", px_o),
+            (f"alpha{size}", px_a)):
+        e_k, w_k = cuda_kernels.bc7_encode(px, quick)
+        t_q = event_ms(lambda: plain.update(
+            quick=bc67._bc7_search_plain(px, quick)))[0]
+        same(w_k, plain["quick"][1], f"K2 quick words {label}")
+        same(e_k, plain["quick"][0], f"K2 quick errors {label}")
+        emit({"phase": "K2_quick", "content": label, "blocks": px.shape[1],
+              "words_equal": True, "errors_equal": True})
+        if label == f"alpha{size}":
+            plain_ms["bc7_encode_quick"] = t_q
+            max_err["bc7_encode_quick"] = float(
+                (e_k - plain["quick"][0]).abs().max())
+
+    # 13. BC7 gates on the card (tests/test_golden.py:114, :278-311) -------
+    ref = np.load(os.path.join(GOLDEN, "ref_encodes.npz"))
+    gates = {}
+    for content, margin in REF_PARITY_MARGINS.items():
+        blocks = image_to_blocks(to_dev(corpus[content]))[0]
+        dec = bc67.decode_bc7(bc67.encode_bc7(blocks))
+        mse = float(((dec.to(torch.float64) - blocks.to(torch.float64))
+                     ** 2).mean())
+        psnr = 10 * np.log10(1.0 / max(mse, 1e-30))
+        want = float(ref[f"bc7_{content}_psnr"]) + margin
+        check(psnr >= want, f"BC7 {content} parity: {psnr} < {want}")
+        gates[content] = {"psnr": psnr, "parity_min": want}
+    check(gates["alphagrad"]["psnr"] >= ALPHAGRAD_FLOOR,
+          f"alphagrad floor: {gates['alphagrad']['psnr']}")
+    emit({"phase": "bc7_gates", "gates": gates,
+          "alphagrad_floor": ALPHAGRAD_FLOOR})
+
+    # 14. the paths at 2048^2 --------------------------------------------
+    def path(img, flags=0):
+        return bc67.encode_bc7(image_to_blocks(img)[0], flags)
+
+    nb = px_a.shape[1]
+    runs = {}
+    for name, img, flags, kernels in (
+            ("alpha", img_a, 0, ("bc7_encode_alpha", "bc7_refine_alpha",
+                                 "bc7_decode")),
+            ("quick_alpha", img_a, bc67._BC7_QUICK,
+             ("bc7_encode_quick", "bc7_decode")),
+            ("quick_opaque", img_opaque, bc67._BC7_QUICK,
+             ("bc7_encode_quick", "bc7_decode"))):
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        blocks = image_to_blocks(img)[0]
+        dec = bc67.decode_bc7(bc67.encode_bc7(blocks, flags))
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cuda_kernels.launch_counts().items()
+                  if v}
+        check(sorted(counts) == sorted(kernels), f"{name} launches {counts}")
+        check(tuple(dec.shape) == (nb, 16, 4)
+              and bool(torch.isfinite(dec).all()), f"{name} output")
+        mse = float(((dec.to(torch.float64) - blocks.to(torch.float64))
+                     ** 2).mean())
+        runs[name] = {"launches": counts,
+                      "psnr": 10 * np.log10(1.0 / max(mse, 1e-30))}
+    launches = {"bc7_encode_alpha": runs["alpha"]["launches"][
+        "bc7_encode_alpha"], "bc7_refine_alpha": runs["alpha"]["launches"][
+        "bc7_refine_alpha"], "bc7_encode_quick": runs["quick_alpha"][
+        "launches"]["bc7_encode_quick"]}
+
+    med = {}
+    for name, fn in (
+            ("alpha_path", lambda: path(img_a)),
+            ("bc7_encode_alpha", lambda: cuda_kernels.bc7_encode(
+                px_a, alpha)),
+            ("bc7_refine_alpha", lambda: cuda_kernels.bc7_refine(
+                px_a, w_search_a, ralpha)),
+            ("quick_path_alpha", lambda: path(img_a, bc67._BC7_QUICK)),
+            ("quick_path_opaque", lambda: path(img_opaque,
+                                               bc67._BC7_QUICK)),
+            ("bc7_encode_quick", lambda: cuda_kernels.bc7_encode(
+                px_a, quick)),
+            ("bc7_encode_alpha_aw2", lambda: cuda_kernels.bc7_encode(
+                px_a, alpha, 2.0)),
+            ("opaque_path", lambda: bc67.encode_bc7(
+                image_to_blocks(img_opaque)[0], opaque=True)),
+            ("bc7_encode", lambda: cuda_kernels.bc7_encode(px_o))):
+        fn()
+        med[name] = float(np.median(event_ms(fn, 7)))
+    texels = size * size
+    emit({"phase": "alpha2k", "card": smi, "blocks": nb,
+          "opaque_blocks": int((px_a.reshape(16, 4, -1)[:, 3, :] == 255)
+                               .all(dim=0).sum()),
+          "runs": runs, "ms": med,
+          "alpha_path_mtexels_per_s": texels / (med["alpha_path"] * 1e-3)
+          / 1e6,
+          "quick_path_mtexels_per_s": texels / (
+              med["quick_path_alpha"] * 1e-3) / 1e6,
+          "opaque_path_ms_earlier_run": opaque_ms,
+          "earlier_opaque_ms": EARLIER_OPAQUE_MS})
+
+    has_alpha = (px_a.reshape(16, 4, -1)[:, 3, :] != 255).any(dim=0)
+    n_alpha = float(has_alpha.sum())
+    ops = {"bc7_encode_alpha": n_alpha * BC7_SEARCH_ALPHA_OPS
+           + (nb - n_alpha) * BC7_SEARCH_OPS,
+           "bc7_encode_quick": float(nb) * BC7_SEARCH_QUICK_OPS,
+           "bc7_refine_alpha": per_mode_ops(torch, bc67._mode_of(
+               bc67._words_i64(w_search_a)), BC7_REFINE_OPS)}
+    k_ms = {k: med[k] for k in ops}
+    return {"launches": launches, "k_ms": k_ms, "plain_ms": plain_ms,
+            "max_err": max_err, "nb": {k: nb for k in ops}, "ops": ops}
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""BC7 codec on torch tensors — the default tier for opaque images.
+"""BC7 codec on torch tensors — the default tier (with or without alpha,
+at any alpha weight) and the QUICK tier.
 
 The PyTorch counterpart of directxtex_tpu/bc/bc67.py (reference:
 BC6HBC7.cpp). Layouts follow the JAX package: pixel planes are lane-major
@@ -17,9 +18,13 @@ kernels do, so kernel and twin agree bit for bit wherever the arithmetic
 allows (no FMA contraction: the kernels build with --fmad=false).
 
 Encode follows the JAX package's jnp path exactly: off-axis shape ranking,
-the shared float trajectory for modes 1/3 and for modes 4/5, mode 6,
-cross-mode fold in the order (1, 3, 5, 6, 4) with strict `<`, then one
-LADDER_MOMENT winner-refine over modes (1, 3, 5, 4).
+the shared float trajectory for modes 1/3 and for modes 4/5, mode 6, mode
+7 on the blocks with alpha, cross-mode fold in the order (1, 3, 5, 6, 7, 4)
+with strict `<`, then one LADDER_MOMENT winner-refine over modes
+(1, 3, 5, 7, 4). The QUICK tier searches mode 6 alone and skips the
+refine. `alpha_weight` scales the alpha channel's squared error in
+scoring and index assignment only (under modes 4/5 the alpha channel sits
+where the rotation put it).
 """
 
 from __future__ import annotations
@@ -78,10 +83,19 @@ BC7_SHARED2SUB_ROUNDS = 1
 BC7_SHARED45_ROUNDS = 1
 LADDER_MOMENT = "moment"
 
-# the default tier for opaque images (bc67.py:1955-1970): search modes in
-# fold order, and the winner-refine scope (mode 6 skipped)
+# encode_bc7's flags (bc67.py:381-383)
+_BC7_QUICK = 0x100000
+_BC7_USE_3SUBSETS = 0x80000
+_BC7_MAXQUALITY = 0x200000
+
+# search modes in fold order and winner-refine scopes (mode 6 skipped) of
+# the tiers the port runs (bc67.py:1955-1970): the default tier for
+# opaque images and for images with alpha, and QUICK (no refine)
 SEARCH_MODES = (1, 3, 5, 6, 4)
 REFINE_MODES = (1, 3, 5, 4)
+SEARCH_MODES_ALPHA = (1, 3, 5, 6, 7, 4)
+REFINE_MODES_ALPHA = (1, 3, 5, 7, 4)
+SEARCH_MODES_QUICK = (6,)
 
 
 def tables_as_numpy() -> dict:
@@ -101,6 +115,9 @@ def tables_as_numpy() -> dict:
         "BC7_SHARED2SUB_ROUNDS": BC7_SHARED2SUB_ROUNDS,
         "BC7_SHARED45_ROUNDS": BC7_SHARED45_ROUNDS,
         "LADDER_MOMENT": LADDER_MOMENT,
+        "_BC7_QUICK": _BC7_QUICK,
+        "_BC7_USE_3SUBSETS": _BC7_USE_3SUBSETS,
+        "_BC7_MAXQUALITY": _BC7_MAXQUALITY,
     }
 
 
@@ -509,12 +526,16 @@ def _unquantize_with_p_t(q0, q1, p0, p1, m: _BC7Mode, shared_p: bool):
 
 
 def _assign_indices_t(px_i, u0, u1, prec: int, mask, ch_start: int = 0,
-                      ch_end: int = 4):
+                      ch_end: int = 4, aw: float = 1.0, alpha_ch: int = 3,
+                      w_rows=None):
     """Projection-based index assignment (BC7Encode.hlsl:501-533): project
     each pixel onto the endpoint axis, snap to the nearest interpolation
     weight, score with the exact integer palette over channels
     [ch_start, ch_end). px_i [16, 4, NB] int32; u0/u1 [4, NB].
-    Returns (idx [16, NB] int32, err [NB] f32)."""
+    The squared error of channel alpha_ch is scaled by aw (scoring only;
+    the projection stays unweighted); w_rows, per-channel [NB] weights,
+    take its place where the alpha channel differs per block (refine of
+    modes 4/5). Returns (idx [16, NB] int32, err [NB] f32)."""
     K = 1 << prec
     d0 = [px_i[:, c, :] - u0[c][None, :] for c in range(ch_start, ch_end)]
     e = [u1[c] - u0[c] for c in range(ch_start, ch_end)]
@@ -539,10 +560,19 @@ def _assign_indices_t(px_i, u0, u1, prec: int, mask, ch_start: int = 0,
     wk = _pal_weight(idx, K)
     # exact integer palette: u0 + ((w (u1-u0) + 32) >> 6)
     dist = torch.zeros_like(p64)
-    for d, ee in zip(d0, e):
+    for c, d, ee in zip(range(ch_start, ch_end), d0, e):
         r = (d - ((wk * ee[None, :] + 32) >> 6)).to(torch.float32)
-        dist = dist + r * r
+        dist = dist + _weighted_sq(r, c, aw, alpha_ch, w_rows)
     return idx, _sum0(torch.where(mask, dist, 0.0))
+
+
+def _weighted_sq(r, c: int, aw: float, alpha_ch: int, w_rows):
+    """r * r of channel c, times its alpha weight (bc67.py:510-519)."""
+    if w_rows is not None:
+        return r * r * w_rows[c][None, :]
+    if c == alpha_ch and aw != 1.0:
+        return r * r * aw
+    return r * r
 
 
 def _ls_refit(px_f, x, mask, e0, e1, ch_start: int, ch_end: int):
@@ -829,7 +859,8 @@ def _top_k_shapes(ests, k: int):
     return picks
 
 
-def _eval_2sub_shared(px_i, px_f, mask_list, anchors, mode_ids):
+def _eval_2sub_shared(px_i, px_f, mask_list, anchors, mode_ids,
+                      aw: float = 1.0):
     """One shape candidate for the 2-subset family (bc67.py:1088): ONE
     float trajectory per subset steers both modes' endpoint fits; each mode
     quantizes it at its own precision and rescores exactly once.
@@ -857,7 +888,7 @@ def _eval_2sub_shared(px_i, px_f, mask_list, anchors, mode_ids):
             e0c, e1c = shared[sub]
             q0, q1, p0, p1 = _quantize_endpoints_t(e0c, e1c, m)
             u0, u1 = _unquantize_with_p_t(q0, q1, p0, p1, m, shared_p)
-            idx, err = _assign_indices_t(px_i, u0, u1, prec, mask)
+            idx, err = _assign_indices_t(px_i, u0, u1, prec, mask, aw=aw)
             total_err = total_err + err
             q0s.append(q0)
             q1s.append(q1)
@@ -870,7 +901,7 @@ def _eval_2sub_shared(px_i, px_f, mask_list, anchors, mode_ids):
     return out
 
 
-def _try_2sub_modes_shared(px_i, px_f, ests):
+def _try_2sub_modes_shared(px_i, px_f, ests, aw: float = 1.0):
     """Modes 1 and 3 (bc67.py:1169): the top BC7_SHAPE_CANDIDATES shapes,
     each evaluated for both modes off one float trajectory, folded per
     mode. Returns {mode_id: (err [NB], words [4, NB] int64)}."""
@@ -884,7 +915,8 @@ def _try_2sub_modes_shared(px_i, px_f, ests):
         pmask = tabs["parts1"][s_blk].t()                    # [16, NB]
         mask_list = [pmask == 0, pmask == 1]
         anchors = [0, tabs["fix1"][s_blk, 1]]
-        evals = _eval_2sub_shared(px_i, px_f, mask_list, anchors, (1, 3))
+        evals = _eval_2sub_shared(px_i, px_f, mask_list, anchors, (1, 3),
+                                  aw)
         for mode_id in (1, 3):
             err, q0s, q1s, p0s, p1s, idx = evals[mode_id]
             words = _emit_bc7(mode_id, s_blk, 0, 0, q0s, q1s, p0s, p1s,
@@ -896,7 +928,8 @@ def _try_2sub_modes_shared(px_i, px_f, ests):
     return best
 
 
-def _eval_subset_candidate(px_i, px_f, mask_list, anchors, mode_id: int):
+def _eval_subset_candidate(px_i, px_f, mask_list, anchors, mode_id: int,
+                           aw: float = 1.0):
     """One (mode, shape) candidate (bc67.py:908): axis fit, quantize and
     assign, one LS refit and re-assign, keep the better, anchor swaps.
     Returns (err [NB], q0s, q1s, p0s, p1s [lists], idx [16, NB])."""
@@ -911,7 +944,7 @@ def _eval_subset_candidate(px_i, px_f, mask_list, anchors, mode_id: int):
         def qpal(e0f_, e1f_):
             q0, q1, p0, p1 = _quantize_endpoints_t(e0f_, e1f_, m)
             u0, u1 = _unquantize_with_p_t(q0, q1, p0, p1, m, shared_p)
-            idx, err = _assign_indices_t(px_i, u0, u1, prec, mask)
+            idx, err = _assign_indices_t(px_i, u0, u1, prec, mask, aw=aw)
             return q0, q1, p0, p1, idx, err
 
         e0f, e1f = _minmax_axis_endpoints_t(px_f, mask,
@@ -933,15 +966,40 @@ def _eval_subset_candidate(px_i, px_f, mask_list, anchors, mode_id: int):
     return total_err, q0s, q1s, p0s, p1s, idx_full
 
 
-def _try_mode6(px_i, px_f):
+def _try_mode6(px_i, px_f, aw: float = 1.0):
     """Mode 6 (_try_single_mode(6), bc67.py:1438): one subset, joint RGBA
     indices. Returns (err [NB], words [4, NB] int64)."""
     nb = px_i.shape[2]
     mask = torch.ones((16, nb), dtype=torch.bool, device=px_i.device)
     err, q0s, q1s, p0s, p1s, idx = _eval_subset_candidate(
-        px_i, px_f, [mask], [0], 6)
+        px_i, px_f, [mask], [0], 6, aw)
     return err, _emit_bc7(6, 0, 0, 0, q0s, q1s, p0s, p1s, idx, None, nb,
                           px_i.device)
+
+
+def _try_mode7(px_i, px_f, ests, aw: float = 1.0):
+    """Mode 7 (_try_partition_mode(7, ests=est_cache[1]), bc67.py:1337):
+    the top BC7_SHAPE_CANDIDATES shapes of modes 1/3's ranking, each
+    evaluated on its own (axis fit with alpha, one LS refit, keep the
+    better per subset, anchor swaps), folded with a strict `<`.
+    Returns (err [NB], words [4, NB] int64); opaque blocks are not
+    masked here (the search does that)."""
+    tabs = _tables(px_i.device)
+    nb = px_i.shape[2]
+    best_err = torch.full((nb,), float("inf"), device=px_i.device)
+    best_words = torch.zeros((4, nb), dtype=torch.int64, device=px_i.device)
+    for s_blk in _top_k_shapes(ests, BC7_SHAPE_CANDIDATES):
+        pmask = tabs["parts1"][s_blk].t()                    # [16, NB]
+        mask_list = [pmask == 0, pmask == 1]
+        anchors = [0, tabs["fix1"][s_blk, 1]]
+        err, q0s, q1s, p0s, p1s, idx = _eval_subset_candidate(
+            px_i, px_f, mask_list, anchors, 7, aw)
+        words = _emit_bc7(7, s_blk, 0, 0, q0s, q1s, p0s, p1s, idx, None, nb,
+                          px_i.device)
+        better = err < best_err
+        best_err = torch.minimum(err, best_err)
+        best_words = torch.where(better[None, :], words, best_words)
+    return best_err, best_words
 
 
 def _rotate(px, rot: int):
@@ -953,10 +1011,11 @@ def _rotate(px, rot: int):
     return px[:, perm, :]
 
 
-def _try_modes45_shared(px_i, px_f):
+def _try_modes45_shared(px_i, px_f, aw: float = 1.0):
     """Modes 4 and 5 at index-mode 0 (bc67.py:1509): per rotation ONE float
     trajectory (color at 2-bit, alpha at 3-bit index width) steers both
-    modes; each quantizes and rescores exactly once.
+    modes; each quantizes and rescores exactly once. The alpha weight
+    rides the true alpha channel, which rotation rot moves to rot - 1.
     Returns {mode_id: (err [NB], words [4, NB] int64)}."""
     nb = px_i.shape[2]
     mask = torch.ones((16, nb), dtype=torch.bool, device=px_i.device)
@@ -966,6 +1025,7 @@ def _try_modes45_shared(px_i, px_f):
             for mode_id in (4, 5)}
     for rot in _MODE45_ROTS:
         pr_i, pr_f = _rotate(px_i, rot), _rotate(px_f, rot)
+        alpha_ch = 3 if rot == 0 else rot - 1
         e0f, e1f = _minmax_axis_endpoints_t(pr_f, mask, with_alpha=False)
         e0f = torch.cat([e0f[:3], pr_f[:, 3, :].amin(dim=0)[None]])
         e1f = torch.cat([e1f[:3], pr_f[:, 3, :].amax(dim=0)[None]])
@@ -985,8 +1045,10 @@ def _try_modes45_shared(px_i, px_f):
             cprec, aprec = m.index_prec, m.index_prec2       # index-mode 0
             q0, q1, p0, p1 = _quantize_endpoints_t(e0s, e1s, m)
             u0, u1 = _unquantize_with_p_t(q0, q1, p0, p1, m, False)
-            w1, cerr = _assign_indices_t(pr_i, u0, u1, cprec, mask, 0, 3)
-            w2, aerr = _assign_indices_t(pr_i, u0, u1, aprec, mask, 3, 4)
+            w1, cerr = _assign_indices_t(pr_i, u0, u1, cprec, mask, 0, 3,
+                                         aw, alpha_ch)
+            w2, aerr = _assign_indices_t(pr_i, u0, u1, aprec, mask, 3, 4,
+                                         aw, alpha_ch)
             err = cerr + aerr
             w1, w2, swap1, swap2 = _dual_anchor_fix(w1, w2, cprec, aprec)
             do_swap = torch.stack([swap1, swap1, swap1, swap2])
@@ -1007,23 +1069,41 @@ def _try_modes45_shared(px_i, px_f):
 _PLAIN_SEARCH_SLICE = 32768
 
 
-def _bc7_search_plain(px: torch.Tensor):
+def _check_search_modes(modes) -> tuple:
+    modes = tuple(modes)
+    if modes not in (SEARCH_MODES, SEARCH_MODES_ALPHA, SEARCH_MODES_QUICK):
+        raise NotImplementedError(
+            f"search modes {modes}: the port searches {SEARCH_MODES}, "
+            f"{SEARCH_MODES_ALPHA} and {SEARCH_MODES_QUICK} (MAXQUALITY "
+            "and USE_3SUBSETS: ROADMAP.md queue 1, 'The other BC7 tiers')")
+    return modes
+
+
+def _bc7_search_plain(px: torch.Tensor, modes=SEARCH_MODES,
+                      aw: float = 1.0):
     """Plain twin of K2: px [64, NB] int32 (0..255) -> (err [NB] f32,
-    words [4, NB] int32). Modes (1, 3, 5, 6, 4) folded in that order with
-    a strict `<`."""
+    words [4, NB] int32). `modes` (one of the three search tuples) are
+    folded in their order with a strict `<`; mode 7 scores inf on a block
+    whose alpha is 255 everywhere (bc67.py:2034)."""
+    modes = _check_search_modes(modes)
     errs, words = [], []
     for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE):
         px_i = px[:, s:s + _PLAIN_SEARCH_SLICE].reshape(16, 4, -1)
         px_f = px_i.to(torch.float32)
         nb = px_i.shape[2]
-        res = _try_2sub_modes_shared(px_i, px_f,
-                                     _shape_estimates_table(px_f))
-        res.update(_try_modes45_shared(px_i, px_f))
-        res[6] = _try_mode6(px_i, px_f)
+        res = {6: _try_mode6(px_i, px_f, aw)}
+        if 1 in modes:
+            ests = _shape_estimates_table(px_f)
+            res.update(_try_2sub_modes_shared(px_i, px_f, ests, aw))
+            res.update(_try_modes45_shared(px_i, px_f, aw))
+        if 7 in modes:
+            err7, words7 = _try_mode7(px_i, px_f, ests, aw)
+            has_alpha = (px_i[:, 3, :] != 255).any(dim=0)
+            res[7] = (torch.where(has_alpha, err7, float("inf")), words7)
         best_err = torch.full((nb,), float("inf"), device=px.device)
         best_words = torch.zeros((4, nb), dtype=torch.int64,
                                  device=px.device)
-        for mode_id in SEARCH_MODES:
+        for mode_id in modes:
             err, w = res[mode_id]
             better = err < best_err
             best_err = torch.minimum(err, best_err)
@@ -1033,15 +1113,19 @@ def _bc7_search_plain(px: torch.Tensor):
     return torch.cat(errs), torch.cat(words, dim=1)
 
 
-def bc7_search_words(px: torch.Tensor):
-    """K2 wrapper: the whole default-tier search. px [64, NB] int32
+def bc7_search_words(px: torch.Tensor, modes=SEARCH_MODES,
+                     aw: float = 1.0):
+    """K2 wrapper: the whole search of one tier. px [64, NB] int32
     (texels 0..255, row = pixel * 4 + channel) -> (err [NB] f32, words
-    [4, NB] int32). A CUDA tensor launches the kernel, a CPU tensor runs
-    the plain twin."""
+    [4, NB] int32); `modes` is SEARCH_MODES (default tier, opaque),
+    SEARCH_MODES_ALPHA (default tier with mode 7) or SEARCH_MODES_QUICK.
+    A CUDA tensor launches the kernel, a CPU tensor runs the plain
+    twin."""
     _check_px(px)
+    modes = _check_search_modes(modes)
     if _on_cuda(px):
-        return cuda_kernels.bc7_encode(px)
-    return _bc7_search_plain(px)
+        return cuda_kernels.bc7_encode(px, modes, aw)
+    return _bc7_search_plain(px, modes, aw)
 
 
 # ---------------------------------------------------------------------------
@@ -1115,13 +1199,16 @@ def _bc7_unpack_mode(words, mode: int):
 
 
 def _moment_channels_t(px_i, mask, m: _BC7Mode, shared_p: bool, q0, q1,
-                       p0, p1, wk_ch):
+                       p0, p1, wk_ch, aw: float = 1.0, alpha_ch: int = 3,
+                       w_rows=None):
     """Analytic single-step endpoint move per channel (LADDER_MOMENT,
     bc67.py:817): the exact quadratic model of the fixed-index error over
     the joint {-1, 0, +1}^2 q-step grid, argmin per channel. All sums are
     exact in f32 (integers and 64ths). wk_ch: per-channel [16, NB]
     palette weights. Returns (q0, q1 [4, NB], err0 [NB]) with err0 the
-    pre-move fixed-index error."""
+    pre-move fixed-index error, alpha-weighted as _assign_indices_t (the
+    move itself is weight-independent: a weight scales a channel's
+    quadratic uniformly)."""
     p1u = p0 if shared_p else p1
     q0r = [q0[c] for c in range(4)]
     q1r = [q1[c] for c in range(4)]
@@ -1132,7 +1219,8 @@ def _moment_channels_t(px_i, mask, m: _BC7Mode, shared_p: bool, q0, q1,
     for c in range(4):
         if m.rgba_prec[c] == 0:
             d = (px_i[:, c, :] - 255).to(torch.float32)
-            err0 = err0 + _sum0(torch.where(mask, d * d, 0.0))
+            err0 = err0 + _sum0(torch.where(
+                mask, _weighted_sq(d, c, aw, alpha_ch, w_rows), 0.0))
             continue
         prec, prec_p = m.rgba_prec[c], m.rgba_prec_p[c]
         maxq = (1 << prec) - 1
@@ -1141,7 +1229,8 @@ def _moment_channels_t(px_i, mask, m: _BC7Mode, shared_p: bool, q0, q1,
         wk = wk_ch[c]
         pal = ((64 - wk) * u0c[None, :] + wk * u1c[None, :] + 32) >> 6
         r = (px_i[:, c, :] - pal).to(torch.float32)
-        err0 = err0 + _sum0(torch.where(mask, r * r, 0.0))
+        err0 = err0 + _sum0(torch.where(
+            mask, _weighted_sq(r, c, aw, alpha_ch, w_rows), 0.0))
 
         if id(wk) not in moments:
             a = (64 - wk).to(torch.float32) * (1 / 64)
@@ -1194,8 +1283,8 @@ def _moment_channels_t(px_i, mask, m: _BC7Mode, shared_p: bool, q0, q1,
 # the re-assignment must beat before its indices are kept; with MOMENT the
 # finite re-assignment error always beats it, so the port drops err_l.
 
-def _refine_mode_subsets(px_i, words, mode_id: int):
-    """Winner-refine one partition-family mode (1, 3): unpack, MOMENT move
+def _refine_mode_subsets(px_i, words, mode_id: int, aw: float = 1.0):
+    """Winner-refine one partition-family mode (1, 3, 7): unpack, MOMENT move
     per subset with indices fixed, one re-assignment, keep per subset where
     the error drops, anchor swaps, re-emit.
     Returns (err_new, err_old [NB], words [4, NB] int64)."""
@@ -1220,10 +1309,10 @@ def _refine_mode_subsets(px_i, words, mode_id: int):
     for sub, mask in enumerate(mask_list):
         q0t, q1t, err0 = _moment_channels_t(
             px_i, mask, m, shared_p, q0s[sub], q1s[sub], p0s[sub],
-            p1s[sub], [wk] * 4)
+            p1s[sub], [wk] * 4, aw)
         u0, u1 = _unquantize_with_p_t(q0t, q1t, p0s[sub], p1s[sub], m,
                                       shared_p)
-        idx_t, err_t = _assign_indices_t(px_i, u0, u1, prec, mask)
+        idx_t, err_t = _assign_indices_t(px_i, u0, u1, prec, mask, aw=aw)
         bt = err_t < err0
         q0s[sub] = torch.where(bt[None, :], q0t, q0s[sub])
         q1s[sub] = torch.where(bt[None, :], q1t, q1s[sub])
@@ -1237,10 +1326,11 @@ def _refine_mode_subsets(px_i, words, mode_id: int):
                                        p1s, idx_full, None, nb, px_i.device)
 
 
-def _refine_mode45(px_i, words, mode_id: int):
+def _refine_mode45(px_i, words, mode_id: int, aw: float = 1.0):
     """Winner-refine modes 4/5: per-block rotation and index mode, MOMENT
     move with separate color/alpha weight planes, dual re-assignment,
-    independent anchor fixes. Returns (err_new, err_old [NB], words)."""
+    independent anchor fixes; the alpha weight rides the rotated alpha
+    channel per block. Returns (err_new, err_old [NB], words)."""
     m = _BC7_MODES[mode_id]
     nb = px_i.shape[2]
     mask = torch.ones((16, nb), dtype=torch.bool, device=px_i.device)
@@ -1257,6 +1347,13 @@ def _refine_mode45(px_i, words, mode_id: int):
         pal = torch.where((rot == c + 1)[None, :], px_i[:, c, :], pal)
     pr_i = torch.stack(pr + [pal], dim=1)
 
+    # per-block alpha-weight rows: the true alpha sits at rot-1 in rotated
+    # space (3 when unrotated)
+    w_rows = None
+    if aw != 1.0:
+        w_rows = [torch.where((rot == 0) if c == 3 else (rot == c + 1),
+                              aw, 1.0).to(torch.float32) for c in range(4)]
+
     im0 = im == 0
     im0_16 = im0[None, :]
     cidx = torch.where(im0_16, w1, w2)
@@ -1267,14 +1364,19 @@ def _refine_mode45(px_i, words, mode_id: int):
                       _pal_weight(aidx, 1 << prec1))
 
     q0t, q1t, err0 = _moment_channels_t(pr_i, mask, m, False, q0, q1, p0,
-                                        p1, [wkc, wkc, wkc, wka])
+                                        p1, [wkc, wkc, wkc, wka],
+                                        w_rows=w_rows)
     u0, u1 = _unquantize_with_p_t(q0t, q1t, p0, p1, m, False)
-    cidx_t, cerr = _assign_indices_t(pr_i, u0, u1, prec1, mask, 0, 3)
-    aidx_t, aerr = _assign_indices_t(pr_i, u0, u1, prec2, mask, 3, 4)
+    cidx_t, cerr = _assign_indices_t(pr_i, u0, u1, prec1, mask, 0, 3,
+                                     w_rows=w_rows)
+    aidx_t, aerr = _assign_indices_t(pr_i, u0, u1, prec2, mask, 3, 4,
+                                     w_rows=w_rows)
     err_t = cerr + aerr
     if m.index_mode_bits:
-        cidx_b, cerr_b = _assign_indices_t(pr_i, u0, u1, prec2, mask, 0, 3)
-        aidx_b, aerr_b = _assign_indices_t(pr_i, u0, u1, prec1, mask, 3, 4)
+        cidx_b, cerr_b = _assign_indices_t(pr_i, u0, u1, prec2, mask, 0, 3,
+                                           w_rows=w_rows)
+        aidx_b, aerr_b = _assign_indices_t(pr_i, u0, u1, prec1, mask, 3, 4,
+                                           w_rows=w_rows)
         cidx_t = torch.where(im0_16, cidx_t, cidx_b)
         aidx_t = torch.where(im0_16, aidx_t, aidx_b)
         err_t = torch.where(im0, err_t, cerr_b + aerr_b)
@@ -1300,15 +1402,16 @@ def _refine_mode45(px_i, words, mode_id: int):
 
 def _check_refine_modes(modes) -> tuple:
     modes = tuple(modes)
-    if not set(modes) <= set(REFINE_MODES):
+    if not set(modes) <= set(REFINE_MODES_ALPHA):
         raise NotImplementedError(
-            f"refine modes {modes}: the port refines modes {REFINE_MODES} "
-            "(ROADMAP.md queue 1, 'The other BC7 tiers')")
+            f"refine modes {modes}: the port refines modes "
+            f"{REFINE_MODES_ALPHA} (ROADMAP.md queue 1, 'The other BC7 "
+            "tiers')")
     return modes
 
 
 def _bc7_refine_plain(px: torch.Tensor, words_i32: torch.Tensor,
-                      modes=REFINE_MODES) -> torch.Tensor:
+                      modes=REFINE_MODES, aw: float = 1.0) -> torch.Tensor:
     """Plain twin of K3: px [64, NB] int32, words [4, NB] int32 ->
     refined words [4, NB] int32. A block is re-emitted only where its own
     mode is in `modes` and the error drops; others pass through."""
@@ -1318,14 +1421,14 @@ def _bc7_refine_plain(px: torch.Tensor, words_i32: torch.Tensor,
     out = words
     for mv in _check_refine_modes(modes):
         refine = _refine_mode45 if mv in (4, 5) else _refine_mode_subsets
-        err_new, err0, wn = refine(px_i, words, mv)
+        err_new, err0, wn = refine(px_i, words, mv, aw)
         better = (mode == mv) & (err_new < err0)
         out = torch.where(better[None, :], wn, out)
     return _words_i32(out)
 
 
 def bc7_refine_words(px: torch.Tensor, words: torch.Tensor,
-                     modes=REFINE_MODES) -> torch.Tensor:
+                     modes=REFINE_MODES, aw: float = 1.0) -> torch.Tensor:
     """K3 wrapper: MOMENT winner-refine. px [64, NB] int32, words [4, NB]
     int32 -> words [4, NB] int32. A CUDA tensor launches the kernel, a
     CPU tensor runs the plain twin."""
@@ -1333,19 +1436,15 @@ def bc7_refine_words(px: torch.Tensor, words: torch.Tensor,
     _check_px(px, words.shape[1])
     modes = _check_refine_modes(modes)
     if _on_cuda(px, words):
-        return cuda_kernels.bc7_refine(px, words, modes)
-    return _bc7_refine_plain(px, words, modes)
+        return cuda_kernels.bc7_refine(px, words, modes, aw)
+    return _bc7_refine_plain(px, words, modes, aw)
 
 
-def _check_default_tier(ladder=LADDER_MOMENT, aw: float = 1.0) -> None:
+def _check_ladder(ladder) -> None:
     if ladder != LADDER_MOMENT:
         raise NotImplementedError(
             f"ladder {ladder!r}: the port runs LADDER_MOMENT only; the "
             "exact ladders (LADDER_FULL, LADDER_LIGHT) serve the maxq tier "
-            "(ROADMAP.md queue 1, 'The other BC7 tiers')")
-    if aw != 1.0:
-        raise NotImplementedError(
-            f"alpha_weight {aw}: the port scores alpha at weight 1.0 only "
             "(ROADMAP.md queue 1, 'The other BC7 tiers')")
 
 
@@ -1358,10 +1457,10 @@ def refine_bc7_words(px_i: torch.Tensor, words: torch.Tensor,
 
     px_i [16, 4, NB] int32 LDR pixels; words [NB, 4] int32 (u32 bit
     patterns). Returns refined words [NB, 4] int32."""
-    _check_default_tier(ladder, aw)
+    _check_ladder(ladder)
     nb = px_i.shape[2]
     out = bc7_refine_words(px_i.reshape(64, nb).contiguous(),
-                           words.t().contiguous(), modes)
+                           words.t().contiguous(), modes, aw)
     return out.t().contiguous()
 
 
@@ -1375,32 +1474,37 @@ def _quantize_ldr(blocks: torch.Tensor) -> torch.Tensor:
 
 def encode_bc7(blocks: torch.Tensor, flags: int = 0, opaque: bool = False,
                alpha_weight: float = 1.0) -> torch.Tensor:
-    """[NB, 16, 4] f32 -> [NB, 16] u8 (D3DXEncodeBC7, BC6HBC7.cpp:2783),
-    the default tier for opaque images: the search over modes
-    (1, 3, 5, 6, 4), then one MOMENT winner-refine over (1, 3, 5, 4).
-    On a CUDA tensor both run as kernels (K2, K3).
+    """[NB, 16, 4] f32 -> [NB, 16] u8 (D3DXEncodeBC7, BC6HBC7.cpp:2783).
+    On a CUDA tensor the search and the refine run as kernels (K2, K3).
 
-    `opaque=True` is the caller's promise that alpha is 1 everywhere. With
-    the default `opaque=False` the port checks the quantized alpha (one
-    host sync): where no block has alpha, mode 7 scores inf on every block
-    in the JAX package too and the words are the same; a block with alpha
-    needs mode 7, which the port does not have yet, and raises."""
-    if flags:
+    The default tier searches modes (1, 3, 5, 6, 7, 4) and refines the
+    winner with one MOMENT pass over (1, 3, 5, 7, 4); QUICK (0x100000)
+    searches mode 6 alone, with no refine. `opaque=True` is the caller's
+    promise that alpha is 1 everywhere and drops mode 7. With the default
+    `opaque=False` the port checks the quantized alpha (one host sync)
+    and drops mode 7 where no block has alpha: mode 7 scores inf on every
+    opaque block in the JAX package too, so the words are the same.
+    `alpha_weight` scales the alpha channel's squared error in scoring.
+    MAXQUALITY and USE_3SUBSETS raise NotImplementedError; other flag
+    bits are ignored, as in the JAX package."""
+    if flags & (_BC7_MAXQUALITY | _BC7_USE_3SUBSETS):
         raise NotImplementedError(
-            f"flags {flags:#x}: the port runs the default tier only "
-            "(QUICK, MAXQUALITY and USE_3SUBSETS: ROADMAP.md queue 1, "
-            "'The other BC7 tiers')")
-    _check_default_tier(LADDER_MOMENT, alpha_weight)
+            f"flags {flags:#x}: the port runs the default and QUICK tiers "
+            "(MAXQUALITY and USE_3SUBSETS: ROADMAP.md queue 1, 'The other "
+            "BC7 tiers')")
     if blocks.dim() != 3 or blocks.shape[1:] != (16, 4):
         raise ValueError(f"blocks must be [NB, 16, 4], got "
                          f"{tuple(blocks.shape)}")
     nb = blocks.shape[0]
     px = _quantize_ldr(blocks).reshape(64, nb).contiguous()
-    # has_alpha of bc67.py:1915, on the quantized alpha rows
-    if not opaque and bool((px.reshape(16, 4, nb)[:, 3, :] != 255).any()):
-        raise NotImplementedError(
-            "blocks with alpha need mode 7 (ROADMAP.md queue 1 item 5, "
-            "'The other BC7 tiers')")
-    _, words = bc7_search_words(px)
-    words = bc7_refine_words(px, words, REFINE_MODES)
+    if flags & _BC7_QUICK:
+        _, words = bc7_search_words(px, SEARCH_MODES_QUICK, alpha_weight)
+    else:
+        # has_alpha of bc67.py:1915, on the quantized alpha rows
+        alpha = not opaque and bool(
+            (px.reshape(16, 4, nb)[:, 3, :] != 255).any())
+        search, refine = ((SEARCH_MODES_ALPHA, REFINE_MODES_ALPHA) if alpha
+                          else (SEARCH_MODES, REFINE_MODES))
+        _, words = bc7_search_words(px, search, alpha_weight)
+        words = bc7_refine_words(px, words, refine, alpha_weight)
     return words.t().contiguous().view(torch.uint8).reshape(nb, 16)

@@ -8,17 +8,23 @@ its kernel's launch count. There is no fallback: the plain PyTorch twins
 live in bc67.py, and bc67's wrappers call these only for CUDA tensors.
 
     K1 bc7_decode  csrc/bc7_decode.cu  replaces pallas_kernels.py:2735
-    K2 bc7_encode  csrc/bc7_encode.cu  replaces pallas_kernels.py:2020
+    K2 bc7_encode  csrc/bc7_encode.cuh replaces pallas_kernels.py:2020
+       (variants: bc7_encode.cu opaque, bc7_encode_alpha.cu with mode 7,
+       bc7_encode_quick.cu mode 6 alone)
     K3 bc7_refine  csrc/bc7_refine.cu  replaces pallas_kernels.py:2667
+       (launch counts kept apart for the opaque scope, bc7_refine, and
+       the scope with mode 7, bc7_refine_alpha)
     K4 bc6h_decode csrc/bc6h_decode.cu replaces pallas_kernels.py:2784
     K5 bc6h_encode csrc/bc6h_encode.cu replaces pallas_kernels.py:3744
     K6 bc6h_refine csrc/bc6h_refine.cu replaces pallas_kernels.py:3704
 
 Words cross the C interface as int32 tensors read as uint32_t*; `signed`
-crosses as an int.
+crosses as an int, alpha_weight as the int holding its f32 bit pattern.
 """
 
 from __future__ import annotations
+
+import struct
 
 import torch
 
@@ -48,8 +54,11 @@ class CudaKernel:
 
 KERNELS = {
     "bc7_decode": CudaKernel("bc7_decode_launch", 2, 1),
-    "bc7_encode": CudaKernel("bc7_encode_launch", 3, 1),
-    "bc7_refine": CudaKernel("bc7_refine_launch", 3, 2),
+    "bc7_encode": CudaKernel("bc7_encode_launch", 3, 2),
+    "bc7_encode_alpha": CudaKernel("bc7_encode_alpha_launch", 3, 2),
+    "bc7_encode_quick": CudaKernel("bc7_encode_quick_launch", 3, 2),
+    "bc7_refine": CudaKernel("bc7_refine_launch", 3, 3),
+    "bc7_refine_alpha": CudaKernel("bc7_refine_launch", 3, 3),
     "bc6h_decode": CudaKernel("bc6h_decode_launch", 2, 2),
     "bc6h_encode": CudaKernel("bc6h_encode_launch", 3, 2),
     "bc6h_refine": CudaKernel("bc6h_refine_launch", 3, 8),
@@ -87,23 +96,43 @@ def bc7_decode(words: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def bc7_encode(px: torch.Tensor):
+def _f32_bits(x: float) -> int:
+    """A float's f32 bit pattern as the C int that carries it."""
+    return struct.unpack("<i", struct.pack("<f", x))[0]
+
+
+# K2's variants by their search modes (fold order)
+_BC7_ENCODE_VARIANTS = {(1, 3, 5, 6, 4): "bc7_encode",
+                        (1, 3, 5, 6, 7, 4): "bc7_encode_alpha",
+                        (6,): "bc7_encode_quick"}
+
+
+def bc7_encode(px: torch.Tensor, modes: tuple = (1, 3, 5, 6, 4),
+               aw: float = 1.0):
     """K2: px [64, NB] int32 (0..255) -> (err [NB] f32, words [4, NB]
-    int32), the default-tier search over modes (1, 3, 5, 6, 4)."""
+    int32), the search over `modes`: (1, 3, 5, 6, 4) (default tier,
+    opaque), (1, 3, 5, 6, 7, 4) (with mode 7) or (6,) (QUICK), with the
+    alpha channel's squared error weighted by aw."""
     _check(px, "px", 64)
+    variant = _BC7_ENCODE_VARIANTS.get(tuple(modes))
+    if variant is None:
+        raise ValueError(f"K2 searches {tuple(_BC7_ENCODE_VARIANTS)}; got "
+                         f"{tuple(modes)}")
     nb = px.shape[1]
     err = torch.empty(nb, dtype=torch.float32, device=px.device)
     words = torch.empty((4, nb), dtype=torch.int32, device=px.device)
     if nb:
-        KERNELS["bc7_encode"].launch((px, err, words), (nb,), px.device)
+        KERNELS[variant].launch((px, err, words), (nb, _f32_bits(aw)),
+                                px.device)
     return err, words
 
 
-def bc7_refine(px: torch.Tensor, words: torch.Tensor,
-               modes: tuple) -> torch.Tensor:
+def bc7_refine(px: torch.Tensor, words: torch.Tensor, modes: tuple,
+               aw: float = 1.0) -> torch.Tensor:
     """K3: MOMENT winner-refine of the blocks whose mode is in `modes`
-    (a subset of (1, 3, 4, 5)). px [64, NB], words [4, NB] int32 ->
-    words [4, NB] int32."""
+    (a subset of (1, 3, 4, 5, 7)), the alpha channel's squared error
+    weighted by aw. px [64, NB], words [4, NB] int32 -> words [4, NB]
+    int32."""
     _check(words, "words", 4)
     nb = words.shape[1]
     _check(px, "px", 64, nb)
@@ -111,13 +140,14 @@ def bc7_refine(px: torch.Tensor, words: torch.Tensor,
         raise ValueError(f"px on {px.device}, words on {words.device}")
     mode_mask = 0
     for m in modes:
-        if m not in (1, 3, 4, 5):
-            raise ValueError(f"K3 refines modes 1, 3, 4, 5; got {m}")
+        if m not in (1, 3, 4, 5, 7):
+            raise ValueError(f"K3 refines modes 1, 3, 4, 5, 7; got {m}")
         mode_mask |= 1 << m
     out = torch.empty_like(words)
     if nb:
-        KERNELS["bc7_refine"].launch((px, words, out), (nb, mode_mask),
-                                     px.device)
+        name = "bc7_refine_alpha" if 7 in modes else "bc7_refine"
+        KERNELS[name].launch((px, words, out),
+                             (nb, mode_mask, _f32_bits(aw)), px.device)
     return out
 
 

@@ -257,13 +257,16 @@ __device__ __forceinline__ void rotate_pixels(const uint32_t src[16], int rot,
 // Projection index assignment + exact palette error (_assign_indices_t,
 // bc67.py:471) over channels [LO, HI) of the pixels in `msk`. Writes the
 // index of every pixel to idx; the error sums the masked pixels in pixel
-// order.
+// order. W: the squared error of channel `wch` (the alpha channel, where
+// a rotation put it) is scaled by `aw` (alpha_weight); the projection
+// stays unweighted.
 // ---------------------------------------------------------------------------
-template <int PREC, int LO, int HI>
+template <int PREC, int LO, int HI, bool W = false>
 __device__ __forceinline__ float assign_indices(const uint32_t pix[16],
                                                 const int u0[4],
                                                 const int u1[4], unsigned msk,
-                                                int idx[16]) {
+                                                int idx[16], float aw = 1.0f,
+                                                int wch = 3) {
   constexpr int K = 1 << PREC;
   int e[4];
   int span = 0;
@@ -298,12 +301,42 @@ __device__ __forceinline__ float assign_indices(const uint32_t pix[16],
 #pragma unroll
     for (int c = LO; c < HI; ++c) {
       const float r = (float)(d[c] - ((w * e[c] + 32) >> 6));
-      dist = dist + r * r;
+      float r2 = r * r;
+      if (W && c == wch) r2 = r2 * aw;
+      dist = dist + r2;
     }
     idx[i] = k;
     err = err + (((msk >> i) & 1u) ? dist : 0.0f);
   }
   return err;
+}
+
+// Anchor swaps of a two-subset block (AssignIndices, BC6HBC7.cpp:3181-3194):
+// a subset whose anchor index has its MSB set swaps its endpoints and p
+// bits and inverts its indices. m1: the pixel mask of subset 1.
+template <int P>
+__device__ __forceinline__ void anchor_swaps_2sub(int shape, unsigned m1,
+                                                  int q0[2][4], int q1[2][4],
+                                                  int p0[2], int p1[2],
+                                                  int idx[16]) {
+  const int anchor = c_pa2[shape] & 0xF;
+#pragma unroll
+  for (int sub = 0; sub < 2; ++sub) {
+    int a = idx[0];
+    if (sub) {
+#pragma unroll
+      for (int i = 1; i < 16; ++i)
+        if (i == anchor) a = idx[i];
+    }
+    if (a & (1 << (P - 1))) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) swap_ints(q0[sub][c], q1[sub][c]);
+      swap_ints(p0[sub], p1[sub]);
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if (((m1 >> i) & 1u) == (unsigned)sub) idx[i] = (1 << P) - 1 - idx[i];
+    }
+  }
 }
 
 // codes + p bits -> unquantized endpoints (_unquantize_with_p_t)

@@ -4,31 +4,39 @@
 // Replaces directxtex_tpu/bc/pallas_kernels.py:bc7_refine_pallas /
 // _bc7_refine_kernel (its _k_refine_2sub and _k_refine_45uni passes, built
 // on _k_moment_subset_dyn). Plain twin: bc67._bc7_refine_plain
-// (refine_bc7_words with LADDER_MOMENT over modes 1, 3, 5, 4). Each block
+// (refine_bc7_words with LADDER_MOMENT over modes 1, 3, 5, 7, 4; bit m of
+// the mode mask puts mode m in scope). Each block
 // unpacks its own winner from its words, takes the quadratic-model argmin
 // of a joint {-1, 0, +1}^2 q-step endpoint move per channel, re-assigns
 // indices once and re-emits where the exact error drops. The TPU ran both
 // unified family passes on every lane; here a thread branches to its own
 // mode's pass only. All moment math is exact in f32 (integers and 64ths),
-// so the words equal the plain twin's word for word.
+// so the words equal the plain twin's word for word. alpha_weight scales
+// the alpha channel's squared error (the rotated one under modes 4/5) in
+// the acceptance bar and the re-assignment; the weighted instance (W)
+// runs where it is not 1.0.
 //
 // Bound: compute. A block reads 80 bytes and writes 16, against a few
 // thousand integer and f32 operations for its one mode. The design keeps
 // pixels packed as RGBA8 words and leaves the block's words untouched
 // (one copy) where the mode is out of scope or the error does not drop.
+#include <cstring>
+
 #include "bc7_common.cuh"
 
 namespace bc7 {
 
 // Analytic single-step endpoint move of one subset (_moment_channels_t,
 // bc67.py:817). q0/q1 move in place; returns the pre-move fixed-index
-// error. wk_rgb / wk_a: palette weights of the color and alpha indices.
-template <int M>
+// error, channel wch's squares weighted by aw (W). wk_rgb / wk_a: palette
+// weights of the color and alpha indices.
+template <int M, bool W>
 __device__ __forceinline__ float moment_move(const uint32_t pix[16],
                                              unsigned msk, int q0[4],
                                              int q1[4], int p0, int p1,
                                              const int wk_rgb[16],
-                                             const int wk_a[16]) {
+                                             const int wk_a[16], float aw,
+                                             int wch) {
   const int p1u = shared_p(M) ? p0 : p1;
   float err0 = 0.0f;
 #pragma unroll
@@ -38,7 +46,9 @@ __device__ __forceinline__ float moment_move(const uint32_t pix[16],
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         const float d = (float)(px_at(pix, i, c) - 255);
-        s = s + (((msk >> i) & 1u) ? d * d : 0.0f);
+        float d2 = d * d;
+        if (W && c == wch) d2 = d2 * aw;
+        s = s + (((msk >> i) & 1u) ? d2 : 0.0f);
       }
       err0 = err0 + s;
       continue;
@@ -56,7 +66,9 @@ __device__ __forceinline__ float moment_move(const uint32_t pix[16],
       const float r = (float)(px_at(pix, i, c) - pal);
       const float a = (float)(64 - wk[i]) * (1.0f / 64.0f);
       const float b = (float)wk[i] * (1.0f / 64.0f);
-      s = s + (in ? r * r : 0.0f);
+      float r2 = r * r;
+      if (W && c == wch) r2 = r2 * aw;
+      s = s + (in ? r2 : 0.0f);
       saa = saa + (in ? a * a : 0.0f);
       sab = sab + (in ? a * b : 0.0f);
       sbb = sbb + (in ? b * b : 0.0f);
@@ -98,11 +110,12 @@ __device__ __forceinline__ float moment_move(const uint32_t pix[16],
   return err0;
 }
 
-// Modes 1/3 (_refine_mode_subsets, bc67.py:1685)
-template <int M>
+// Modes 1/3/7 (_refine_mode_subsets, bc67.py:1685)
+template <int M, bool W>
 __device__ __forceinline__ void refine_2sub(const uint32_t pix[16],
-                                            const Bits128& w, Bits128& out,
-                                            float& err_new, float& err_old) {
+                                            const Bits128& w, float aw,
+                                            Bits128& out, float& err_new,
+                                            float& err_old) {
   constexpr int P = index_prec(M);
   int pos = M + 1;
   const int shape = get_bits(w, pos, 6);
@@ -153,9 +166,9 @@ __device__ __forceinline__ void refine_2sub(const uint32_t pix[16],
       q1t[c] = q1[sub][c];
     }
     const float err0 =
-        moment_move<M>(pix, msk, q0t, q1t, p0[sub], p1[sub], wk, wk);
+        moment_move<M, W>(pix, msk, q0t, q1t, p0[sub], p1[sub], wk, wk, aw, 3);
     unquantize_endpoints<M>(q0t, q1t, p0[sub], p1[sub], u0, u1);
-    const float err_t = assign_indices<P, 0, 4>(pix, u0, u1, msk, it);
+    const float err_t = assign_indices<P, 0, 4, W>(pix, u0, u1, msk, it, aw);
     if (err_t < err0) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -169,32 +182,16 @@ __device__ __forceinline__ void refine_2sub(const uint32_t pix[16],
     err_new = err_new + fminf(err_t, err0);
     err_old = err_old + err0;
   }
-  // anchor swaps (AssignIndices, BC6HBC7.cpp:3181-3194)
-#pragma unroll
-  for (int sub = 0; sub < 2; ++sub) {
-    int a = idx[0];
-    if (sub) {
-#pragma unroll
-      for (int i = 1; i < 16; ++i)
-        if (i == anchor) a = idx[i];
-    }
-    if (a & (1 << (P - 1))) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) swap_ints(q0[sub][c], q1[sub][c]);
-      swap_ints(p0[sub], p1[sub]);
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-        if (((m1 >> i) & 1u) == (unsigned)sub) idx[i] = (1 << P) - 1 - idx[i];
-    }
-  }
+  anchor_swaps_2sub<P>(shape, m1, q0, q1, p0, p1, idx);
   out = emit_block<M>(shape, 0, 0, q0, q1, p0, p1, idx, nullptr);
 }
 
 // Modes 4/5 (_refine_mode45, bc67.py:1765)
-template <int M>
+template <int M, bool W>
 __device__ __forceinline__ void refine_45(const uint32_t pix[16],
-                                          const Bits128& w, Bits128& out,
-                                          float& err_new, float& err_old) {
+                                          const Bits128& w, float aw,
+                                          Bits128& out, float& err_new,
+                                          float& err_old) {
   constexpr int P1 = index_prec(M), P2 = index_prec2(M);
   int pos = M + 1;
   const int rot = get_bits(w, pos, 2);
@@ -224,6 +221,7 @@ __device__ __forceinline__ void refine_45(const uint32_t pix[16],
   }
   uint32_t prp[16];
   rotate_pixels(pix, rot, prp);
+  const int wch = rot ? rot - 1 : 3;     // the true alpha, rotated
 
   const bool im0 = im == 0;
   int cidx[16], aidx[16], wkc[16], wka[16];
@@ -240,15 +238,18 @@ __device__ __forceinline__ void refine_45(const uint32_t pix[16],
     q0t[c] = q0[0][c];
     q1t[c] = q1[0][c];
   }
-  const float err0 = moment_move<M>(prp, 0xFFFFu, q0t, q1t, 0, 0, wkc, wka);
+  const float err0 =
+      moment_move<M, W>(prp, 0xFFFFu, q0t, q1t, 0, 0, wkc, wka, aw, wch);
   unquantize_endpoints<M>(q0t, q1t, 0, 0, u0, u1);
   float err_t;
   if (im0) {
-    err_t = assign_indices<P1, 0, 3>(prp, u0, u1, 0xFFFFu, ct);
-    err_t = err_t + assign_indices<P2, 3, 4>(prp, u0, u1, 0xFFFFu, at);
+    err_t = assign_indices<P1, 0, 3, W>(prp, u0, u1, 0xFFFFu, ct, aw, wch);
+    err_t = err_t
+          + assign_indices<P2, 3, 4, W>(prp, u0, u1, 0xFFFFu, at, aw, wch);
   } else {
-    err_t = assign_indices<P2, 0, 3>(prp, u0, u1, 0xFFFFu, ct);
-    err_t = err_t + assign_indices<P1, 3, 4>(prp, u0, u1, 0xFFFFu, at);
+    err_t = assign_indices<P2, 0, 3, W>(prp, u0, u1, 0xFFFFu, ct, aw, wch);
+    err_t = err_t
+          + assign_indices<P1, 3, 4, W>(prp, u0, u1, 0xFFFFu, at, aw, wch);
   }
   if (err_t < err0) {
 #pragma unroll
@@ -286,11 +287,12 @@ __device__ __forceinline__ void refine_45(const uint32_t pix[16],
   out = emit_block<M>(0, rot, im, q0, q1, p0, p1, w1, w2);
 }
 
+template <bool W>
 __global__ void __launch_bounds__(kThreads)
     bc7_refine_kernel(const int32_t* __restrict__ px,
                       const uint32_t* __restrict__ words_in,
                       uint32_t* __restrict__ words_out, int nb,
-                      int mode_mask) {
+                      int mode_mask, float aw) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= nb) return;
   const Bits128 w = load_words(words_in, nb, b);
@@ -302,10 +304,11 @@ __global__ void __launch_bounds__(kThreads)
     Bits128 nw = w;
     float err_new = 0.0f, err_old = 0.0f;
     switch (mode) {
-      case 1: refine_2sub<1>(pix, w, nw, err_new, err_old); break;
-      case 3: refine_2sub<3>(pix, w, nw, err_new, err_old); break;
-      case 4: refine_45<4>(pix, w, nw, err_new, err_old); break;
-      case 5: refine_45<5>(pix, w, nw, err_new, err_old); break;
+      case 1: refine_2sub<1, W>(pix, w, aw, nw, err_new, err_old); break;
+      case 3: refine_2sub<3, W>(pix, w, aw, nw, err_new, err_old); break;
+      case 4: refine_45<4, W>(pix, w, aw, nw, err_new, err_old); break;
+      case 5: refine_45<5, W>(pix, w, aw, nw, err_new, err_old); break;
+      case 7: refine_2sub<7, W>(pix, w, aw, nw, err_new, err_old); break;
       default: break;
     }
     if (err_new < err_old) out = nw;
@@ -315,12 +318,23 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace bc7
 
+// alpha_weight arrives as its f32 bit pattern; at 1.0 the unweighted
+// instance runs
 extern "C" int bc7_refine_launch(const void* px, const void* words_in,
                                  void* words_out, int nb, int mode_mask,
-                                 void* stream) {
+                                 int aw_bits, void* stream) {
+  float aw;
+  std::memcpy(&aw, &aw_bits, sizeof aw);
   const int grid = (nb + bc7::kThreads - 1) / bc7::kThreads;
-  bc7::bc7_refine_kernel<<<grid, bc7::kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)px, (const uint32_t*)words_in, (uint32_t*)words_out, nb,
-      mode_mask);
+  if (aw != 1.0f)
+    bc7::bc7_refine_kernel<true>
+        <<<grid, bc7::kThreads, 0, (cudaStream_t)stream>>>(
+            (const int32_t*)px, (const uint32_t*)words_in,
+            (uint32_t*)words_out, nb, mode_mask, aw);
+  else
+    bc7::bc7_refine_kernel<false>
+        <<<grid, bc7::kThreads, 0, (cudaStream_t)stream>>>(
+            (const int32_t*)px, (const uint32_t*)words_in,
+            (uint32_t*)words_out, nb, mode_mask, aw);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 """End-to-end texture pipelines on torch tensors (BASELINE.md configs).
 
 The counterpart of directxtex_tpu/models/pipelines.py for the kinds the
-port has: `bc_encode_pipeline` for BC7 (default tier) and BC6H_UF16, and
+port has: `bc_encode_pipeline` for BC7 (default and QUICK tiers, images
+with or without alpha) and BC6H_UF16, and
 BASELINE config 4, `hdr_cubemap_pipeline`. The entry points run on the
 card: `run()` keeps the device of a tensor it is given and moves a numpy
 array to `device` (CUDA unless the caller names another, as the CPU tests
@@ -37,7 +38,9 @@ def _encode(kind: str, blocks: torch.Tensor, flags: int = 0):
 
 
 def bc_encode_pipeline(kind: str = "bc7", flags: int = 0, device=None):
-    """[H, W, 4] f32 -> packed blocks [NB, 16] u8."""
+    """[H, W, 4] f32 -> packed blocks [NB, 16] u8. "bc7" takes images
+    with alpha as they are (encode_bc7 searches mode 7 where a block has
+    alpha) and `flags` 0 or QUICK (0x100000)."""
     if kind not in _KINDS:
         raise NotImplementedError(
             f"kind {kind!r}: the port encodes {_KINDS} (BC1-BC5: ROADMAP.md "

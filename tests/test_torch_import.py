@@ -31,7 +31,8 @@ def test_launchers_import_without_building():
     # importing and resetting touches no compiler and no device
     cuda_kernels.reset_launch_counts()
     assert cuda_kernels.launch_counts() == {
-        "bc7_decode": 0, "bc7_encode": 0, "bc7_refine": 0,
+        "bc7_decode": 0, "bc7_encode": 0, "bc7_encode_alpha": 0,
+        "bc7_encode_quick": 0, "bc7_refine": 0, "bc7_refine_alpha": 0,
         "bc6h_decode": 0, "bc6h_encode": 0, "bc6h_refine": 0}
 
 
@@ -107,13 +108,34 @@ def test_wrappers_check_shapes_and_types():
                                (1, (4, 0)), False)
 
 
+# the JAX package's LADDER_FULL (bc67.py:724): the maxq tier's exact ladder
+LADDER_FULL = (2, (2, 1))
+
+
 @pytest.mark.parametrize("kwargs", [
-    {"flags": 0x100000}, {"flags": 0x200000}, {"flags": 0x80000},
-    {"opaque": False}, {"alpha_weight": 2.0}])
+    {"flags": 0x200000}, {"flags": 0x80000}, {"ladder": LADDER_FULL}])
 def test_unsupported_encode_settings_raise(kwargs):
-    # opaque=False raises only where some block has alpha (mode 7)
+    # MAXQUALITY and USE_3SUBSETS (encode_bc7), and the exact ladders
+    # (refine_bc7_words), are the next slice
+    blocks = _blocks(4, alpha=0.5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bc67.encode_bc7(_blocks(4, alpha=0.5), **kwargs)
+        if "ladder" in kwargs:
+            px_i = bc67._quantize_ldr(blocks)
+            words = torch.zeros((4, 4), dtype=torch.int32)
+            bc67.refine_bc7_words(px_i, words, **kwargs)
+        else:
+            bc67.encode_bc7(blocks, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"flags": 0x100000}, {"opaque": False}, {"alpha_weight": 2.0}])
+def test_accepted_encode_settings_run_the_plain_twins(kwargs):
+    """QUICK, the default call on blocks with alpha (mode 7) and an alpha
+    weight: a CPU tensor takes the plain twins and gives [NB, 16] u8."""
+    cuda_kernels.reset_launch_counts()
+    out = bc67.encode_bc7(_blocks(4, alpha=0.5), **kwargs)
+    assert out.dtype == torch.uint8 and tuple(out.shape) == (4, 16)
+    assert set(cuda_kernels.launch_counts().values()) == {0}
 
 
 def test_default_encode_bc7_takes_opaque_blocks():

@@ -178,7 +178,7 @@ def _widen(idx):
 # -- the two-region helpers on two 8-pixel subsets -------------------------
 _ORIG = {k: getattr(jbc67, k) for k in (
     "_bc6h_shared_fit", "_bc6h_group_rescore", "_eval_2sub_shared",
-    "_moment_channels_t", "_assign_indices_t")}
+    "_eval_subset_candidate", "_moment_channels_t", "_assign_indices_t")}
 
 
 def _shared_fit8(px_f, mask_list, iprec, signed):
@@ -204,6 +204,15 @@ def _eval_2sub8(px_i, px_f, mask_list, anchors, mode_ids, aw=1.0):
     return {m: v[:5] + (_widen(v[5]),) for m, v in out.items()}
 
 
+def _eval_subset8(px_i, px_f, mask_list, anchors, mode_id, aw=1.0):
+    f = _ORIG["_eval_subset_candidate"]
+    if len(mask_list) == 1:
+        return f(px_i, px_f, mask_list, anchors, mode_id, aw=aw)
+    out = f(px_i[:8], px_f[:8], [_ones8(px_i.shape[2])] * 2, [0, 0],
+            mode_id, aw=aw)
+    return out[:5] + (_widen(out[5]),)
+
+
 def _moment8(px_i, mask, m, shared_p, q0, q1, p0, p1, wk_ch, **kw):
     return _ORIG["_moment_channels_t"](
         px_i[:8], _ones8(px_i.shape[2]), m, shared_p, q0, q1, p0, p1,
@@ -217,10 +226,11 @@ def _assign8(px_i, u0, u1, prec, mask, *a, **kw):
 
 
 # -- inputs ------------------------------------------------------------------
-def _ldr_blocks(nb):
+def _ldr_blocks(nb, opaque=True):
     rng = np.random.default_rng(0)
     b = rng.random((nb, 16, 4)).astype(np.float32)
-    b[..., 3] = 1.0
+    if opaque:
+        b[..., 3] = 1.0
     return jnp.asarray(b)
 
 
@@ -234,20 +244,26 @@ def _words(nb):
 
 
 # -- the kernels --------------------------------------------------------------
-def bc7_search_ops() -> float:
-    """K2: the default-tier search on opaque blocks, from the [64, NB]
-    texels (the LDR quantization is the wrapper's, outside the kernel)."""
-    b = _ldr_blocks(NB)
+def _quantize(x):
+    px_i = jnp.clip(jnp.transpose(x, (1, 2, 0)) * 255.0 + 0.01,
+                    0.0, 255.0).astype(jnp.int32)
+    return px_i, px_i.astype(jnp.float32)
 
-    def quantize(x):
-        px_i = jnp.clip(jnp.transpose(x, (1, 2, 0)) * 255.0 + 0.01,
-                        0.0, 255.0).astype(jnp.int32)
-        return px_i, px_i.astype(jnp.float32)
 
+def bc7_search_ops(variant: str = "opaque") -> float:
+    """K2: a tier's search, from the [64, NB] texels (the LDR quantization
+    is the wrapper's, outside the kernel). "opaque": the default tier on
+    opaque blocks; "alpha": the default tier with mode 7, on a block with
+    alpha (the kernel skips mode 7 on an opaque block, which then costs
+    what "opaque" does); "quick": mode 6 alone."""
+    b = _ldr_blocks(NB, opaque=variant != "alpha")
+    kwargs = {"opaque": {"opaque": True}, "alpha": {"opaque": False},
+              "quick": {"flags": jbc67._BC7_QUICK}}[variant]
     with _patched(refine_bc7_words=lambda p, w, ladder, **kw: w,
-                  _eval_2sub_shared=_eval_2sub8):
-        whole = needed_ops(lambda x: jbc67.encode_bc7(x, opaque=True), b)
-    return (whole - needed_ops(quantize, b)) / NB
+                  _eval_2sub_shared=_eval_2sub8,
+                  _eval_subset_candidate=_eval_subset8):
+        whole = needed_ops(lambda x: jbc67.encode_bc7(x, **kwargs), b)
+    return (whole - needed_ops(_quantize, b)) / NB
 
 
 def bc7_refine_ops() -> dict:
@@ -256,9 +272,9 @@ def bc7_refine_ops() -> dict:
     px = jnp.zeros((16, 4, NB), jnp.int32)
     w = jnp.zeros((NB, 4), jnp.uint32)
     out = {}
-    for mode in (1, 3, 5, 4):
+    for mode in (1, 3, 5, 7, 4):
         ctx = (_patched(_moment_channels_t=_moment8,
-                        _assign_indices_t=_assign8) if mode in (1, 3)
+                        _assign_indices_t=_assign8) if mode in (1, 3, 7)
                else contextlib.nullcontext())
         with ctx:
             out[mode] = needed_ops(lambda p, x: jbc67.refine_bc7_words(
@@ -427,6 +443,8 @@ def main() -> None:
     counts = {
         "BC7_DECODE_OPS": bc7_decode_ops(),
         "BC7_SEARCH_OPS": bc7_search_ops(),
+        "BC7_SEARCH_ALPHA_OPS": bc7_search_ops("alpha"),
+        "BC7_SEARCH_QUICK_OPS": bc7_search_ops("quick"),
         "BC7_REFINE_OPS": bc7_refine_ops(),
         "BC6H_DECODE_OPS": bc6h_decode_ops(),
         "BC6H_SEARCH_OPS": bc6h_search_ops(),
@@ -503,6 +521,32 @@ def test_two_region_split_counts_sixteen_pixels():
     per_px = (n1 - n8) / 8            # linear in the pixel count
     assert per_px > 0
     assert n2 == 2 * n8 == n1 + (n8 - 8 * per_px)
+
+
+def test_mode7_split_counts_sixteen_pixels():
+    """A mode-7 candidate on two 8-pixel subsets costs its two subset
+    fits over 8 pixels each, and one add of their errors: twice one
+    8-pixel subset's count plus one, well below the lane-masked count
+    (two subsets over all 16 pixels each)."""
+    rng = np.random.default_rng(2)
+    px = jnp.asarray(rng.integers(0, 256, (16, 4, 64)).astype(np.int32))
+
+    def two(p):
+        return _eval_subset8(p, p.astype(jnp.float32),
+                             [jnp.ones((16, 64), bool)] * 2, [0, 0], 7)
+
+    def one8(p):
+        return _ORIG["_eval_subset_candidate"](
+            p[:8], p[:8].astype(jnp.float32), [_ones8(64)], [0], 7)
+
+    def masked(p):
+        return _ORIG["_eval_subset_candidate"](
+            p, p.astype(jnp.float32), [jnp.ones((16, 64), bool)] * 2,
+            [0, 0], 7)
+
+    n2, n8 = needed_ops(two, px) / 64, needed_ops(one8, px) / 64
+    assert n8 > 0 and n2 == 2 * n8 + 1
+    assert n2 < 0.6 * needed_ops(masked, px) / 64
 
 
 def test_decode_counts_within_twins():
