@@ -9,6 +9,9 @@ every kernel against its plain PyTorch twin on the card:
   variant), on images with alpha (K2's alpha variant with mode 7, K3 with
   mode 7 in scope), at alpha weights 1.0 and 2.0, and the QUICK tier (K2's
   quick variant, mode 6 alone);
+- the BC7 MAXQUALITY tier (encode_bc7(flags=0x200000)): K2's maxq
+  variants (every mode fitted on its own, with and without mode 7), K3
+  twice, MOMENT with mode 6 in scope, then the exact LADDER_FULL;
 - BC6H (BASELINE config 4, hdr_cubemap_pipeline -> decode_bc6h, and the
   mid / maxq tiers of encode_bc6h): K4 decode, K5 search, K6 refine.
 
@@ -46,7 +49,20 @@ Phases:
  14. the 2048^2 image with alpha through the default path and the QUICK
      path (on both 2048^2 images), each with its launch counts, and
      CUDA-event times of the paths and kernels beside the opaque path's;
- 15. the kernels line: every kernel's launches, error against its twin,
+ 15. K2 maxq (both variants) and K3 (MOMENT with mode 6 in scope, FULL,
+     LIGHT, and mode 6 alone on QUICK's words) against their twins on
+     bench512, the opaque corpus, alphagrad and the 200-block mixed set,
+     at alpha weights 1.0 and 2.0: words and search errors equal;
+ 16. maxq gates on the card: PSNR no worse than the default tier's less
+     0.001 dB on bench512 and every BC7 corpus content
+     (tests/test_bc7.py:200-214), bench512 at least the frozen
+     reference's, and a sample of the maxq words decoded by K1 equal to
+     the plain decode;
+ 17. the maxq path at 2048^2 on the bench image and on the image with
+     alpha, each with its launch counts (one K2, two K3), CUDA-event times
+     of the paths and kernels beside the default tier's, and one run of
+     each plain twin at the path's shapes held against its kernel;
+ 18. the kernels line: every kernel's launches, error against its twin,
      time, plain time and bound (bytes or operations, whichever is
      larger, at the H100's published peaks, for the work each block of
      the run needs).
@@ -74,14 +90,22 @@ SOURCES = {
                    "directxtex_tpu/bc/pallas_kernels.py:2735"),
     "bc7_encode": ("directxtex_tpu_torch/csrc/bc7_encode.cu",
                    "directxtex_tpu/bc/pallas_kernels.py:2020"),
-    "bc7_refine": ("directxtex_tpu_torch/csrc/bc7_refine.cu",
+    "bc7_refine": ("directxtex_tpu_torch/csrc/bc7_refine.cuh",
                    "directxtex_tpu/bc/pallas_kernels.py:2667"),
     "bc7_encode_alpha": ("directxtex_tpu_torch/csrc/bc7_encode.cuh",
                          "directxtex_tpu/bc/pallas_kernels.py:2020"),
     "bc7_encode_quick": ("directxtex_tpu_torch/csrc/bc7_encode.cuh",
                          "directxtex_tpu/bc/pallas_kernels.py:2020"),
-    "bc7_refine_alpha": ("directxtex_tpu_torch/csrc/bc7_refine.cu",
+    "bc7_refine_alpha": ("directxtex_tpu_torch/csrc/bc7_refine.cuh",
                          "directxtex_tpu/bc/pallas_kernels.py:2667"),
+    "bc7_encode_maxq": ("directxtex_tpu_torch/csrc/bc7_encode.cuh",
+                        "directxtex_tpu/bc/pallas_kernels.py:2020"),
+    "bc7_encode_maxq_alpha": ("directxtex_tpu_torch/csrc/bc7_encode.cuh",
+                              "directxtex_tpu/bc/pallas_kernels.py:2020"),
+    "bc7_refine_maxq": ("directxtex_tpu_torch/csrc/bc7_refine.cuh",
+                        "directxtex_tpu/bc/pallas_kernels.py:2667"),
+    "bc7_refine_ladder": ("directxtex_tpu_torch/csrc/bc7_refine_ladder.cu",
+                          "directxtex_tpu/bc/pallas_kernels.py:2667"),
     "bc6h_decode": ("directxtex_tpu_torch/csrc/bc6h_decode.cu",
                     "directxtex_tpu/bc/pallas_kernels.py:2784"),
     "bc6h_encode": ("directxtex_tpu_torch/csrc/bc6h_encode.cu",
@@ -104,7 +128,16 @@ BC7_SEARCH_QUICK_OPS = 4641
 BC6H_SEARCH_OPS = 173630
 BC7_DECODE_OPS = (1461, 1337, 1557, 1295, 859, 816, 518, 1373)  # per mode
 BC7_REFINE_OPS = {1: 5612, 3: 5432, 5: 4869, 7: 6336,
-                  4: 6908}                     # others pass through
+                  4: 6908, 6: 3402}            # others pass through
+# K2's maxq variants: opaque blocks, and a block with alpha under the
+# alpha variant (an opaque block skips mode 7 and costs the first)
+BC7_SEARCH_MAXQ_OPS = 144081
+BC7_SEARCH_MAXQ_ALPHA_OPS = 167747
+# K3 under LADDER_FULL and LADDER_LIGHT, per winner mode
+BC7_REFINE_FULL_OPS = {1: 12256, 3: 11692, 5: 13521, 6: 12134, 7: 15064,
+                       4: 15624}
+BC7_REFINE_LIGHT_OPS = {1: 6136, 3: 5908, 5: 6153, 6: 4822, 7: 6904,
+                        4: 8200}
 BC6H_DECODE_OPS = (1436, 1442, 1432, 1440, 1436, 1436, 1432, 1444, 1444,
                    1410, 598, 668, 680, 644)      # per mode row, unsigned
 # the maxq refine of a one-region (rows 10-13) and a two-region winner
@@ -115,7 +148,11 @@ BYTES_PER_BLOCK = {"bc7_decode": 16 + 64, "bc7_encode": 64 + 16,
                    "bc7_refine": 64 + 16 + 16, "bc6h_decode": 16 + 96,
                    "bc6h_encode": 96 + 16, "bc6h_refine": 96 + 16 + 16,
                    "bc7_encode_alpha": 64 + 16, "bc7_encode_quick": 64 + 16,
-                   "bc7_refine_alpha": 64 + 16 + 16}
+                   "bc7_refine_alpha": 64 + 16 + 16,
+                   "bc7_encode_maxq": 64 + 16,
+                   "bc7_encode_maxq_alpha": 64 + 16,
+                   "bc7_refine_maxq": 64 + 16 + 16,
+                   "bc7_refine_ladder": 64 + 16 + 16}
 # H100 SXM published peaks: HBM bytes/s, and
 # f32 elementwise operations/s = 132 SMs x 128 lanes x 1.98 GHz (the
 # 67 TFLOP/s figure counts an FMA as two; the kernels build with
@@ -140,11 +177,12 @@ ALPHA_WEIGHTS = (1.0, 2.0)
 ALPHAGRAD_FLOOR = 37.17
 REF_PARITY_MARGINS = {"albedo": 0.04, "tworegion": 0.28, "normal": 2.65,
                       "alphagrad": 0.32}
-# the opaque BC7 path's times in PERF.md section 5 before the alpha path
-# and QUICK were added (NVIDIA H100 80GB HBM3, 700 W), printed beside this
-# run's
-EARLIER_OPAQUE_MS = {"path": 3.396, "bc7_encode": 1.917,
-                     "bc7_refine": 0.866}
+# the opaque BC7 path's times in PERF.md section 5 before the maxq tier
+# was added (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+EARLIER_OPAQUE_MS = {"path": 3.384, "bc7_encode": 1.961,
+                     "bc7_refine": 0.833}
+MAXQ = 0x200000            # encode_bc7's MAXQUALITY flag
+MAXQ_GATE_SLACK = 0.001    # dB below the default tier (test_bc7.py:211)
 
 
 def emit(obj) -> None:
@@ -400,6 +438,13 @@ def main() -> None:
 
     r = bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_d,
                          enc_ms)
+    for d, key in ((launches, "launches"), (k_ms, "k_ms"),
+                   (plain_ms, "plain_ms"), (max_err, "max_err"),
+                   (nb_of, "nb"), (plain_nb, "nb"), (ops_of, "ops")):
+        d.update(r[key])
+
+    r = bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_d,
+                        r["img_alpha"])
     for d, key in ((launches, "launches"), (k_ms, "k_ms"),
                    (plain_ms, "plain_ms"), (max_err, "max_err"),
                    (nb_of, "nb"), (plain_nb, "nb"), (ops_of, "ops")):
@@ -829,6 +874,225 @@ def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
            "bc7_encode_quick": float(nb) * BC7_SEARCH_QUICK_OPS,
            "bc7_refine_alpha": per_mode_ops(torch, bc67._mode_of(
                bc67._words_i64(w_search_a)), BC7_REFINE_OPS)}
+    k_ms = {k: med[k] for k in ops}
+    return {"launches": launches, "k_ms": k_ms, "plain_ms": plain_ms,
+            "max_err": max_err, "nb": {k: nb for k in ops}, "ops": ops,
+            "img_alpha": img_a}
+
+
+def bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
+                    img_alpha) -> dict:
+    """Phases 15-17. Returns the launches (from the maxq paths' runs),
+    times, plain times, errors against the twins, block counts and
+    operations of K2's maxq variants and of K3's maxq-scope moment and
+    exact-ladder instances."""
+    from directxtex_tpu_torch.bc import bc67, cuda_kernels
+    from directxtex_tpu_torch.bc.common import image_to_blocks
+
+    def px_of(blocks):
+        return bc67._quantize_ldr(blocks).reshape(64, -1).contiguous()
+
+    def same(a, b, what):
+        """Kernel and twin agree word for word, and the search errors bit
+        for bit (the twins sum in the kernels' order)."""
+        check(a.shape == b.shape and torch.equal(a, b),
+              f"{what} differs from plain")
+
+    def word_diff(a, b):
+        return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    opaque, alpha = bc67.SEARCH_MODES, bc67.SEARCH_MODES_ALPHA
+    tier = bc67.TIER_MAXQ
+    full, light = bc67.LADDER_FULL, bc67.LADDER_LIGHT
+    size = SLICE_SIZE
+
+    # 15. K2 maxq and K3 (moment with mode 6, exact ladders) vs twins -----
+    rng = np.random.default_rng(11)
+    mixed = rng.random((200, 16, 4)).astype(np.float32)
+    mixed[:100, :, 3] = 1.0
+    px512 = px_of(image_to_blocks(to_dev(b512["img"]))[0])
+    contents = [("bench512", px512, opaque), ("bench512", px512, alpha)]
+    contents += [(c, px_of(image_to_blocks(to_dev(corpus[c]))[0]), opaque)
+                 for c in OPAQUE_CORPUS]
+    contents += [("alphagrad", px_of(image_to_blocks(
+        to_dev(corpus["alphagrad"]))[0]), alpha),
+        ("mixed200", px_of(to_dev(mixed)), alpha)]
+    for label, px, modes in contents:
+        for aw in ALPHA_WEIGHTS:
+            what = f"{label} modes={modes} aw={aw}"
+            e_k, w_k = cuda_kernels.bc7_encode(px, modes, aw, tier)
+            e_p, w_p = bc67._bc7_search_plain(px, modes, aw, tier)
+            same(w_k, w_p, f"K2 maxq words {what}")
+            same(e_k, e_p, f"K2 maxq errors {what}")
+            out = {"phase": "K2_maxq", "content": label, "modes": modes,
+                   "aw": aw, "blocks": px.shape[1], "words_equal": True,
+                   "errors_equal": True, "search_modes": torch.bincount(
+                       bc67._mode_of(bc67._words_i64(w_k)),
+                       minlength=9).tolist()}
+            r_m = cuda_kernels.bc7_refine(px, w_k, modes, aw)
+            same(r_m, bc67._bc7_refine_plain(px, w_k, modes, aw),
+                 f"K3 moment {what}")
+            for name, lad in (("full", full), ("light", light)):
+                r_k = cuda_kernels.bc7_refine(px, r_m, modes, aw, lad)
+                same(r_k, bc67._bc7_refine_plain(px, r_m, modes, aw, lad),
+                     f"K3 {name} {what}")
+                out[f"K3_{name}_refined_blocks"] = int(
+                    (r_k != r_m).any(dim=0).sum())
+            out["K3_moment_refined_blocks"] = int(
+                (r_m != w_k).any(dim=0).sum())
+            if modes == alpha and label in ("bench512", "alphagrad"):
+                # mode 6 wins few blocks: refine every block's mode-6
+                # encode (QUICK's words), as QUICK|MAXQUALITY does
+                _, w_q = cuda_kernels.bc7_encode(px, (6,), aw, tier)
+                for name, lad in (("moment", bc67.LADDER_MOMENT),
+                                  ("full", full)):
+                    r_k = cuda_kernels.bc7_refine(px, w_q, (6,), aw, lad)
+                    same(r_k, bc67._bc7_refine_plain(px, w_q, (6,), aw, lad),
+                         f"K3 mode 6 {name} {what}")
+                    out[f"K3_mode6_{name}_refined_blocks"] = int(
+                        (r_k != w_q).any(dim=0).sum())
+            emit(out)
+
+    # 16. maxq gates (tests/test_bc7.py:200-214, verify_bc7_tpu.py) -------
+    def psnr_of(blocks, flags):
+        enc = bc67.encode_bc7(blocks, flags)
+        dec = bc67.decode_bc7(enc).to(torch.float64)
+        mse = float(((dec - blocks.to(torch.float64)) ** 2).mean())
+        return 10 * np.log10(1.0 / max(mse, 1e-30)), enc
+
+    gates = {}
+    for label, img in [("bench512", b512["img"])] + [
+            (c, corpus[c]) for c in OPAQUE_CORPUS + ("alphagrad",)]:
+        blocks = image_to_blocks(to_dev(img))[0]
+        base, _ = psnr_of(blocks, 0)
+        hq, enc = psnr_of(blocks, MAXQ)
+        check(hq >= base - MAXQ_GATE_SLACK,
+              f"maxq {label}: {hq} dB < default {base} - {MAXQ_GATE_SLACK}")
+        words = enc.view(torch.int32).t()[:, ::29].contiguous()
+        check(torch.equal(cuda_kernels.bc7_decode(words),
+                          bc67._bc7_decode_plain(words)),
+              f"K1 on maxq words {label}")
+        gates[label] = {"maxq": hq, "default": base}
+    ref_psnr = float(b512["ref_psnr"])
+    check(gates["bench512"]["maxq"] >= ref_psnr,
+          f"maxq bench512 {gates['bench512']['maxq']} < {ref_psnr}")
+    emit({"phase": "maxq_gates", "psnr": gates, "ref_psnr": ref_psnr,
+          "slack_db": MAXQ_GATE_SLACK, "K1_sample_equal": True})
+
+    # 17. the maxq paths at 2048^2 ----------------------------------------
+    def path(img, flags):
+        return bc67.encode_bc7(image_to_blocks(img)[0], flags)
+
+    px_o = px_of(image_to_blocks(img_opaque)[0])
+    px_a = px_of(image_to_blocks(img_alpha)[0])
+    nb = px_o.shape[1]
+    runs = {}
+    for name, img, k2 in (("opaque", img_opaque, "bc7_encode_maxq"),
+                          ("alpha", img_alpha, "bc7_encode_maxq_alpha")):
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        blocks = image_to_blocks(img)[0]
+        dec = bc67.decode_bc7(bc67.encode_bc7(blocks, MAXQ))
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cuda_kernels.launch_counts().items()
+                  if v}
+        want = {k2: 1, "bc7_refine_maxq": 1, "bc7_refine_ladder": 1,
+                "bc7_decode": 1}
+        check(counts == want, f"maxq {name} launches {counts}")
+        check(tuple(dec.shape) == (nb, 16, 4)
+              and bool(torch.isfinite(dec).all()), f"maxq {name} output")
+        mse = float(((dec.to(torch.float64) - blocks.to(torch.float64))
+                     ** 2).mean())
+        runs[name] = {"launches": counts,
+                      "psnr": 10 * np.log10(1.0 / max(mse, 1e-30))}
+    launches = {k: runs["opaque"]["launches"][k] for k in (
+        "bc7_encode_maxq", "bc7_refine_maxq", "bc7_refine_ladder")}
+    launches["bc7_encode_maxq_alpha"] = runs["alpha"]["launches"][
+        "bc7_encode_maxq_alpha"]
+
+    # the kernels' inputs at the paths' shapes, held against the twins once
+    plain, plain_ms, max_err, states = {}, {}, {}, {}
+    for name, px, modes, k2 in (("opaque", px_o, opaque, "bc7_encode_maxq"),
+                                ("alpha", px_a, alpha,
+                                 "bc7_encode_maxq_alpha")):
+        e_k, w_s = cuda_kernels.bc7_encode(px, modes, 1.0, tier)
+        w_m = cuda_kernels.bc7_refine(px, w_s, modes)
+        w_f = cuda_kernels.bc7_refine(px, w_m, modes, 1.0, full)
+        states[name] = (px, modes, w_s, w_m)
+        plain_ms[k2] = event_ms(lambda: plain.update(
+            search=bc67._bc7_search_plain(px, modes, 1.0, tier)))[0]
+        same(w_s, plain["search"][1], f"K2 maxq words {name} {size}^2")
+        same(e_k, plain["search"][0], f"K2 maxq errors {name} {size}^2")
+        max_err[k2] = float((e_k - plain["search"][0]).abs().max())
+        # both K3 launches of each path, held at that path's own shapes
+        for k3, key, fn in (
+                ("bc7_refine_maxq", "moment",
+                 lambda: bc67._bc7_refine_plain(px, w_s, modes)),
+                ("bc7_refine_ladder", "full",
+                 lambda: bc67._bc7_refine_plain(px, w_m, modes, 1.0, full))):
+            t = event_ms(lambda: plain.update({key: fn()}))[0]
+            plain_ms[k3 if name == "opaque" else f"{k3}_alpha_image"] = t
+            got = w_m if key == "moment" else w_f
+            same(got, plain[key], f"K3 {key} {name} {size}^2")
+            max_err[k3] = max(max_err.get(k3, 0.0),
+                              word_diff(got, plain[key]))
+
+    med = {}
+    (px_o, _, ws_o, wm_o), (px_a, _, ws_a, wm_a) = (states["opaque"],
+                                                    states["alpha"])
+    w_default = cuda_kernels.bc7_encode(px_o)[1]
+    for name, fn in (
+            ("maxq_path_opaque", lambda: path(img_opaque, MAXQ)),
+            ("maxq_path_alpha", lambda: path(img_alpha, MAXQ)),
+            ("bc7_encode_maxq", lambda: cuda_kernels.bc7_encode(
+                px_o, opaque, 1.0, tier)),
+            ("bc7_encode_maxq_alpha", lambda: cuda_kernels.bc7_encode(
+                px_a, alpha, 1.0, tier)),
+            ("bc7_refine_maxq", lambda: cuda_kernels.bc7_refine(
+                px_o, ws_o, opaque)),
+            ("bc7_refine_ladder", lambda: cuda_kernels.bc7_refine(
+                px_o, wm_o, opaque, 1.0, full)),
+            ("bc7_refine_maxq_alpha_image", lambda: cuda_kernels.bc7_refine(
+                px_a, ws_a, alpha)),
+            ("bc7_refine_ladder_alpha_image", lambda: cuda_kernels.bc7_refine(
+                px_a, wm_a, alpha, 1.0, full)),
+            ("bc7_refine_light", lambda: cuda_kernels.bc7_refine(
+                px_o, wm_o, opaque, 1.0, light)),
+            ("default_path_opaque", lambda: bc67.encode_bc7(
+                image_to_blocks(img_opaque)[0], opaque=True)),
+            ("default_path_alpha", lambda: path(img_alpha, 0)),
+            ("bc7_encode", lambda: cuda_kernels.bc7_encode(px_o)),
+            ("bc7_refine", lambda: cuda_kernels.bc7_refine(
+                px_o, w_default, bc67.REFINE_MODES)),
+            # the default tier's moment instance (no mode-6 code) on the
+            # maxq search's words, beside bc7_refine_maxq on the same words
+            ("bc7_refine_on_maxq_words", lambda: cuda_kernels.bc7_refine(
+                px_o, ws_o, bc67.REFINE_MODES))):
+        fn()
+        med[name] = float(np.median(event_ms(fn, 7)))
+    texels = size * size
+    modes_m = bc67._mode_of(bc67._words_i64(wm_o))
+    light_bound_ms = per_mode_ops(torch, modes_m, BC7_REFINE_LIGHT_OPS) \
+        / OPS_PER_S * 1e3
+    emit({"phase": "maxq2k", "card": smi, "blocks": nb, "runs": runs,
+          "light_bound_ms": light_bound_ms,
+          "ms": med, "maxq_path_mtexels_per_s": {
+              k: texels / (med[f"maxq_path_{k}"] * 1e-3) / 1e6
+              for k in ("opaque", "alpha")},
+          "search_modes": {k: torch.bincount(bc67._mode_of(bc67._words_i64(
+              states[k][2])), minlength=9).tolist() for k in states},
+          "plain_ms": plain_ms, "words_equal_plain": True,
+          "earlier_opaque_ms": EARLIER_OPAQUE_MS})
+
+    has_alpha = (px_a.reshape(16, 4, -1)[:, 3, :] != 255).any(dim=0)
+    n_alpha = float(has_alpha.sum())
+    ops = {"bc7_encode_maxq": float(nb) * BC7_SEARCH_MAXQ_OPS,
+           "bc7_encode_maxq_alpha": n_alpha * BC7_SEARCH_MAXQ_ALPHA_OPS
+           + (nb - n_alpha) * BC7_SEARCH_MAXQ_OPS,
+           "bc7_refine_maxq": per_mode_ops(torch, bc67._mode_of(
+               bc67._words_i64(ws_o)), BC7_REFINE_OPS),
+           "bc7_refine_ladder": per_mode_ops(torch, modes_m,
+                                             BC7_REFINE_FULL_OPS)}
     k_ms = {k: med[k] for k in ops}
     return {"launches": launches, "k_ms": k_ms, "plain_ms": plain_ms,
             "max_err": max_err, "nb": {k: nb for k in ops}, "ops": ops}

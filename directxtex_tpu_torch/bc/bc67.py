@@ -1,5 +1,5 @@
 """BC7 codec on torch tensors — the default tier (with or without alpha,
-at any alpha weight) and the QUICK tier.
+at any alpha weight), the QUICK tier and the MAXQUALITY tier.
 
 The PyTorch counterpart of directxtex_tpu/bc/bc67.py (reference:
 BC6HBC7.cpp). Layouts follow the JAX package: pixel planes are lane-major
@@ -17,14 +17,17 @@ versions take every 16-pixel and per-channel sum in index order, as the
 kernels do, so kernel and twin agree bit for bit wherever the arithmetic
 allows (no FMA contraction: the kernels build with --fmad=false).
 
-Encode follows the JAX package's jnp path exactly: off-axis shape ranking,
-the shared float trajectory for modes 1/3 and for modes 4/5, mode 6, mode
-7 on the blocks with alpha, cross-mode fold in the order (1, 3, 5, 6, 7, 4)
-with strict `<`, then one LADDER_MOMENT winner-refine over modes
-(1, 3, 5, 7, 4). The QUICK tier searches mode 6 alone and skips the
-refine. `alpha_weight` scales the alpha channel's squared error in
-scoring and index assignment only (under modes 4/5 the alpha channel sits
-where the rotation put it).
+Encode follows the JAX package's jnp path exactly. The default tier: off-
+axis shape ranking, the shared float trajectory for modes 1/3 and for
+modes 4/5, mode 6, mode 7 on the blocks with alpha, cross-mode fold in the
+order (1, 3, 5, 6, 7, 4) with strict `<`, then one LADDER_MOMENT
+winner-refine over modes (1, 3, 5, 7, 4). The QUICK tier searches mode 6
+alone and skips the refine. The MAXQUALITY tier fits every mode on its
+own (modes 1/3 per shape candidate, modes 4/5 per rotation and, for mode
+4, per index mode) and refines the winner twice over every searched mode:
+LADDER_MOMENT, then the exact LADDER_FULL ladder. `alpha_weight` scales
+the alpha channel's squared error in scoring and index assignment only
+(under modes 4/5 the alpha channel sits where the rotation put it).
 """
 
 from __future__ import annotations
@@ -81,26 +84,38 @@ _POWER_ITERS = 3
 BC7_SHARED2SUB_IPREC = 3
 BC7_SHARED2SUB_ROUNDS = 1
 BC7_SHARED45_ROUNDS = 1
+# the maxq tier's mode-4 index modes (bc67.py:1953)
+_MODE4_IMS_MAXQ = (0, 1)
+# refine ladders (bc67.py:724-725, :814): the analytic moment step, and
+# the exact perturbation ladders as (rounds, deltas)
 LADDER_MOMENT = "moment"
+LADDER_FULL = (2, (2, 1))
+LADDER_LIGHT = (1, (1,))
 
 # encode_bc7's flags (bc67.py:381-383)
 _BC7_QUICK = 0x100000
 _BC7_USE_3SUBSETS = 0x80000
 _BC7_MAXQUALITY = 0x200000
 
-# search modes in fold order and winner-refine scopes (mode 6 skipped) of
-# the tiers the port runs (bc67.py:1955-1970): the default tier for
-# opaque images and for images with alpha, and QUICK (no refine)
+# search modes in fold order and winner-refine scopes of the tiers the
+# port runs (bc67.py:1955-1970): the default tier for opaque images and
+# for images with alpha (mode 6 out of the refine), QUICK (no refine);
+# the maxq tier refines every mode it searched
 SEARCH_MODES = (1, 3, 5, 6, 4)
 REFINE_MODES = (1, 3, 5, 4)
 SEARCH_MODES_ALPHA = (1, 3, 5, 6, 7, 4)
 REFINE_MODES_ALPHA = (1, 3, 5, 7, 4)
 SEARCH_MODES_QUICK = (6,)
+# the search's tier, an explicit argument of the search (one mode tuple
+# serves both tiers): shared fits and mode-4 index mode 0 (default), or
+# every mode fitted on its own and both mode-4 index modes (maxq)
+TIER_DEFAULT = cuda_kernels.TIER_DEFAULT
+TIER_MAXQ = cuda_kernels.TIER_MAXQ
 
 
 def tables_as_numpy() -> dict:
     """The codec's carried state: the BC6H/BC7 spec tables and the BC7
-    default tier's search constants."""
+    search and refine constants."""
     return {
         "PARTITIONS": PARTITIONS, "FIXUPS": FIXUPS,
         "WEIGHTS2": WEIGHTS2, "WEIGHTS3": WEIGHTS3, "WEIGHTS4": WEIGHTS4,
@@ -115,6 +130,8 @@ def tables_as_numpy() -> dict:
         "BC7_SHARED2SUB_ROUNDS": BC7_SHARED2SUB_ROUNDS,
         "BC7_SHARED45_ROUNDS": BC7_SHARED45_ROUNDS,
         "LADDER_MOMENT": LADDER_MOMENT,
+        "LADDER_FULL": LADDER_FULL,
+        "LADDER_LIGHT": LADDER_LIGHT,
         "_BC7_QUICK": _BC7_QUICK,
         "_BC7_USE_3SUBSETS": _BC7_USE_3SUBSETS,
         "_BC7_MAXQUALITY": _BC7_MAXQUALITY,
@@ -977,13 +994,14 @@ def _try_mode6(px_i, px_f, aw: float = 1.0):
                           px_i.device)
 
 
-def _try_mode7(px_i, px_f, ests, aw: float = 1.0):
-    """Mode 7 (_try_partition_mode(7, ests=est_cache[1]), bc67.py:1337):
-    the top BC7_SHAPE_CANDIDATES shapes of modes 1/3's ranking, each
-    evaluated on its own (axis fit with alpha, one LS refit, keep the
-    better per subset, anchor swaps), folded with a strict `<`.
-    Returns (err [NB], words [4, NB] int64); opaque blocks are not
-    masked here (the search does that)."""
+def _try_partition_mode(px_i, px_f, mode_id: int, ests, aw: float = 1.0):
+    """One two-subset mode fitted on its own (_try_partition_mode with
+    ests=est_cache[1], bc67.py:1337, jnp branch): modes 1 and 3 in the
+    maxq tier, mode 7 in every tier. The top BC7_SHAPE_CANDIDATES shapes
+    of the shared ranking, each evaluated on its own (axis fit, one LS
+    refit, keep the better per subset, anchor swaps), folded with a
+    strict `<`. Returns (err [NB], words [4, NB] int64); mode 7's opaque
+    blocks are not masked here (the search does that)."""
     tabs = _tables(px_i.device)
     nb = px_i.shape[2]
     best_err = torch.full((nb,), float("inf"), device=px_i.device)
@@ -993,9 +1011,9 @@ def _try_mode7(px_i, px_f, ests, aw: float = 1.0):
         mask_list = [pmask == 0, pmask == 1]
         anchors = [0, tabs["fix1"][s_blk, 1]]
         err, q0s, q1s, p0s, p1s, idx = _eval_subset_candidate(
-            px_i, px_f, mask_list, anchors, 7, aw)
-        words = _emit_bc7(7, s_blk, 0, 0, q0s, q1s, p0s, p1s, idx, None, nb,
-                          px_i.device)
+            px_i, px_f, mask_list, anchors, mode_id, aw)
+        words = _emit_bc7(mode_id, s_blk, 0, 0, q0s, q1s, p0s, p1s, idx,
+                          None, nb, px_i.device)
         better = err < best_err
         best_err = torch.minimum(err, best_err)
         best_words = torch.where(better[None, :], words, best_words)
@@ -1063,29 +1081,107 @@ def _try_modes45_shared(px_i, px_f, aw: float = 1.0):
     return best
 
 
+def _dual_eval_t(pr_i, pr_f, mode_id: int, im: int, aw: float = 1.0,
+                 alpha_ch: int = 3):
+    """One (rotation, index mode) candidate of mode 4 or 5 fitted on its
+    own (_dual_eval_ref, bc67.py:1387): RGB axis fit with alpha min/max
+    endpoints, quantize, colour and alpha assignment at the index mode's
+    two precisions, one LS refit per group, re-evaluate, keep the better.
+    pr_i/pr_f: the rotated pixels. Returns (q0, q1 [4, NB], cidx, aidx
+    [16, NB], err [NB])."""
+    m = _BC7_MODES[mode_id]
+    mask = torch.ones((16, pr_i.shape[2]), dtype=torch.bool,
+                      device=pr_i.device)
+    cprec = m.index_prec2 if im else m.index_prec
+    aprec = m.index_prec if im else m.index_prec2
+
+    def qpal(e0f_, e1f_):
+        q0, q1, p0, p1 = _quantize_endpoints_t(e0f_, e1f_, m)
+        u0, u1 = _unquantize_with_p_t(q0, q1, p0, p1, m, False)
+        cidx, cerr = _assign_indices_t(pr_i, u0, u1, cprec, mask, 0, 3, aw,
+                                       alpha_ch)
+        aidx, aerr = _assign_indices_t(pr_i, u0, u1, aprec, mask, 3, 4, aw,
+                                       alpha_ch)
+        return q0, q1, cidx, aidx, cerr + aerr
+
+    e0f, e1f = _minmax_axis_endpoints_t(pr_f, mask, with_alpha=False)
+    e0f = torch.cat([e0f[:3], pr_f[:, 3, :].amin(dim=0)[None]])
+    e1f = torch.cat([e1f[:3], pr_f[:, 3, :].amax(dim=0)[None]])
+    q0, q1, cidx, aidx, err = qpal(e0f, e1f)
+    e0c, e1c = _ls_refit_t(pr_f, cidx, mask, cprec, e0f, e1f, 0, 3)
+    e0c, e1c = _ls_refit_t(pr_f, aidx, mask, aprec, e0c, e1c, 3, 4)
+    q0b, q1b, cidx_b, aidx_b, err_b = qpal(e0c, e1c)
+    better = err_b < err
+    return (torch.where(better[None, :], q0b, q0),
+            torch.where(better[None, :], q1b, q1),
+            torch.where(better[None, :], cidx_b, cidx),
+            torch.where(better[None, :], aidx_b, aidx),
+            torch.minimum(err_b, err))
+
+
+def _try_single_mode45(px_i, px_f, mode_id: int, aw: float = 1.0):
+    """Mode 4 or 5 with every (rotation, index mode) candidate fitted on
+    its own (_try_single_mode with the maxq tier's m4_ims, bc67.py:1438):
+    mode 4 over rotations 0-3 x index modes (0, 1), mode 5 over rotations
+    0-3 at index mode 0; independent colour and alpha anchor fixes per
+    candidate, fold with a strict `<`. Returns (err [NB], words [4, NB]
+    int64)."""
+    m = _BC7_MODES[mode_id]
+    nb = px_i.shape[2]
+    ims = _MODE4_IMS_MAXQ if m.index_mode_bits else (0,)
+    zero = torch.zeros(nb, dtype=torch.int32, device=px_i.device)
+    best_err = torch.full((nb,), float("inf"), device=px_i.device)
+    best_words = torch.zeros((4, nb), dtype=torch.int64, device=px_i.device)
+    for rot in _MODE45_ROTS:
+        pr_i, pr_f = _rotate(px_i, rot), _rotate(px_f, rot)
+        alpha_ch = 3 if rot == 0 else rot - 1
+        for im in ims:
+            q0, q1, cidx, aidx, err = _dual_eval_t(pr_i, pr_f, mode_id, im,
+                                                   aw, alpha_ch)
+            w1, w2 = (cidx, aidx) if im == 0 else (aidx, cidx)
+            w1, w2, swap1, swap2 = _dual_anchor_fix(w1, w2, m.index_prec,
+                                                    m.index_prec2)
+            swap_rgb, swap_a = (swap1, swap2) if im == 0 else (swap2, swap1)
+            do_swap = torch.stack([swap_rgb, swap_rgb, swap_rgb, swap_a])
+            words = _emit_bc7(mode_id, 0, rot, im,
+                              [torch.where(do_swap, q1, q0)],
+                              [torch.where(do_swap, q0, q1)], [zero], [zero],
+                              w1, w2, nb, px_i.device)
+            better = err < best_err
+            best_err = torch.minimum(err, best_err)
+            best_words = torch.where(better[None, :], words, best_words)
+    return best_err, best_words
+
+
 # blocks per plain-search slice: bounds the [128, 11, n] shape-sum planes
 # when the plain twin runs at full image size (results are per block, so
 # slicing changes nothing)
 _PLAIN_SEARCH_SLICE = 32768
 
-
-def _check_search_modes(modes) -> tuple:
+def _check_search(modes, tier: str) -> tuple:
     modes = tuple(modes)
+    if tier not in (TIER_DEFAULT, TIER_MAXQ):
+        raise ValueError(f"tier {tier!r}: the search tiers are "
+                         f"{TIER_DEFAULT!r} and {TIER_MAXQ!r}")
     if modes not in (SEARCH_MODES, SEARCH_MODES_ALPHA, SEARCH_MODES_QUICK):
         raise NotImplementedError(
             f"search modes {modes}: the port searches {SEARCH_MODES}, "
-            f"{SEARCH_MODES_ALPHA} and {SEARCH_MODES_QUICK} (MAXQUALITY "
-            "and USE_3SUBSETS: ROADMAP.md queue 1, 'The other BC7 tiers')")
+            f"{SEARCH_MODES_ALPHA} and {SEARCH_MODES_QUICK} (modes 0 and 2, "
+            "USE_3SUBSETS: ROADMAP.md queue 1, 'The other BC7 tiers')")
     return modes
 
 
 def _bc7_search_plain(px: torch.Tensor, modes=SEARCH_MODES,
-                      aw: float = 1.0):
+                      aw: float = 1.0, tier: str = TIER_DEFAULT):
     """Plain twin of K2: px [64, NB] int32 (0..255) -> (err [NB] f32,
     words [4, NB] int32). `modes` (one of the three search tuples) are
     folded in their order with a strict `<`; mode 7 scores inf on a block
-    whose alpha is 255 everywhere (bc67.py:2034)."""
-    modes = _check_search_modes(modes)
+    whose alpha is 255 everywhere (bc67.py:2034). `tier` TIER_DEFAULT
+    shares one float trajectory between modes 1 and 3 and between modes 4
+    and 5 (mode 4 at index mode 0); TIER_MAXQ fits each of them on its own
+    and searches both mode-4 index modes. Mode 6 (and so QUICK) is the
+    same search in both tiers."""
+    modes = _check_search(modes, tier)
     errs, words = [], []
     for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE):
         px_i = px[:, s:s + _PLAIN_SEARCH_SLICE].reshape(16, 4, -1)
@@ -1094,10 +1190,18 @@ def _bc7_search_plain(px: torch.Tensor, modes=SEARCH_MODES,
         res = {6: _try_mode6(px_i, px_f, aw)}
         if 1 in modes:
             ests = _shape_estimates_table(px_f)
-            res.update(_try_2sub_modes_shared(px_i, px_f, ests, aw))
-            res.update(_try_modes45_shared(px_i, px_f, aw))
+            if tier == TIER_MAXQ:
+                for mode_id in (1, 3):
+                    res[mode_id] = _try_partition_mode(px_i, px_f, mode_id,
+                                                       ests, aw)
+                for mode_id in (4, 5):
+                    res[mode_id] = _try_single_mode45(px_i, px_f, mode_id,
+                                                      aw)
+            else:
+                res.update(_try_2sub_modes_shared(px_i, px_f, ests, aw))
+                res.update(_try_modes45_shared(px_i, px_f, aw))
         if 7 in modes:
-            err7, words7 = _try_mode7(px_i, px_f, ests, aw)
+            err7, words7 = _try_partition_mode(px_i, px_f, 7, ests, aw)
             has_alpha = (px_i[:, 3, :] != 255).any(dim=0)
             res[7] = (torch.where(has_alpha, err7, float("inf")), words7)
         best_err = torch.full((nb,), float("inf"), device=px.device)
@@ -1114,22 +1218,23 @@ def _bc7_search_plain(px: torch.Tensor, modes=SEARCH_MODES,
 
 
 def bc7_search_words(px: torch.Tensor, modes=SEARCH_MODES,
-                     aw: float = 1.0):
+                     aw: float = 1.0, tier: str = TIER_DEFAULT):
     """K2 wrapper: the whole search of one tier. px [64, NB] int32
     (texels 0..255, row = pixel * 4 + channel) -> (err [NB] f32, words
-    [4, NB] int32); `modes` is SEARCH_MODES (default tier, opaque),
-    SEARCH_MODES_ALPHA (default tier with mode 7) or SEARCH_MODES_QUICK.
-    A CUDA tensor launches the kernel, a CPU tensor runs the plain
-    twin."""
+    [4, NB] int32); `modes` is SEARCH_MODES (opaque), SEARCH_MODES_ALPHA
+    (with mode 7) or SEARCH_MODES_QUICK, `tier` TIER_DEFAULT or
+    TIER_MAXQ. A CUDA tensor launches the kernel, a CPU tensor runs the
+    plain twin."""
     _check_px(px)
-    modes = _check_search_modes(modes)
+    modes = _check_search(modes, tier)
     if _on_cuda(px):
-        return cuda_kernels.bc7_encode(px, modes, aw)
-    return _bc7_search_plain(px, modes, aw)
+        return cuda_kernels.bc7_encode(px, modes, aw, tier)
+    return _bc7_search_plain(px, modes, aw, tier)
 
 
 # ---------------------------------------------------------------------------
-# winner-refine, LADDER_MOMENT (bc67.py:817-905, :1597-1896)
+# winner-refine: LADDER_MOMENT and the exact ladders (bc67.py:728-905,
+# :1597-1896)
 # ---------------------------------------------------------------------------
 
 def _bc7_unpack_mode(words, mode: int):
@@ -1279,15 +1384,94 @@ def _moment_channels_t(px_i, mask, m: _BC7Mode, shared_p: bool, q0, q1,
     return torch.stack(q0r), torch.stack(q1r), err0
 
 
-# The JAX ladders return a fixed-index error err_l (+inf for MOMENT) that
-# the re-assignment must beat before its indices are kept; with MOMENT the
-# finite re-assignment error always beats it, so the port drops err_l.
+def _perturb_channels_t(px_i, mask, m: _BC7Mode, shared_p: bool, q0, q1,
+                        p0, p1, wk_ch, ladder, aw: float = 1.0,
+                        alpha_ch: int = 3, w_rows=None):
+    """The exact perturbation ladder (LADDER_FULL, LADDER_LIGHT;
+    bc67.py:728): with the indices fixed, each encoded channel's two
+    endpoint codes try +-delta steps in the order round -> channel ->
+    endpoint -> delta -> sign, keeping a step where the channel's exact
+    fixed-index error drops (strict `<`). ladder = (rounds, deltas).
+    Errors are alpha-weighted as _assign_indices_t. Returns (q0, q1
+    [4, NB], err_l, err0 [NB]): the ladder's final and the pre-ladder
+    fixed-index errors."""
+    rounds, deltas = ladder
+    p1u = p0 if shared_p else p1
+    q0r = [q0[c] for c in range(4)]
+    q1r = [q1[c] for c in range(4)]
 
-def _refine_mode_subsets(px_i, words, mode_id: int, aw: float = 1.0):
-    """Winner-refine one partition-family mode (1, 3, 7): unpack, MOMENT move
-    per subset with indices fixed, one re-assignment, keep per subset where
-    the error drops, anchor swaps, re-emit.
-    Returns (err_new, err_old [NB], words [4, NB] int64)."""
+    def cherr(c, u0c, u1c):
+        wk = wk_ch[c]
+        r = (px_i[:, c, :] - (((64 - wk) * u0c[None, :] + wk * u1c[None, :]
+                               + 32) >> 6)).to(torch.float32)
+        return _sum0(torch.where(
+            mask, _weighted_sq(r, c, aw, alpha_ch, w_rows), 0.0))
+
+    full = torch.full_like(p0, 255)
+    ch_err = []
+    for c in range(4):
+        if m.rgba_prec[c] == 0:          # decodes as 255: a constant term
+            ch_err.append(cherr(c, full, full))
+            continue
+        prec, prec_p = m.rgba_prec[c], m.rgba_prec_p[c]
+        ch_err.append(cherr(c, _unquant_channel_t(q0r[c], p0, prec, prec_p),
+                            _unquant_channel_t(q1r[c], p1u, prec, prec_p)))
+    err0 = sum(ch_err)
+    for _ in range(rounds):
+        for c in range(4):
+            if m.rgba_prec[c] == 0:
+                continue
+            prec, prec_p = m.rgba_prec[c], m.rgba_prec_p[c]
+            maxq = (1 << prec) - 1
+            base = ch_err[c]
+            for which in (0, 1):
+                rows, pbit = (q0r, p0) if which == 0 else (q1r, p1u)
+                other_u = (_unquant_channel_t(q1r[c], p1u, prec, prec_p)
+                           if which == 0 else
+                           _unquant_channel_t(q0r[c], p0, prec, prec_p))
+                for delta in deltas:
+                    for sgn in (delta, -delta):
+                        qt = (rows[c] + sgn).clamp(0, maxq)
+                        ut = _unquant_channel_t(qt, pbit, prec, prec_p)
+                        e = (cherr(c, ut, other_u) if which == 0 else
+                             cherr(c, other_u, ut))
+                        better = e < base
+                        rows[c] = torch.where(better, qt, rows[c])
+                        base = torch.minimum(e, base)
+            ch_err[c] = base
+    return torch.stack(q0r), torch.stack(q1r), sum(ch_err), err0
+
+
+def _ladder_move(px_i, mask, m: _BC7Mode, shared_p: bool, q0, q1, p0, p1,
+                 wk_ch, ladder, aw: float = 1.0, w_rows=None):
+    """One ladder's endpoint move with the indices fixed. Returns (q0,
+    q1, err_l, err0): err_l is the ladder's own fixed-index error, None
+    for LADDER_MOMENT (the JAX package's +inf, which every finite
+    re-assignment error beats)."""
+    if ladder == LADDER_MOMENT:
+        q0t, q1t, err0 = _moment_channels_t(px_i, mask, m, shared_p, q0, q1,
+                                            p0, p1, wk_ch, aw,
+                                            w_rows=w_rows)
+        return q0t, q1t, None, err0
+    return _perturb_channels_t(px_i, mask, m, shared_p, q0, q1, p0, p1,
+                               wk_ch, ladder, aw, w_rows=w_rows)
+
+
+def _keep_reassigned(err_t, err_l):
+    """The re-assignment's indices stand where they beat the ladder's own
+    fixed-index error (bc67.py:1732-1734): (keep [NB] or None, the
+    error to hold against err0)."""
+    if err_l is None:
+        return None, err_t
+    return err_t < err_l, torch.minimum(err_t, err_l)
+
+
+def _refine_mode_subsets(px_i, words, mode_id: int, ladder=LADDER_MOMENT,
+                         aw: float = 1.0):
+    """Winner-refine one partition-family mode (1, 3, 6, 7): unpack, the
+    ladder's endpoint move per subset with indices fixed, one
+    re-assignment, keep per subset where the error drops, anchor swaps,
+    re-emit. Returns (err_new, err_old [NB], words [4, NB] int64)."""
     m = _BC7_MODES[mode_id]
     nb = px_i.shape[2]
     n_sub = m.partitions + 1
@@ -1296,27 +1480,34 @@ def _refine_mode_subsets(px_i, words, mode_id: int, aw: float = 1.0):
     shape, _, _, q0s, q1s, p0s, p1s, idx_full, _ = _bc7_unpack_mode(
         words, mode_id)
 
-    tabs = _tables(px_i.device)
-    pp = tabs["pp", m.partitions][shape]
-    pa = tabs["pa", m.partitions][shape]
-    pm = torch.stack([(pp >> (2 * i)) & 3 for i in range(16)])
-    mask_list = [pm == p for p in range(n_sub)]
-    anchors = [0, pa & 0xF]
+    if m.partitions:
+        tabs = _tables(px_i.device)
+        pp = tabs["pp", m.partitions][shape]
+        pa = tabs["pa", m.partitions][shape]
+        pm = torch.stack([(pp >> (2 * i)) & 3 for i in range(16)])
+        mask_list = [pm == p for p in range(n_sub)]
+        anchors = [0, pa & 0xF]
+    else:                                 # mode 6: one subset
+        mask_list = [torch.ones((16, nb), dtype=torch.bool,
+                                device=px_i.device)]
+        anchors = [0]
 
     wk = _pal_weight(idx_full, 1 << prec)
     err_new = torch.zeros(nb, dtype=torch.float32, device=px_i.device)
     err_old = torch.zeros_like(err_new)
     for sub, mask in enumerate(mask_list):
-        q0t, q1t, err0 = _moment_channels_t(
-            px_i, mask, m, shared_p, q0s[sub], q1s[sub], p0s[sub],
-            p1s[sub], [wk] * 4, aw)
+        q0t, q1t, err_l, err0 = _ladder_move(
+            px_i, mask, m, shared_p, q0s[sub], q1s[sub], p0s[sub], p1s[sub],
+            [wk] * 4, ladder, aw)
         u0, u1 = _unquantize_with_p_t(q0t, q1t, p0s[sub], p1s[sub], m,
                                       shared_p)
         idx_t, err_t = _assign_indices_t(px_i, u0, u1, prec, mask, aw=aw)
+        keep, err_t = _keep_reassigned(err_t, err_l)
         bt = err_t < err0
         q0s[sub] = torch.where(bt[None, :], q0t, q0s[sub])
         q1s[sub] = torch.where(bt[None, :], q1t, q1s[sub])
-        idx_full = torch.where(bt[None, :] & mask, idx_t, idx_full)
+        take = bt if keep is None else bt & keep
+        idx_full = torch.where(take[None, :] & mask, idx_t, idx_full)
         err_new = err_new + torch.minimum(err_t, err0)
         err_old = err_old + err0
 
@@ -1326,11 +1517,13 @@ def _refine_mode_subsets(px_i, words, mode_id: int, aw: float = 1.0):
                                        p1s, idx_full, None, nb, px_i.device)
 
 
-def _refine_mode45(px_i, words, mode_id: int, aw: float = 1.0):
-    """Winner-refine modes 4/5: per-block rotation and index mode, MOMENT
-    move with separate color/alpha weight planes, dual re-assignment,
-    independent anchor fixes; the alpha weight rides the rotated alpha
-    channel per block. Returns (err_new, err_old [NB], words)."""
+def _refine_mode45(px_i, words, mode_id: int, ladder=LADDER_MOMENT,
+                   aw: float = 1.0):
+    """Winner-refine modes 4/5: per-block rotation and index mode, the
+    ladder's move with separate color/alpha weight planes, dual
+    re-assignment, independent anchor fixes; the alpha weight rides the
+    rotated alpha channel per block. Returns (err_new, err_old [NB],
+    words)."""
     m = _BC7_MODES[mode_id]
     nb = px_i.shape[2]
     mask = torch.ones((16, nb), dtype=torch.bool, device=px_i.device)
@@ -1363,9 +1556,9 @@ def _refine_mode45(px_i, words, mode_id: int, aw: float = 1.0):
     wka = torch.where(im0_16, _pal_weight(aidx, 1 << prec2),
                       _pal_weight(aidx, 1 << prec1))
 
-    q0t, q1t, err0 = _moment_channels_t(pr_i, mask, m, False, q0, q1, p0,
-                                        p1, [wkc, wkc, wkc, wka],
-                                        w_rows=w_rows)
+    q0t, q1t, err_l, err0 = _ladder_move(pr_i, mask, m, False, q0, q1, p0,
+                                         p1, [wkc, wkc, wkc, wka], ladder,
+                                         w_rows=w_rows)
     u0, u1 = _unquantize_with_p_t(q0t, q1t, p0, p1, m, False)
     cidx_t, cerr = _assign_indices_t(pr_i, u0, u1, prec1, mask, 0, 3,
                                      w_rows=w_rows)
@@ -1381,11 +1574,13 @@ def _refine_mode45(px_i, words, mode_id: int, aw: float = 1.0):
         aidx_t = torch.where(im0_16, aidx_t, aidx_b)
         err_t = torch.where(im0, err_t, cerr_b + aerr_b)
 
+    keep, err_t = _keep_reassigned(err_t, err_l)
     bt = err_t < err0
+    take = (bt if keep is None else bt & keep)[None, :]
     q0f = torch.where(bt[None, :], q0t, q0)
     q1f = torch.where(bt[None, :], q1t, q1)
-    cidx = torch.where(bt[None, :], cidx_t, cidx)
-    aidx = torch.where(bt[None, :], aidx_t, aidx)
+    cidx = torch.where(take, cidx_t, cidx)
+    aidx = torch.where(take, aidx_t, aidx)
     err_new = torch.minimum(err_t, err0)
 
     w1n = torch.where(im0_16, cidx, aidx)
@@ -1400,67 +1595,85 @@ def _refine_mode45(px_i, words, mode_id: int, aw: float = 1.0):
                                     [p0], [p1], w1n, w2n, nb, px_i.device)
 
 
+# the modes the refine takes (bc67.py:1865-1896 without the 3-subset
+# modes 0 and 2)
+_REFINE_SCOPE = (1, 3, 4, 5, 6, 7)
+
+
 def _check_refine_modes(modes) -> tuple:
     modes = tuple(modes)
-    if not set(modes) <= set(REFINE_MODES_ALPHA):
+    if not set(modes) <= set(_REFINE_SCOPE):
         raise NotImplementedError(
-            f"refine modes {modes}: the port refines modes "
-            f"{REFINE_MODES_ALPHA} (ROADMAP.md queue 1, 'The other BC7 "
-            "tiers')")
+            f"refine modes {modes}: the port refines modes {_REFINE_SCOPE} "
+            "(modes 0 and 2, USE_3SUBSETS: ROADMAP.md queue 1, 'The other "
+            "BC7 tiers')")
     return modes
 
 
+def _check_ladder(ladder):
+    """LADDER_MOMENT, or an exact ladder (rounds, deltas) of ints, any
+    count of each, as the JAX package takes it (K3's launcher checks the
+    limits of its own launch arguments)."""
+    if ladder == LADDER_MOMENT:
+        return ladder
+    try:
+        rounds, deltas = ladder
+        return int(rounds), tuple(int(d) for d in deltas)
+    except (TypeError, ValueError):
+        raise ValueError(f"ladder {ladder!r}: LADDER_MOMENT or (rounds, "
+                         "deltas)") from None
+
+
 def _bc7_refine_plain(px: torch.Tensor, words_i32: torch.Tensor,
-                      modes=REFINE_MODES, aw: float = 1.0) -> torch.Tensor:
+                      modes=REFINE_MODES, aw: float = 1.0,
+                      ladder=LADDER_MOMENT) -> torch.Tensor:
     """Plain twin of K3: px [64, NB] int32, words [4, NB] int32 ->
     refined words [4, NB] int32. A block is re-emitted only where its own
     mode is in `modes` and the error drops; others pass through."""
+    ladder = _check_ladder(ladder)
     px_i = px.reshape(16, 4, -1)
     words = _words_i64(words_i32)
     mode = _mode_of(words)
     out = words
     for mv in _check_refine_modes(modes):
         refine = _refine_mode45 if mv in (4, 5) else _refine_mode_subsets
-        err_new, err0, wn = refine(px_i, words, mv, aw)
+        err_new, err0, wn = refine(px_i, words, mv, ladder, aw)
         better = (mode == mv) & (err_new < err0)
         out = torch.where(better[None, :], wn, out)
     return _words_i32(out)
 
 
 def bc7_refine_words(px: torch.Tensor, words: torch.Tensor,
-                     modes=REFINE_MODES, aw: float = 1.0) -> torch.Tensor:
-    """K3 wrapper: MOMENT winner-refine. px [64, NB] int32, words [4, NB]
-    int32 -> words [4, NB] int32. A CUDA tensor launches the kernel, a
-    CPU tensor runs the plain twin."""
+                     modes=REFINE_MODES, aw: float = 1.0,
+                     ladder=LADDER_MOMENT) -> torch.Tensor:
+    """K3 wrapper: winner-refine with one ladder (LADDER_MOMENT or an
+    exact (rounds, deltas) ladder) over `modes`, a subset of (1, 3, 4, 5,
+    6, 7). px [64, NB] int32, words [4, NB] int32 -> words [4, NB] int32.
+    A CUDA tensor launches the kernel, a CPU tensor runs the plain
+    twin."""
     _check_words(words)
     _check_px(px, words.shape[1])
     modes = _check_refine_modes(modes)
+    ladder = _check_ladder(ladder)
     if _on_cuda(px, words):
-        return cuda_kernels.bc7_refine(px, words, modes, aw)
-    return _bc7_refine_plain(px, words, modes, aw)
-
-
-def _check_ladder(ladder) -> None:
-    if ladder != LADDER_MOMENT:
-        raise NotImplementedError(
-            f"ladder {ladder!r}: the port runs LADDER_MOMENT only; the "
-            "exact ladders (LADDER_FULL, LADDER_LIGHT) serve the maxq tier "
-            "(ROADMAP.md queue 1, 'The other BC7 tiers')")
+        return cuda_kernels.bc7_refine(px, words, modes, aw, ladder)
+    return _bc7_refine_plain(px, words, modes, aw, ladder)
 
 
 def refine_bc7_words(px_i: torch.Tensor, words: torch.Tensor,
                      ladder=LADDER_MOMENT, aw: float = 1.0,
                      modes: tuple = REFINE_MODES) -> torch.Tensor:
     """Winner-refine pass (bc67.py:1865): unpack each block's winning state
-    from its packed words, take the MOMENT endpoint move, re-assign indices
-    once and re-emit where the error improved.
+    from its packed words, move its endpoints by the ladder (LADDER_MOMENT,
+    LADDER_FULL, LADDER_LIGHT or another (rounds, deltas)) with the
+    indices fixed, re-assign indices once and re-emit where the error
+    improved.
 
     px_i [16, 4, NB] int32 LDR pixels; words [NB, 4] int32 (u32 bit
     patterns). Returns refined words [NB, 4] int32."""
-    _check_ladder(ladder)
     nb = px_i.shape[2]
     out = bc7_refine_words(px_i.reshape(64, nb).contiguous(),
-                           words.t().contiguous(), modes, aw)
+                           words.t().contiguous(), modes, aw, ladder)
     return out.t().contiguous()
 
 
@@ -1475,36 +1688,45 @@ def _quantize_ldr(blocks: torch.Tensor) -> torch.Tensor:
 def encode_bc7(blocks: torch.Tensor, flags: int = 0, opaque: bool = False,
                alpha_weight: float = 1.0) -> torch.Tensor:
     """[NB, 16, 4] f32 -> [NB, 16] u8 (D3DXEncodeBC7, BC6HBC7.cpp:2783).
-    On a CUDA tensor the search and the refine run as kernels (K2, K3).
+    On a CUDA tensor the search and the refines run as kernels (K2, K3).
 
     The default tier searches modes (1, 3, 5, 6, 7, 4) and refines the
     winner with one MOMENT pass over (1, 3, 5, 7, 4); QUICK (0x100000)
-    searches mode 6 alone, with no refine. `opaque=True` is the caller's
-    promise that alpha is 1 everywhere and drops mode 7. With the default
-    `opaque=False` the port checks the quantized alpha (one host sync)
-    and drops mode 7 where no block has alpha: mode 7 scores inf on every
-    opaque block in the JAX package too, so the words are the same.
-    `alpha_weight` scales the alpha channel's squared error in scoring.
-    MAXQUALITY and USE_3SUBSETS raise NotImplementedError; other flag
-    bits are ignored, as in the JAX package."""
-    if flags & (_BC7_MAXQUALITY | _BC7_USE_3SUBSETS):
+    searches mode 6 alone, with no refine; MAXQUALITY (0x200000) fits
+    every mode on its own and refines twice, MOMENT then LADDER_FULL, over
+    every searched mode (QUICK|MAXQUALITY: mode 6, refined twice).
+    `opaque=True` is the caller's promise that alpha is 1 everywhere and
+    drops mode 7. With the default `opaque=False` the port checks the
+    quantized alpha (one host sync) and drops mode 7 where no block has
+    alpha: mode 7 scores inf on every opaque block in the JAX package too,
+    so the words are the same. `alpha_weight` scales the alpha channel's
+    squared error in scoring. USE_3SUBSETS raises NotImplementedError;
+    other flag bits are ignored, as in the JAX package."""
+    if flags & _BC7_USE_3SUBSETS:
         raise NotImplementedError(
-            f"flags {flags:#x}: the port runs the default and QUICK tiers "
-            "(MAXQUALITY and USE_3SUBSETS: ROADMAP.md queue 1, 'The other "
-            "BC7 tiers')")
+            f"flags {flags:#x}: USE_3SUBSETS (modes 0 and 2) is not ported "
+            "(ROADMAP.md queue 1, 'The other BC7 tiers')")
     if blocks.dim() != 3 or blocks.shape[1:] != (16, 4):
         raise ValueError(f"blocks must be [NB, 16, 4], got "
                          f"{tuple(blocks.shape)}")
     nb = blocks.shape[0]
     px = _quantize_ldr(blocks).reshape(64, nb).contiguous()
+    maxq = bool(flags & _BC7_MAXQUALITY)
+    tier = TIER_MAXQ if maxq else TIER_DEFAULT
     if flags & _BC7_QUICK:
-        _, words = bc7_search_words(px, SEARCH_MODES_QUICK, alpha_weight)
+        search, refine = SEARCH_MODES_QUICK, ()
     else:
         # has_alpha of bc67.py:1915, on the quantized alpha rows
         alpha = not opaque and bool(
             (px.reshape(16, 4, nb)[:, 3, :] != 255).any())
         search, refine = ((SEARCH_MODES_ALPHA, REFINE_MODES_ALPHA) if alpha
                           else (SEARCH_MODES, REFINE_MODES))
-        _, words = bc7_search_words(px, search, alpha_weight)
-        words = bc7_refine_words(px, words, refine, alpha_weight)
+    ladders = (LADDER_MOMENT,)
+    if maxq:                       # the whole search scope, twice
+        refine, ladders = search, (LADDER_MOMENT, LADDER_FULL)
+    _, words = bc7_search_words(px, search, alpha_weight, tier)
+    if refine:
+        for ladder in ladders:
+            words = bc7_refine_words(px, words, refine, alpha_weight,
+                                     ladder)
     return words.t().contiguous().view(torch.uint8).reshape(nb, 16)

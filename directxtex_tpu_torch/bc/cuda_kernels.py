@@ -10,16 +10,21 @@ live in bc67.py, and bc67's wrappers call these only for CUDA tensors.
     K1 bc7_decode  csrc/bc7_decode.cu  replaces pallas_kernels.py:2735
     K2 bc7_encode  csrc/bc7_encode.cuh replaces pallas_kernels.py:2020
        (variants: bc7_encode.cu opaque, bc7_encode_alpha.cu with mode 7,
-       bc7_encode_quick.cu mode 6 alone)
-    K3 bc7_refine  csrc/bc7_refine.cu  replaces pallas_kernels.py:2667
-       (launch counts kept apart for the opaque scope, bc7_refine, and
-       the scope with mode 7, bc7_refine_alpha)
+       bc7_encode_quick.cu mode 6 alone, bc7_encode_maxq.cu and
+       bc7_encode_maxq_alpha.cu the maxq tier without and with mode 7)
+    K3 bc7_refine  csrc/bc7_refine.cuh replaces pallas_kernels.py:2667
+       (bc7_refine.cu LADDER_MOMENT, bc7_refine_ladder.cu the exact
+       ladders; launch counts kept apart for the default scope,
+       bc7_refine, the scope with mode 7, bc7_refine_alpha, the maxq
+       scope with mode 6, bc7_refine_maxq, and the exact ladders,
+       bc7_refine_ladder)
     K4 bc6h_decode csrc/bc6h_decode.cu replaces pallas_kernels.py:2784
     K5 bc6h_encode csrc/bc6h_encode.cu replaces pallas_kernels.py:3744
     K6 bc6h_refine csrc/bc6h_refine.cu replaces pallas_kernels.py:3704
 
 Words cross the C interface as int32 tensors read as uint32_t*; `signed`
-crosses as an int, alpha_weight as the int holding its f32 bit pattern.
+crosses as an int, alpha_weight as the int holding its f32 bit pattern,
+a BC7 exact ladder as its rounds and its deltas packed one byte each.
 """
 
 from __future__ import annotations
@@ -57,8 +62,13 @@ KERNELS = {
     "bc7_encode": CudaKernel("bc7_encode_launch", 3, 2),
     "bc7_encode_alpha": CudaKernel("bc7_encode_alpha_launch", 3, 2),
     "bc7_encode_quick": CudaKernel("bc7_encode_quick_launch", 3, 2),
+    "bc7_encode_maxq": CudaKernel("bc7_encode_maxq_launch", 3, 2),
+    "bc7_encode_maxq_alpha": CudaKernel("bc7_encode_maxq_alpha_launch", 3,
+                                        2),
     "bc7_refine": CudaKernel("bc7_refine_launch", 3, 3),
     "bc7_refine_alpha": CudaKernel("bc7_refine_launch", 3, 3),
+    "bc7_refine_maxq": CudaKernel("bc7_refine_launch", 3, 3),
+    "bc7_refine_ladder": CudaKernel("bc7_refine_ladder_launch", 3, 5),
     "bc6h_decode": CudaKernel("bc6h_decode_launch", 2, 2),
     "bc6h_encode": CudaKernel("bc6h_encode_launch", 3, 2),
     "bc6h_refine": CudaKernel("bc6h_refine_launch", 3, 8),
@@ -101,23 +111,34 @@ def _f32_bits(x: float) -> int:
     return struct.unpack("<i", struct.pack("<f", x))[0]
 
 
-# K2's variants by their search modes (fold order)
-_BC7_ENCODE_VARIANTS = {(1, 3, 5, 6, 4): "bc7_encode",
-                        (1, 3, 5, 6, 7, 4): "bc7_encode_alpha",
-                        (6,): "bc7_encode_quick"}
+# the BC7 search's tier: shared fits and mode-4 index mode 0 (default),
+# or every mode fitted on its own and both mode-4 index modes (maxq)
+TIER_DEFAULT = "default"
+TIER_MAXQ = "maxq"
+
+# K2's variants by tier and search modes (fold order); mode 6 alone is
+# the same search in both tiers
+_BC7_ENCODE_VARIANTS = {
+    (TIER_DEFAULT, (1, 3, 5, 6, 4)): "bc7_encode",
+    (TIER_DEFAULT, (1, 3, 5, 6, 7, 4)): "bc7_encode_alpha",
+    (TIER_DEFAULT, (6,)): "bc7_encode_quick",
+    (TIER_MAXQ, (1, 3, 5, 6, 4)): "bc7_encode_maxq",
+    (TIER_MAXQ, (1, 3, 5, 6, 7, 4)): "bc7_encode_maxq_alpha",
+    (TIER_MAXQ, (6,)): "bc7_encode_quick"}
 
 
 def bc7_encode(px: torch.Tensor, modes: tuple = (1, 3, 5, 6, 4),
-               aw: float = 1.0):
+               aw: float = 1.0, tier: str = TIER_DEFAULT):
     """K2: px [64, NB] int32 (0..255) -> (err [NB] f32, words [4, NB]
-    int32), the search over `modes`: (1, 3, 5, 6, 4) (default tier,
-    opaque), (1, 3, 5, 6, 7, 4) (with mode 7) or (6,) (QUICK), with the
+    int32), the search over `modes`: (1, 3, 5, 6, 4) (opaque),
+    (1, 3, 5, 6, 7, 4) (with mode 7) or (6,) (QUICK), of TIER_DEFAULT
+    (shared fits) or TIER_MAXQ (every mode fitted on its own), with the
     alpha channel's squared error weighted by aw."""
     _check(px, "px", 64)
-    variant = _BC7_ENCODE_VARIANTS.get(tuple(modes))
+    variant = _BC7_ENCODE_VARIANTS.get((tier, tuple(modes)))
     if variant is None:
         raise ValueError(f"K2 searches {tuple(_BC7_ENCODE_VARIANTS)}; got "
-                         f"{tuple(modes)}")
+                         f"{(tier, tuple(modes))}")
     nb = px.shape[1]
     err = torch.empty(nb, dtype=torch.float32, device=px.device)
     words = torch.empty((4, nb), dtype=torch.int32, device=px.device)
@@ -127,12 +148,31 @@ def bc7_encode(px: torch.Tensor, modes: tuple = (1, 3, 5, 6, 4),
     return err, words
 
 
+def bc7_ladder_ints(ladder) -> tuple:
+    """An exact ladder (rounds, deltas) -> K3's (rounds, deltas one byte
+    each, low byte first); raises ValueError on a ladder K3 does not take
+    (0-15 rounds, 1-4 deltas in 1..127: the launch arguments' packing;
+    the plain twin takes any ladder)."""
+    try:
+        rounds, deltas = ladder
+        rounds, deltas = int(rounds), [int(d) for d in deltas]
+    except (TypeError, ValueError):
+        raise ValueError(f"ladder {ladder!r}: \"moment\" or (rounds, "
+                         "deltas)") from None
+    if not 0 <= rounds <= 15 or not 1 <= len(deltas) <= 4 \
+            or not all(1 <= d <= 127 for d in deltas):
+        raise ValueError(f"K3 takes 0-15 rounds and 1-4 deltas in 1..127, "
+                         f"got {ladder!r}")
+    return rounds, sum(d << (8 * j) for j, d in enumerate(deltas))
+
+
 def bc7_refine(px: torch.Tensor, words: torch.Tensor, modes: tuple,
-               aw: float = 1.0) -> torch.Tensor:
-    """K3: MOMENT winner-refine of the blocks whose mode is in `modes`
-    (a subset of (1, 3, 4, 5, 7)), the alpha channel's squared error
-    weighted by aw. px [64, NB], words [4, NB] int32 -> words [4, NB]
-    int32."""
+               aw: float = 1.0, ladder="moment") -> torch.Tensor:
+    """K3: winner-refine of the blocks whose mode is in `modes` (a subset
+    of (1, 3, 4, 5, 6, 7)) with one ladder: "moment" (LADDER_MOMENT) or an
+    exact (rounds, deltas) ladder (0-15 rounds, 1-4 deltas in 1..127),
+    the alpha channel's squared error weighted by aw. px [64, NB], words
+    [4, NB] int32 -> words [4, NB] int32."""
     _check(words, "words", 4)
     nb = words.shape[1]
     _check(px, "px", 64, nb)
@@ -140,14 +180,19 @@ def bc7_refine(px: torch.Tensor, words: torch.Tensor, modes: tuple,
         raise ValueError(f"px on {px.device}, words on {words.device}")
     mode_mask = 0
     for m in modes:
-        if m not in (1, 3, 4, 5, 7):
-            raise ValueError(f"K3 refines modes 1, 3, 4, 5, 7; got {m}")
+        if m not in (1, 3, 4, 5, 6, 7):
+            raise ValueError(f"K3 refines modes 1, 3, 4, 5, 6, 7; got {m}")
         mode_mask |= 1 << m
+    ints = (nb, mode_mask, _f32_bits(aw))
+    if ladder == "moment":
+        name = ("bc7_refine_maxq" if 6 in modes else
+                "bc7_refine_alpha" if 7 in modes else "bc7_refine")
+    else:
+        name = "bc7_refine_ladder"
+        ints += bc7_ladder_ints(ladder)
     out = torch.empty_like(words)
     if nb:
-        name = "bc7_refine_alpha" if 7 in modes else "bc7_refine"
-        KERNELS[name].launch((px, words, out),
-                             (nb, mode_mask, _f32_bits(aw)), px.device)
+        KERNELS[name].launch((px, words, out), ints, px.device)
     return out
 
 

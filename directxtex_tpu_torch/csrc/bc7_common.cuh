@@ -339,6 +339,28 @@ __device__ __forceinline__ void anchor_swaps_2sub(int shape, unsigned m1,
   }
 }
 
+// Independent anchor fixes of a mode-4/5 block's two index sets
+// (AssignIndices, BC6HBC7.cpp:3196-3216): set 1 (P1 bits) holds colour at
+// index mode 0 and alpha at index mode 1; a set whose first index has its
+// MSB set inverts its indices and swaps its channels' endpoint codes.
+template <int P1, int P2>
+__device__ __forceinline__ void anchor_swaps_45(bool im0, int w1[16],
+                                                int w2[16], int q0[4],
+                                                int q1[4]) {
+  const bool swap1 = w1[0] & (1 << (P1 - 1));
+  const bool swap2 = w2[0] & (1 << (P2 - 1));
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    if (swap1) w1[i] = (1 << P1) - 1 - w1[i];
+    if (swap2) w2[i] = (1 << P2) - 1 - w2[i];
+  }
+  const bool swap_rgb = im0 ? swap1 : swap2;
+  const bool swap_a = im0 ? swap2 : swap1;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (c < 3 ? swap_rgb : swap_a) swap_ints(q0[c], q1[c]);
+}
+
 // codes + p bits -> unquantized endpoints (_unquantize_with_p_t)
 template <int M>
 __device__ __forceinline__ void unquantize_endpoints(const int q0[4],

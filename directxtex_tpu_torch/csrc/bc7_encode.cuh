@@ -1,13 +1,19 @@
 // K2 — the whole BC7 search of one tier, one thread per 4x4 block.
 //
 // Replaces directxtex_tpu/bc/pallas_kernels.py:bc7_encode_pallas /
-// _bc7_all_kernel with share2sub, share45 and m4_ims=(0,), in three
-// variants, each a template instance built from its own source:
+// _bc7_all_kernel, in five variants, each a template instance built from
+// its own source:
 //   kOpaque (bc7_encode.cu)       modes (1, 3, 5, 6, 4), the default tier
-//                                 on images without alpha;
+//                                 on images without alpha (share2sub,
+//                                 share45, m4_ims=(0,));
 //   kAlpha  (bc7_encode_alpha.cu) modes (1, 3, 5, 6, 7, 4), the default
 //                                 tier on images with alpha;
-//   kQuick  (bc7_encode_quick.cu) mode 6 alone (the QUICK tier).
+//   kQuick  (bc7_encode_quick.cu) mode 6 alone (the QUICK tier);
+//   kMaxq   (bc7_encode_maxq.cu)  modes (1, 3, 5, 6, 4), the maxq tier
+//                                 (share2sub=False, share45=False,
+//                                 m4_ims=(0, 1));
+//   kMaxqAlpha (bc7_encode_maxq_alpha.cu) modes (1, 3, 5, 6, 7, 4), the
+//                                 maxq tier on images with alpha.
 // Each variant has a weighted instance (W) that scales the alpha
 // channel's squared error by alpha_weight in scoring and index
 // assignment; the unweighted one is launched at alpha_weight 1.0 and does
@@ -17,24 +23,33 @@
 //     and the top 4 by (estimate, shape) — _k_shape_topk; the TPU's
 //     [128, 16] partition-mask product on the MXU is a 16-term masked sum
 //     per (shape, subset) here, in pixel order;
-//   - per candidate, one float trajectory per subset (axis fit, K=8 float
-//     assignment, LS refit) shared by modes 1 and 3, each of which then
-//     quantizes, assigns exactly, swaps anchors and emits —
+//   - default tier: per candidate, one float trajectory per subset (axis
+//     fit, K=8 float assignment, LS refit) shared by modes 1 and 3, each
+//     of which then quantizes, assigns exactly, swaps anchors and emits —
 //     _k_partition_fold_multi / _k_eval_2sub_shared;
+//     maxq tier: modes 1 and 3 each fitted on its own per candidate (axis
+//     fit, assign, LS refit, re-assign, keep the better per subset,
+//     anchor swaps) — _k_partition_fold / _k_eval_subsets;
 //   - mode 6 (axis fit, assign, LS refit, re-assign, keep the better) —
 //     _k_mode6;
-//   - per rotation, one float trajectory shared by modes 4 and 5 at index
-//     mode 0 — _k_rot_data / _k_modes45_shared;
-//   - kAlpha: mode 7 on modes 1/3's top-4 shapes, each candidate fitted
-//     on its own (axis fit with alpha, assign, LS refit, re-assign, keep
-//     the better per subset, anchor swaps) — _k_partition_fold(7); a
-//     block whose alpha is 255 everywhere skips it, as its error would be
-//     masked to inf (pallas_kernels.py:1952-1956);
+//   - default tier: per rotation, one float trajectory shared by modes 4
+//     and 5 at index mode 0 — _k_rot_data / _k_modes45_shared;
+//     maxq tier: per rotation and index mode (mode 4: 0 and 1, mode 5: 0)
+//     each candidate fitted on its own (quantize, assign colour and alpha
+//     at the index mode's precisions, one LS refit per group,
+//     re-evaluate, keep the better) — _k_rot_data / _k_mode45;
+//   - kAlpha, kMaxqAlpha: mode 7 on modes 1/3's top-4 shapes, each
+//     candidate fitted on its own — _k_partition_fold(7); a block whose
+//     alpha is 255 everywhere skips it, as its error would be masked to
+//     inf (pallas_kernels.py:1952-1956);
 //   - the cross-mode fold in list order with a strict `<`. Each mode keeps
 //     its own running best over its candidates, so the fold runs in the
 //     twin's order whatever order the modes were evaluated in.
 // The TPU evaluated every lane through where-chains over [16, T] planes;
-// here each block is one thread's scalar program.
+// here each block is one thread's scalar program. The TPU kernel fixes the
+// mode-4/5 anchors once, on the fold winner (_k_mode45_finish); this
+// kernel fixes and emits every candidate as the jnp twin does. A fix moves
+// no error, so the winner and its words are the same.
 //
 // Bound: compute. A block reads 64 bytes and writes 20, against roughly
 // 10^5 integer and f32 operations, so the kernel is limited by issue rate
@@ -44,7 +59,9 @@
 // pixels packed as RGBA8 words (16 registers for the block), recomputes
 // cross moments instead of holding them, keeps the top-4 shapes in a
 // compare-swap chain, and loops over shapes, candidates and rotations
-// without unrolling to bound code size and build time.
+// without unrolling to bound code size and build time. The maxq variants
+// run each mode's candidates as a loop of its own, after the others, so
+// that only one mode's fit state is live at a time.
 //
 // Built with --fmad=false: every float step rounds as the plain twin's
 // separate torch ops do, so kernel and twin pick the same words.
@@ -56,7 +73,8 @@
 
 namespace bc7 {
 
-enum Variant { kOpaque = 0, kAlpha = 1, kQuick = 2 };
+enum Variant { kOpaque = 0, kAlpha = 1, kQuick = 2, kMaxq = 3,
+               kMaxqAlpha = 4 };
 
 // Initial endpoints: masked min/max box + best-diagonal axis pick
 // (_minmax_axis_endpoints_t, bc67.py:553)
@@ -446,27 +464,29 @@ __device__ __forceinline__ Best eval_mode6(const uint32_t pix[16], float aw) {
   return Best{err, emit_block<6>(0, 0, 0, q0, q1, p0, p1, idx, nullptr)};
 }
 
-// Mode 7 on one shape candidate (_eval_subset_candidate over the shape's
-// two subsets, then anchor swaps and emit; bc67.py:1348-1360)
-template <bool W>
-__device__ __forceinline__ void eval_mode7(const uint32_t pix[16], int shape,
-                                           unsigned m1, float aw,
-                                           Best& best) {
+// A two-subset mode on one shape candidate, each subset fitted on its own
+// (_eval_subset_candidate over the shape's two subsets, then anchor swaps
+// and emit; bc67.py:1348-1360): mode 7 in every tier, modes 1 and 3 in the
+// maxq tier
+template <int M, bool W>
+__device__ __forceinline__ void eval_partition(const uint32_t pix[16],
+                                               int shape, unsigned m1,
+                                               float aw, Best& best) {
   int q0[2][4], q1[2][4], p0[2], p1[2], idx[16];
   float total = 0.0f;
 #pragma unroll
   for (int sub = 0; sub < 2; ++sub) {
     const unsigned msk = sub ? m1 : (~m1 & 0xFFFFu);
     int it[16];
-    total = total + fit_subset<7, W>(pix, msk, aw, q0[sub], q1[sub], p0[sub],
+    total = total + fit_subset<M, W>(pix, msk, aw, q0[sub], q1[sub], p0[sub],
                                      p1[sub], it);
 #pragma unroll
     for (int i = 0; i < 16; ++i)
       if ((msk >> i) & 1u) idx[i] = it[i];
   }
-  anchor_swaps_2sub<index_prec(7)>(shape, m1, q0, q1, p0, p1, idx);
+  anchor_swaps_2sub<index_prec(M)>(shape, m1, q0, q1, p0, p1, idx);
   keep_if_better(best, total,
-                 emit_block<7>(shape, 0, 0, q0, q1, p0, p1, idx, nullptr));
+                 emit_block<M>(shape, 0, 0, q0, q1, p0, p1, idx, nullptr));
 }
 
 // Mode 4 or 5 at index mode 0 from one rotation's shared trajectory
@@ -499,6 +519,141 @@ __device__ __forceinline__ void eval_45_mode(const uint32_t prp[16], int rot,
   keep_if_better(best, err, emit_block<M>(0, rot, 0, q0, q1, p0, p1, w1, w2));
 }
 
+// One rotation's pixels and initial endpoints for modes 4/5: RGB axis fit
+// with alpha min/max (_k_rot_data, pallas_kernels.py:1473)
+__device__ __forceinline__ void rot_data(const uint32_t pix[16], int rot,
+                                         uint32_t prp[16], float e0[4],
+                                         float e1[4]) {
+  rotate_pixels(pix, rot, prp);
+  minmax_axis<false>(prp, 0xFFFFu, e0, e1);
+  float amin = 1e9f, amax = -1e9f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    amin = fminf(amin, (float)px_at(prp, i, 3));
+    amax = fmaxf(amax, (float)px_at(prp, i, 3));
+  }
+  e0[3] = amin;
+  e1[3] = amax;
+}
+
+// Mode 4 or 5 at index mode IM, one rotation's candidate fitted on its own
+// (_dual_eval_ref + _try_single_mode's anchor fixes, bc67.py:1387-1502):
+// quantize, assign colour at CP and alpha at AP bits, one LS refit per
+// group from the integer indices, re-evaluate, keep the better (strict
+// `<`), independent colour / alpha anchor fixes, emit
+template <int M, int IM, bool W>
+__device__ __forceinline__ void eval_45_own(const uint32_t prp[16], int rot,
+                                            const float e0f[4],
+                                            const float e1f[4], float aw,
+                                            Best& best) {
+  constexpr int P1 = index_prec(M), P2 = index_prec2(M);
+  constexpr int CP = IM ? P2 : P1, AP = IM ? P1 : P2;
+  const int wch = rot ? rot - 1 : 3;
+  int q0[1][4], q1[1][4], p0[1], p1[1], u0[4], u1[4], ci[16], ai[16];
+  quantize_endpoints<M>(e0f, e1f, q0[0], q1[0], p0[0], p1[0]);
+  unquantize_endpoints<M>(q0[0], q1[0], p0[0], p1[0], u0, u1);
+  float err = assign_indices<CP, 0, 3, W>(prp, u0, u1, 0xFFFFu, ci, aw, wch);
+  err = err + assign_indices<AP, 3, 4, W>(prp, u0, u1, 0xFFFFu, ai, aw, wch);
+
+  float e0[4], e1[4], x[16];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    e0[c] = e0f[c];
+    e1[c] = e1f[c];
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    x[i] = (float)pal_weight<1 << CP>(ci[i]) * (1.0f / 64.0f);
+  ls_refit<0, 3>(prp, x, 0xFFFFu, e0, e1);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    x[i] = (float)pal_weight<1 << AP>(ai[i]) * (1.0f / 64.0f);
+  ls_refit<3, 4>(prp, x, 0xFFFFu, e0, e1);
+  int qb0[4], qb1[4], pb0, pb1, cb[16], ab[16];
+  quantize_endpoints<M>(e0, e1, qb0, qb1, pb0, pb1);
+  unquantize_endpoints<M>(qb0, qb1, pb0, pb1, u0, u1);
+  float err_b = assign_indices<CP, 0, 3, W>(prp, u0, u1, 0xFFFFu, cb, aw,
+                                            wch);
+  err_b = err_b + assign_indices<AP, 3, 4, W>(prp, u0, u1, 0xFFFFu, ab, aw,
+                                              wch);
+  if (err_b < err) {
+    err = err_b;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      q0[0][c] = qb0[c];
+      q1[0][c] = qb1[c];
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      ci[i] = cb[i];
+      ai[i] = ab[i];
+    }
+  }
+  int* w1 = IM ? ai : ci;
+  int* w2 = IM ? ci : ai;
+  anchor_swaps_45<P1, P2>(IM == 0, w1, w2, q0[0], q1[0]);
+  keep_if_better(best, err, emit_block<M>(0, rot, IM, q0, q1, p0, p1, w1, w2));
+}
+
+// The maxq tier's search (_bc7_all_kernel with share2sub=False,
+// share45=False, m4_ims=(0, 1)): each mode's candidates in a loop of its
+// own, then the fold in the order (1, 3, 5, 6, [7,] 4)
+template <bool ALPHA, bool W>
+__device__ __forceinline__ Best search_maxq(const uint32_t pix[16],
+                                            float aw) {
+  bool has_alpha = false;
+  if (ALPHA) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) has_alpha |= (pix[i] >> 24) != 0xFFu;
+  }
+  int cand[4];
+  shape_top4(pix, cand);
+  Best best1{INFINITY, {0ull, 0ull}};
+#pragma unroll 1
+  for (int k = 0; k < 4; ++k)
+    eval_partition<1, W>(pix, cand[k], subset1_mask(cand[k]), aw, best1);
+  Best best3{INFINITY, {0ull, 0ull}};
+#pragma unroll 1
+  for (int k = 0; k < 4; ++k)
+    eval_partition<3, W>(pix, cand[k], subset1_mask(cand[k]), aw, best3);
+
+  const Best best6 = eval_mode6<W>(pix, aw);
+
+  Best best5{INFINITY, {0ull, 0ull}};
+#pragma unroll 1
+  for (int rot = 0; rot < 4; ++rot) {
+    uint32_t prp[16];
+    float e0[4], e1[4];
+    rot_data(pix, rot, prp, e0, e1);
+    eval_45_own<5, 0, W>(prp, rot, e0, e1, aw, best5);
+  }
+  Best best4{INFINITY, {0ull, 0ull}};
+#pragma unroll 1
+  for (int rot = 0; rot < 4; ++rot) {
+    uint32_t prp[16];
+    float e0[4], e1[4];
+    rot_data(pix, rot, prp, e0, e1);
+    eval_45_own<4, 0, W>(prp, rot, e0, e1, aw, best4);
+    eval_45_own<4, 1, W>(prp, rot, e0, e1, aw, best4);
+  }
+
+  Best best7{INFINITY, {0ull, 0ull}};
+  if (ALPHA && has_alpha) {
+#pragma unroll 1
+    for (int k = 0; k < 4; ++k)
+      eval_partition<7, W>(pix, cand[k], subset1_mask(cand[k]), aw, best7);
+  }
+
+  Best fold{INFINITY, {0ull, 0ull}};
+  keep_if_better(fold, best1.err, best1.w);
+  keep_if_better(fold, best3.err, best3.w);
+  keep_if_better(fold, best5.err, best5.w);
+  keep_if_better(fold, best6.err, best6.w);
+  if (ALPHA) keep_if_better(fold, best7.err, best7.w);
+  keep_if_better(fold, best4.err, best4.w);
+  return fold;
+}
+
 template <int V, bool W>
 __global__ void __launch_bounds__(kThreads)
     bc7_encode_kernel(const int32_t* __restrict__ px, float* __restrict__ err,
@@ -512,6 +667,13 @@ __global__ void __launch_bounds__(kThreads)
     const Best best6 = eval_mode6<W>(pix, aw);
     err[b] = best6.err;
     store_words(words, nb, b, best6.w);
+    return;
+  }
+
+  if (V == kMaxq || V == kMaxqAlpha) {
+    const Best best = search_maxq<V == kMaxqAlpha, W>(pix, aw);
+    err[b] = best.err;
+    store_words(words, nb, b, best.w);
     return;
   }
 
@@ -550,17 +712,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 1
   for (int rot = 0; rot < 4; ++rot) {
     uint32_t prp[16];
-    rotate_pixels(pix, rot, prp);
     float e0[4], e1[4], cidx[16], aidx[16];
-    minmax_axis<false>(prp, 0xFFFFu, e0, e1);
-    float amin = 1e9f, amax = -1e9f;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      amin = fminf(amin, (float)px_at(prp, i, 3));
-      amax = fmaxf(amax, (float)px_at(prp, i, 3));
-    }
-    e0[3] = amin;
-    e1[3] = amax;
+    rot_data(pix, rot, prp, e0, e1);
     float_assign<2, 0, 3>(prp, e0, e1, cidx);
     float_assign<3, 3, 4>(prp, e0, e1, aidx);
     ls_refit_f<2, 0, 3>(prp, cidx, 0xFFFFu, e0, e1);
@@ -576,7 +729,8 @@ __global__ void __launch_bounds__(kThreads)
   if (V == kAlpha && has_alpha) {
 #pragma unroll 1
     for (int k = 0; k < 4; ++k)
-      eval_mode7<W>(pix, cand[k], subset1_mask(cand[k]), aw, best7);
+      eval_partition<7, W>(pix, cand[k], subset1_mask(cand[k]), aw,
+                              best7);
   }
 
   // cross-mode fold in the order (1, 3, 5, 6, [7,] 4), strict `<`

@@ -40,7 +40,8 @@ def _encode(kind: str, blocks: torch.Tensor, flags: int = 0):
 def bc_encode_pipeline(kind: str = "bc7", flags: int = 0, device=None):
     """[H, W, 4] f32 -> packed blocks [NB, 16] u8. "bc7" takes images
     with alpha as they are (encode_bc7 searches mode 7 where a block has
-    alpha) and `flags` 0 or QUICK (0x100000)."""
+    alpha) and `flags` 0, QUICK (0x100000), MAXQUALITY (0x200000) or
+    both."""
     if kind not in _KINDS:
         raise NotImplementedError(
             f"kind {kind!r}: the port encodes {_KINDS} (BC1-BC5: ROADMAP.md "

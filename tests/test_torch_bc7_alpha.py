@@ -114,7 +114,8 @@ def test_mode7_family_matches_jax(alpha_set):
     px = alpha_set["px"]
     pt = torch.from_numpy(px)
     ptf = pt.to(torch.float32)
-    err, words = bc67._try_mode7(pt, ptf, bc67._shape_estimates_table(ptf))
+    err, words = bc67._try_partition_mode(pt, ptf, 7,
+                                         bc67._shape_estimates_table(ptf))
     ref_err, ref_words = alpha_set["mode7"]
     assert_near_tie(_words_u32(words), ref_words, px)
     same = np.all(_words_u32(words) == ref_words, axis=1)

@@ -32,7 +32,9 @@ def test_launchers_import_without_building():
     cuda_kernels.reset_launch_counts()
     assert cuda_kernels.launch_counts() == {
         "bc7_decode": 0, "bc7_encode": 0, "bc7_encode_alpha": 0,
-        "bc7_encode_quick": 0, "bc7_refine": 0, "bc7_refine_alpha": 0,
+        "bc7_encode_quick": 0, "bc7_encode_maxq": 0,
+        "bc7_encode_maxq_alpha": 0, "bc7_refine": 0, "bc7_refine_alpha": 0,
+        "bc7_refine_maxq": 0, "bc7_refine_ladder": 0,
         "bc6h_decode": 0, "bc6h_encode": 0, "bc6h_refine": 0}
 
 
@@ -113,13 +115,13 @@ LADDER_FULL = (2, (2, 1))
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"flags": 0x200000}, {"flags": 0x80000}, {"ladder": LADDER_FULL}])
+    {"flags": 0x80000}, {"flags": 0x80000 | 0x200000}, {"modes": (0, 1, 3)}])
 def test_unsupported_encode_settings_raise(kwargs):
-    # MAXQUALITY and USE_3SUBSETS (encode_bc7), and the exact ladders
-    # (refine_bc7_words), are the next slice
+    # USE_3SUBSETS, alone or with MAXQUALITY (encode_bc7), and a refine
+    # scope with the 3-subset modes (refine_bc7_words) are the next slice
     blocks = _blocks(4, alpha=0.5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if "ladder" in kwargs:
+        if "modes" in kwargs:
             px_i = bc67._quantize_ldr(blocks)
             words = torch.zeros((4, 4), dtype=torch.int32)
             bc67.refine_bc7_words(px_i, words, **kwargs)
@@ -128,13 +130,24 @@ def test_unsupported_encode_settings_raise(kwargs):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"flags": 0x100000}, {"opaque": False}, {"alpha_weight": 2.0}])
+    {"flags": 0x100000}, {"opaque": False}, {"alpha_weight": 2.0},
+    {"flags": 0x200000}, {"ladder": LADDER_FULL}])
 def test_accepted_encode_settings_run_the_plain_twins(kwargs):
-    """QUICK, the default call on blocks with alpha (mode 7) and an alpha
-    weight: a CPU tensor takes the plain twins and gives [NB, 16] u8."""
+    """QUICK, the default call on blocks with alpha (mode 7), an alpha
+    weight, MAXQUALITY (encode_bc7) and the exact ladder
+    (refine_bc7_words over the maxq scope): a CPU tensor takes the plain
+    twins and gives [NB, 16] u8 blocks ([NB, 4] words)."""
     cuda_kernels.reset_launch_counts()
-    out = bc67.encode_bc7(_blocks(4, alpha=0.5), **kwargs)
-    assert out.dtype == torch.uint8 and tuple(out.shape) == (4, 16)
+    blocks = _blocks(4, alpha=0.5)
+    if "ladder" in kwargs:
+        px_i = bc67._quantize_ldr(blocks)
+        words = bc67.encode_bc7(blocks).view(torch.int32)
+        out = bc67.refine_bc7_words(px_i, words, modes=(1, 3, 5, 6, 7, 4),
+                                    **kwargs)
+        assert out.dtype == torch.int32 and tuple(out.shape) == (4, 4)
+    else:
+        out = bc67.encode_bc7(blocks, **kwargs)
+        assert out.dtype == torch.uint8 and tuple(out.shape) == (4, 16)
     assert set(cuda_kernels.launch_counts().values()) == {0}
 
 
@@ -158,9 +171,28 @@ def test_unported_pipeline_kinds_raise(kind):
 
 
 def test_unsupported_refine_settings_raise():
+    # the 3-subset modes 0 and 2 are not ported; a ladder that is not
+    # (rounds, deltas) is refused
     px_i = torch.zeros((16, 4, 4), dtype=torch.int32)
     words = torch.zeros((4, 4), dtype=torch.int32)
     with pytest.raises(NotImplementedError):
-        bc67.refine_bc7_words(px_i, words, ladder=(2, (2, 1)))
+        bc67.refine_bc7_words(px_i, words, modes=(2,))
     with pytest.raises(NotImplementedError):
-        bc67.refine_bc7_words(px_i, words, modes=(1, 3, 5, 6, 4))
+        bc67.refine_bc7_words(px_i, words, modes=(0, 1, 3, 5, 6, 4))
+    with pytest.raises(ValueError):
+        bc67.refine_bc7_words(px_i, words, ladder="fast")
+
+
+@pytest.mark.parametrize("ladder", [(2, (4, 3, 2, 1, 1)), (1, (200,))])
+def test_ladder_past_k3_launch_limits(ladder):
+    """The plain twin takes any (rounds, deltas), as the JAX package does;
+    K3's launcher refuses what its launch arguments cannot carry (more
+    than 4 deltas, a delta past 127) before it builds anything."""
+    blocks = _blocks(4, alpha=0.5)
+    px_i = bc67._quantize_ldr(blocks)
+    words = bc67.encode_bc7(blocks).view(torch.int32)
+    out = bc67.refine_bc7_words(px_i, words, ladder=ladder,
+                                modes=(1, 3, 5, 6, 7, 4))
+    assert out.dtype == torch.int32 and tuple(out.shape) == (4, 4)
+    with pytest.raises(ValueError):
+        cuda_kernels.bc7_ladder_ints(ladder)

@@ -178,7 +178,8 @@ def _widen(idx):
 # -- the two-region helpers on two 8-pixel subsets -------------------------
 _ORIG = {k: getattr(jbc67, k) for k in (
     "_bc6h_shared_fit", "_bc6h_group_rescore", "_eval_2sub_shared",
-    "_eval_subset_candidate", "_moment_channels_t", "_assign_indices_t")}
+    "_eval_subset_candidate", "_moment_channels_t", "_perturb_channels_t",
+    "_assign_indices_t")}
 
 
 def _shared_fit8(px_f, mask_list, iprec, signed):
@@ -219,6 +220,12 @@ def _moment8(px_i, mask, m, shared_p, q0, q1, p0, p1, wk_ch, **kw):
         [w[:8] for w in wk_ch], **kw)
 
 
+def _perturb8(px_i, mask, m, shared_p, q0, q1, p0, p1, wk_ch, **kw):
+    return _ORIG["_perturb_channels_t"](
+        px_i[:8], _ones8(px_i.shape[2]), m, shared_p, q0, q1, p0, p1,
+        [w[:8] for w in wk_ch], **kw)
+
+
 def _assign8(px_i, u0, u1, prec, mask, *a, **kw):
     idx, err = _ORIG["_assign_indices_t"](px_i[:8], u0, u1, prec,
                                           _ones8(px_i.shape[2]), *a, **kw)
@@ -255,10 +262,14 @@ def bc7_search_ops(variant: str = "opaque") -> float:
     is the wrapper's, outside the kernel). "opaque": the default tier on
     opaque blocks; "alpha": the default tier with mode 7, on a block with
     alpha (the kernel skips mode 7 on an opaque block, which then costs
-    what "opaque" does); "quick": mode 6 alone."""
-    b = _ldr_blocks(NB, opaque=variant != "alpha")
+    what "opaque" does); "quick": mode 6 alone; "maxq" and "maxq_alpha":
+    the maxq tier's search (every mode fitted on its own), the same way."""
+    maxq = jbc67._BC7_MAXQUALITY
+    b = _ldr_blocks(NB, opaque=variant not in ("alpha", "maxq_alpha"))
     kwargs = {"opaque": {"opaque": True}, "alpha": {"opaque": False},
-              "quick": {"flags": jbc67._BC7_QUICK}}[variant]
+              "quick": {"flags": jbc67._BC7_QUICK},
+              "maxq": {"flags": maxq, "opaque": True},
+              "maxq_alpha": {"flags": maxq, "opaque": False}}[variant]
     with _patched(refine_bc7_words=lambda p, w, ladder, **kw: w,
                   _eval_2sub_shared=_eval_2sub8,
                   _eval_subset_candidate=_eval_subset8):
@@ -266,19 +277,21 @@ def bc7_search_ops(variant: str = "opaque") -> float:
     return (whole - needed_ops(_quantize, b)) / NB
 
 
-def bc7_refine_ops() -> dict:
-    """K3: LADDER_MOMENT refine of a block whose winner is mode m; the
-    other default modes (6 and the reserved) pass through."""
+def bc7_refine_ops(ladder=jbc67.LADDER_MOMENT) -> dict:
+    """K3: the refine of a block whose winner is mode m with one ladder
+    (LADDER_MOMENT, LADDER_FULL or LADDER_LIGHT); blocks of other modes
+    pass through."""
     px = jnp.zeros((16, 4, NB), jnp.int32)
     w = jnp.zeros((NB, 4), jnp.uint32)
     out = {}
-    for mode in (1, 3, 5, 7, 4):
+    for mode in (1, 3, 5, 6, 7, 4):
         ctx = (_patched(_moment_channels_t=_moment8,
+                        _perturb_channels_t=_perturb8,
                         _assign_indices_t=_assign8) if mode in (1, 3, 7)
                else contextlib.nullcontext())
         with ctx:
             out[mode] = needed_ops(lambda p, x: jbc67.refine_bc7_words(
-                p, x, jbc67.LADDER_MOMENT, modes=(mode,)), px, w) / NB
+                p, x, ladder, modes=(mode,)), px, w) / NB
     return out
 
 
@@ -446,6 +459,10 @@ def main() -> None:
         "BC7_SEARCH_ALPHA_OPS": bc7_search_ops("alpha"),
         "BC7_SEARCH_QUICK_OPS": bc7_search_ops("quick"),
         "BC7_REFINE_OPS": bc7_refine_ops(),
+        "BC7_SEARCH_MAXQ_OPS": bc7_search_ops("maxq"),
+        "BC7_SEARCH_MAXQ_ALPHA_OPS": bc7_search_ops("maxq_alpha"),
+        "BC7_REFINE_FULL_OPS": bc7_refine_ops(jbc67.LADDER_FULL),
+        "BC7_REFINE_LIGHT_OPS": bc7_refine_ops(jbc67.LADDER_LIGHT),
         "BC6H_DECODE_OPS": bc6h_decode_ops(),
         "BC6H_SEARCH_OPS": bc6h_search_ops(),
         "BC6H_REFINE_OPS": bc6h_maxq_refine_ops(),
@@ -547,6 +564,35 @@ def test_mode7_split_counts_sixteen_pixels():
     n2, n8 = needed_ops(two, px) / 64, needed_ops(one8, px) / 64
     assert n8 > 0 and n2 == 2 * n8 + 1
     assert n2 < 0.6 * needed_ops(masked, px) / 64
+
+
+def test_ladder_split_counts_sixteen_pixels():
+    """The exact ladder's work is linear in its subset's pixel count, so
+    an 8-pixel trace of one subset stands for half of a 16-pixel block:
+    16 pixels cost 8 pixels' count plus twice the step from 4 to 8, and
+    an unknown 16-pixel mask costs more than the known one."""
+    rng = np.random.default_rng(3)
+    px = jnp.asarray(rng.integers(0, 256, (16, 4, 64)).astype(np.int32))
+    m = jbc67._BC7_MODES[1]
+    q = jnp.asarray(rng.integers(0, 64, (4, 64)).astype(np.int32))
+    pb = jnp.zeros((64,), jnp.int32)
+    wk = jnp.asarray(rng.integers(0, 65, (16, 64)).astype(np.int32))
+
+    def run(p, n, mask=None):
+        mask = jnp.ones((n, 64), bool) if mask is None else mask
+        return _ORIG["_perturb_channels_t"](
+            p[:n], mask, m, True, q, q, pb, pb, [wk[:n]] * 4,
+            rounds=1, deltas=(1,))
+
+    n16, n8, n4 = (needed_ops(lambda p: run(p, n), px) for n in (16, 8, 4))
+    eight = needed_ops(lambda p: _perturb8(
+        p, None, m, True, q, q, pb, pb, [wk] * 4, rounds=1,
+        deltas=(1,)), px)
+    masked = needed_ops(lambda p, k: run(p, 16, k > 0), px,
+                        jnp.ones((16, 64), jnp.int32))
+    assert eight == n8 and n8 - n4 > 0
+    assert n16 == n8 + 2 * (n8 - n4)
+    assert masked > n16
 
 
 def test_decode_counts_within_twins():
