@@ -13,7 +13,11 @@ every kernel against its plain PyTorch twin on the card:
   variants (every mode fitted on its own, with and without mode 7), K3
   twice, MOMENT with mode 6 in scope, then the exact LADDER_FULL;
 - BC6H (BASELINE config 4, hdr_cubemap_pipeline -> decode_bc6h, and the
-  mid / maxq tiers of encode_bc6h): K4 decode, K5 search, K6 refine.
+  mid / maxq tiers of encode_bc6h): K4 decode, K5 search, K6 refine;
+- USE_3SUBSETS (encode_bc7(flags=0x80000), with MAXQUALITY 0x280000):
+  per mode 0 and 2, K9 ranks the three-subset shapes and K7 evaluates
+  the top 4, K2 searches the other modes, and K3 refines modes 0 and 2 in
+  a second launch of its three-subset instance.
 
 Phases:
 
@@ -62,7 +66,26 @@ Phases:
      alpha, each with its launch counts (one K2, two K3), CUDA-event times
      of the paths and kernels beside the default tier's, and one run of
      each plain twin at the path's shapes held against its kernel;
- 18. the kernels line: every kernel's launches, error against its twin,
+ 18. K9 (three subsets, 16 and 64 shapes; two subsets, 64), K7 (modes 0
+     and 2 on the three-subset picks, 1, 3 and 7 on the two-subset
+     picks), the search with modes 0 and 2 (K9, K7, K2 and the fold) and
+     K3's three-subset instances (MOMENT, FULL, LIGHT; and the two K3
+     launches over a whole scope) against their twins on bench512, the
+     opaque corpus, alphagrad, the 200-block mixed set and the synthetic
+     three-gradient batch of tests/golden/bc7_3subsets.npz, at alpha
+     weights 1.0 and 2.0: picks, words and errors equal;
+ 19. USE_3SUBSETS gates: bench512 at least the frozen reference's PSNR,
+     beside the default tier's; tests/test_bc7.py's img_blocks content
+     above 36 dB; every BC7 corpus content's PSNR at 0x80000 and
+     0x280000;
+ 20. the USE_3SUBSETS paths at 2048^2 (default and maxq tiers, opaque and
+     with alpha), each with its launch counts (two K9, two K7, one K2,
+     two K3 a ladder), winner histograms, CUDA-event times of the paths
+     and kernels beside the default and maxq paths', and one run of each
+     new kernel's plain twin at the path's shapes held against it, on the
+     opaque image's inputs and on the image with alpha's (its own picks,
+     search words and MOMENT words, both tiers);
+ 21. the kernels line: every kernel's launches, error against its twin,
      time, plain time and bound (bytes or operations, whichever is
      larger, at the H100's published peaks, for the work each block of
      the run needs).
@@ -112,6 +135,15 @@ SOURCES = {
                     "directxtex_tpu/bc/pallas_kernels.py:3744"),
     "bc6h_refine": ("directxtex_tpu_torch/csrc/bc6h_refine.cu",
                     "directxtex_tpu/bc/pallas_kernels.py:3704"),
+    "bc7_partition_shapes": ("directxtex_tpu_torch/csrc/bc7_shapes.cu",
+                             "directxtex_tpu/bc/pallas_kernels.py:1850"),
+    "bc7_partition_mode": ("directxtex_tpu_torch/csrc/bc7_partition.cuh",
+                           "directxtex_tpu/bc/pallas_kernels.py:1414"),
+    "bc7_refine_3sub": ("directxtex_tpu_torch/csrc/bc7_refine_3sub.cu",
+                        "directxtex_tpu/bc/pallas_kernels.py:2667"),
+    "bc7_refine_3sub_ladder": (
+        "directxtex_tpu_torch/csrc/bc7_refine_3sub_ladder.cu",
+        "directxtex_tpu/bc/pallas_kernels.py:2667"),
 }
 # Operations each kernel's function needs per 4x4 block, as printed by
 # `PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_op_counts.py`:
@@ -128,16 +160,16 @@ BC7_SEARCH_QUICK_OPS = 4641
 BC6H_SEARCH_OPS = 173630
 BC7_DECODE_OPS = (1461, 1337, 1557, 1295, 859, 816, 518, 1373)  # per mode
 BC7_REFINE_OPS = {1: 5612, 3: 5432, 5: 4869, 7: 6336,
-                  4: 6908, 6: 3402}            # others pass through
+                  4: 6908, 6: 3402, 0: 6264, 2: 6336}
 # K2's maxq variants: opaque blocks, and a block with alpha under the
 # alpha variant (an opaque block skips mode 7 and costs the first)
 BC7_SEARCH_MAXQ_OPS = 144081
 BC7_SEARCH_MAXQ_ALPHA_OPS = 167747
 # K3 under LADDER_FULL and LADDER_LIGHT, per winner mode
 BC7_REFINE_FULL_OPS = {1: 12256, 3: 11692, 5: 13521, 6: 12134, 7: 15064,
-                       4: 15624}
+                       4: 15624, 0: 13038, 2: 12822}
 BC7_REFINE_LIGHT_OPS = {1: 6136, 3: 5908, 5: 6153, 6: 4822, 7: 6904,
-                        4: 8200}
+                        4: 8200, 0: 6450, 2: 6486}
 BC6H_DECODE_OPS = (1436, 1442, 1432, 1440, 1436, 1436, 1432, 1444, 1444,
                    1410, 598, 668, 680, 644)      # per mode row, unsigned
 # the maxq refine of a one-region (rows 10-13) and a two-region winner
@@ -152,7 +184,17 @@ BYTES_PER_BLOCK = {"bc7_decode": 16 + 64, "bc7_encode": 64 + 16,
                    "bc7_encode_maxq": 64 + 16,
                    "bc7_encode_maxq_alpha": 64 + 16,
                    "bc7_refine_maxq": 64 + 16 + 16,
-                   "bc7_refine_ladder": 64 + 16 + 16}
+                   "bc7_refine_ladder": 64 + 16 + 16,
+                   # USE_3SUBSETS: K9 and K7 launch twice a path (modes 0
+                   # and 2); K7 reads 4 candidates, writes err and words
+                   "bc7_partition_shapes": 2 * (64 + 16),
+                   "bc7_partition_mode": 2 * (64 + 16 + 4 + 16),
+                   # K3's three-subset instances read and write every
+                   # block's words, and pixels only for a mode-0/2 block
+                   # (BC7_PIXEL_BYTES each, counted from the run's winners)
+                   "bc7_refine_3sub": 16 + 16,
+                   "bc7_refine_3sub_ladder": 16 + 16}
+BC7_PIXEL_BYTES = 64
 # H100 SXM published peaks: HBM bytes/s, and
 # f32 elementwise operations/s = 132 SMs x 128 lanes x 1.98 GHz (the
 # 67 TFLOP/s figure counts an FMA as two; the kernels build with
@@ -183,6 +225,12 @@ EARLIER_OPAQUE_MS = {"path": 3.384, "bc7_encode": 1.961,
                      "bc7_refine": 0.833}
 MAXQ = 0x200000            # encode_bc7's MAXQUALITY flag
 MAXQ_GATE_SLACK = 0.001    # dB below the default tier (test_bc7.py:211)
+USE3 = 0x80000             # encode_bc7's USE_3SUBSETS flag
+USE3_FLOOR = 36.0          # img_blocks with USE_3SUBSETS (test_bc7.py:240)
+# USE_3SUBSETS: K9 per block over 16 (mode 0) and 64 (mode 2) three-subset
+# shapes; K7 per block over 4 candidates, per mode
+BC7_SHAPES_OPS = {16: 9092, 64: 35300}
+BC7_PARTITION_OPS = {0: 22063, 1: 20459, 2: 21295, 3: 19811, 7: 23147}
 
 
 def emit(obj) -> None:
@@ -443,16 +491,26 @@ def main() -> None:
                    (nb_of, "nb"), (plain_nb, "nb"), (ops_of, "ops")):
         d.update(r[key])
 
+    img_alpha = r["img_alpha"]
     r = bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_d,
-                        r["img_alpha"])
+                        img_alpha)
     for d, key in ((launches, "launches"), (k_ms, "k_ms"),
                    (plain_ms, "plain_ms"), (max_err, "max_err"),
                    (nb_of, "nb"), (plain_nb, "nb"), (ops_of, "ops")):
         d.update(r[key])
 
+    r = bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_d,
+                        img_alpha)
+    for d, key in ((launches, "launches"), (k_ms, "k_ms"),
+                   (plain_ms, "plain_ms"), (max_err, "max_err"),
+                   (nb_of, "nb"), (plain_nb, "nb"), (ops_of, "ops")):
+        d.update(r[key])
+    extra_bytes = r["extra_bytes"]
+
     lines = []
     for k in SOURCES:
-        b_ms = BYTES_PER_BLOCK[k] * nb_of[k] / HBM_BYTES_PER_S * 1e3
+        n_bytes = BYTES_PER_BLOCK[k] * nb_of[k] + extra_bytes.get(k, 0.0)
+        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         o_ms = ops_of[k] / OPS_PER_S * 1e3
         lines.append({
             "name": k, "route": "cuda", "source": SOURCES[k][0],
@@ -461,7 +519,8 @@ def main() -> None:
             "plain_ms": plain_ms[k], "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms > o_ms else "operations",
             "library_ms": None, "blocks": nb_of[k],
-            "plain_blocks": plain_nb[k], "ops": ops_of[k]})
+            "plain_blocks": plain_nb[k], "ops": ops_of[k],
+            "bytes": n_bytes})
     print(smi)
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1096,6 +1155,353 @@ def bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
     k_ms = {k: med[k] for k in ops}
     return {"launches": launches, "k_ms": k_ms, "plain_ms": plain_ms,
             "max_err": max_err, "nb": {k: nb for k in ops}, "ops": ops}
+
+
+def img_blocks_content(torch, to_dev):
+    """tests/test_bc7.py:159's img_blocks() (seed 1, opaque) as [NB, 16,
+    4] blocks on the card."""
+    from directxtex_tpu_torch.bc.common import image_to_blocks
+
+    rng = np.random.default_rng(1)
+    x = np.linspace(0, 1, 32, dtype=np.float32)
+    gx, gy = np.meshgrid(x, x)
+    img = np.stack([np.sin(gx * 9) * 0.4 + 0.5, gy * 0.8, gx * gy,
+                    np.ones_like(gx)], -1)
+    img += (rng.random(img.shape).astype(np.float32) - 0.5) * 0.04
+    img = (np.round(np.clip(img, 0, 1) * 255) / 255).astype(np.float32)
+    img[..., 3] = 1.0
+    return image_to_blocks(to_dev(img))[0]
+
+
+def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
+                    img_alpha) -> dict:
+    """Phases 18-20, USE_3SUBSETS. Returns the launches (from the
+    USE_3SUBSETS paths' runs), times, plain times, errors against the
+    twins, block counts and operations of K9, K7 and K3's three-subset
+    instances."""
+    from directxtex_tpu_torch.bc import bc67, cuda_kernels
+    from directxtex_tpu_torch.bc.common import image_to_blocks
+
+    def px_of(blocks):
+        return bc67._quantize_ldr(blocks).reshape(64, -1).contiguous()
+
+    def same(a, b, what):
+        """Kernel and twin agree: picks and words exactly, errors bit for
+        bit (the twins sum in the kernels' order)."""
+        check(a.shape == b.shape and torch.equal(a, b),
+              f"{what} differs from plain")
+
+    def word_diff(a, b):
+        return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    def hist(words):
+        return torch.bincount(bc67._mode_of(bc67._words_i64(words)),
+                              minlength=9).tolist()
+
+    full, light = bc67.LADDER_FULL, bc67.LADDER_LIGHT
+    size = SLICE_SIZE
+
+    # 18. K9, K7, the search with modes 0/2 and K3's 3-subset instances ---
+    rng = np.random.default_rng(11)
+    mixed = rng.random((200, 16, 4)).astype(np.float32)
+    mixed[:100, :, 3] = 1.0
+    batch = np.load(os.path.join(GOLDEN, "bc7_3subsets.npz"))["blocks"]
+    contents = [("bench512", px_of(image_to_blocks(to_dev(b512["img"]))[0]))]
+    contents += [(c, px_of(image_to_blocks(to_dev(corpus[c]))[0]))
+                 for c in OPAQUE_CORPUS + ("alphagrad",)]
+    contents += [("mixed200", px_of(to_dev(mixed))),
+                 ("sub3batch", px_of(to_dev(batch)))]
+    for label, px in contents:
+        alpha = bool((px.reshape(16, 4, -1)[:, 3, :] != 255).any())
+        search = bc67.SEARCH_MODES_3_ALPHA if alpha else bc67.SEARCH_MODES_3
+        scope = bc67.REFINE_MODES_3_ALPHA if alpha else bc67.REFINE_MODES_3
+        picks = {}
+        for parts, n in ((2, 16), (2, 64), (1, 64)):
+            picks[parts, n] = cuda_kernels.bc7_partition_shapes(px, parts, n)
+            same(picks[parts, n], bc67._partition_shapes_plain(px, parts, n, 4),
+                 f"K9 {label} partitions={parts} shapes={n}")
+        for aw in ALPHA_WEIGHTS:
+            what = f"{label} aw={aw}"
+            for mode, key in ((0, (2, 16)), (2, (2, 64)), (1, (1, 64)),
+                              (3, (1, 64)), (7, (1, 64))):
+                e_k, w_k = cuda_kernels.bc7_partition_mode(px, picks[key],
+                                                           mode, aw)
+                e_p, w_p = bc67._partition_mode_plain(px, picks[key], mode,
+                                                      aw)
+                same(w_k, w_p, f"K7 mode {mode} words {what}")
+                same(e_k, e_p, f"K7 mode {mode} errors {what}")
+            e_k, w_k = bc67.bc7_search_words(px, search, aw)
+            e_p, w_p = bc67._bc7_search_plain(px, search, aw)
+            same(w_k, w_p, f"search with modes 0/2 words {what}")
+            same(e_k, e_p, f"search with modes 0/2 errors {what}")
+            out = {"phase": "K9_K7_K3_3sub", "content": label, "aw": aw,
+                   "blocks": px.shape[1], "picks_equal": True,
+                   "words_equal": True, "errors_equal": True,
+                   "search_modes": hist(w_k)}
+            r_m = cuda_kernels.bc7_refine(px, w_k, (0, 2), aw)
+            same(r_m, bc67._bc7_refine_plain(px, w_k, (0, 2), aw),
+                 f"K3 3sub moment {what}")
+            for name, lad in (("full", full), ("light", light)):
+                r_k = cuda_kernels.bc7_refine(px, r_m, (0, 2), aw, lad)
+                same(r_k, bc67._bc7_refine_plain(px, r_m, (0, 2), aw, lad),
+                     f"K3 3sub {name} {what}")
+                out[f"K3_3sub_{name}_refined_blocks"] = int(
+                    (r_k != r_m).any(dim=0).sum())
+            out["K3_3sub_moment_refined_blocks"] = int(
+                (r_m != w_k).any(dim=0).sum())
+            # two launches over the whole default scope = one plain refine
+            same(cuda_kernels.bc7_refine(px, w_k, scope, aw),
+                 bc67._bc7_refine_plain(px, w_k, scope, aw),
+                 f"K3 two launches {what}")
+            emit(out)
+            if label == "sub3batch":
+                check(out["search_modes"][0] > 0
+                      and out["search_modes"][2] > 0,
+                      f"modes 0 and 2 win no block of {what}")
+    # the maxq tier's search with modes 0/2 (K2's maxq variants)
+    for label, px in (contents[0], contents[-1]):
+        alpha = bool((px.reshape(16, 4, -1)[:, 3, :] != 255).any())
+        search = bc67.SEARCH_MODES_3_ALPHA if alpha else bc67.SEARCH_MODES_3
+        e_k, w_k = bc67.bc7_search_words(px, search, 1.0, bc67.TIER_MAXQ)
+        e_p, w_p = bc67._bc7_search_plain(px, search, 1.0, bc67.TIER_MAXQ)
+        same(w_k, w_p, f"maxq search with modes 0/2 words {label}")
+        same(e_k, e_p, f"maxq search with modes 0/2 errors {label}")
+        emit({"phase": "maxq_search_3sub", "content": label,
+              "blocks": px.shape[1], "words_equal": True,
+              "errors_equal": True, "search_modes": hist(w_k)})
+
+    # 19. USE_3SUBSETS gates --------------------------------------------
+    def psnr_of(blocks, flags):
+        dec = bc67.decode_bc7(bc67.encode_bc7(blocks, flags))
+        mse = float(((dec.to(torch.float64) - blocks.to(torch.float64))
+                     ** 2).mean())
+        return 10 * np.log10(1.0 / max(mse, 1e-30))
+
+    blocks512 = image_to_blocks(to_dev(b512["img"]))[0]
+    gates = {"bench512": {"use3": psnr_of(blocks512, USE3),
+                          "default": psnr_of(blocks512, 0)}}
+    ref_psnr = float(b512["ref_psnr"])
+    check(gates["bench512"]["use3"] >= ref_psnr,
+          f"USE_3SUBSETS bench512 {gates['bench512']['use3']} < {ref_psnr}")
+    img_b = img_blocks_content(torch, to_dev)
+    gates["img_blocks"] = {"use3": psnr_of(img_b, USE3)}
+    check(gates["img_blocks"]["use3"] > USE3_FLOOR,
+          f"img_blocks {gates['img_blocks']['use3']} <= {USE3_FLOOR}")
+    for c in OPAQUE_CORPUS + ("alphagrad",):
+        blocks = image_to_blocks(to_dev(corpus[c]))[0]
+        gates[c] = {"use3": psnr_of(blocks, USE3),
+                    "use3_maxq": psnr_of(blocks, USE3 | MAXQ)}
+    emit({"phase": "use3_gates", "psnr": gates, "ref_psnr": ref_psnr,
+          "img_blocks_floor": USE3_FLOOR})
+
+    # 20. the USE_3SUBSETS paths at 2048^2 --------------------------------
+    def path(img, flags):
+        return bc67.encode_bc7(image_to_blocks(img)[0], flags)
+
+    px_o = px_of(image_to_blocks(img_opaque)[0])
+    nb = px_o.shape[1]
+    runs = {}
+    for name, img, flags, k2, k3 in (
+            ("use3_opaque", img_opaque, USE3, "bc7_encode", ("bc7_refine",)),
+            ("use3_alpha", img_alpha, USE3, "bc7_encode_alpha",
+             ("bc7_refine_alpha",)),
+            ("use3_maxq_opaque", img_opaque, USE3 | MAXQ, "bc7_encode_maxq",
+             ("bc7_refine_maxq", "bc7_refine_ladder",
+              "bc7_refine_3sub_ladder")),
+            ("use3_maxq_alpha", img_alpha, USE3 | MAXQ,
+             "bc7_encode_maxq_alpha", ("bc7_refine_maxq", "bc7_refine_ladder",
+                                       "bc7_refine_3sub_ladder"))):
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        blocks = image_to_blocks(img)[0]
+        enc = bc67.encode_bc7(blocks, flags)
+        dec = bc67.decode_bc7(enc)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cuda_kernels.launch_counts().items()
+                  if v}
+        want = {"bc7_partition_shapes": 2, "bc7_partition_mode": 2, k2: 1,
+                "bc7_refine_3sub": 1, "bc7_decode": 1}
+        want.update({k: 1 for k in k3})
+        check(counts == want, f"{name} launches {counts}")
+        check(tuple(dec.shape) == (nb, 16, 4)
+              and bool(torch.isfinite(dec).all()), f"{name} output")
+        mse = float(((dec.to(torch.float64) - blocks.to(torch.float64))
+                     ** 2).mean())
+        runs[name] = {"launches": counts,
+                      "psnr": 10 * np.log10(1.0 / max(mse, 1e-30)),
+                      "winners": hist(enc.view(torch.int32).t())}
+    launches = {k: runs["use3_opaque"]["launches"][k] for k in (
+        "bc7_partition_shapes", "bc7_partition_mode", "bc7_refine_3sub")}
+    launches["bc7_refine_3sub_ladder"] = runs["use3_maxq_opaque"][
+        "launches"]["bc7_refine_3sub_ladder"]
+
+    # the new kernels at the opaque paths' shapes, held against the twins
+    s16 = cuda_kernels.bc7_partition_shapes(px_o, 2, 16)
+    s64 = cuda_kernels.bc7_partition_shapes(px_o, 2, 64)
+    e0, w0 = cuda_kernels.bc7_partition_mode(px_o, s16, 0)
+    e2, w2 = cuda_kernels.bc7_partition_mode(px_o, s64, 2)
+    e_s, w_s = bc67.bc7_search_words(px_o, bc67.SEARCH_MODES_3)
+    w_m = cuda_kernels.bc7_refine(px_o, w_s, bc67.REFINE_MODES_3)
+    _, w_sq = bc67.bc7_search_words(px_o, bc67.SEARCH_MODES_3, 1.0,
+                                    bc67.TIER_MAXQ)
+    w_mq = cuda_kernels.bc7_refine(px_o, w_sq, bc67.SEARCH_MODES_3)
+    w_fq = cuda_kernels.bc7_refine(px_o, w_mq, (0, 2), 1.0, full)
+    plain, plain_ms = {}, {}
+    t16 = event_ms(lambda: plain.update(
+        s16=bc67._partition_shapes_plain(px_o, 2, 16, 4)))[0]
+    t64 = event_ms(lambda: plain.update(
+        s64=bc67._partition_shapes_plain(px_o, 2, 64, 4)))[0]
+    plain_ms["bc7_partition_shapes"] = t16 + t64
+    same(s16, plain["s16"], f"K9 16 shapes {size}^2")
+    same(s64, plain["s64"], f"K9 64 shapes {size}^2")
+    t0 = event_ms(lambda: plain.update(
+        m0=bc67._partition_mode_plain(px_o, s16, 0)))[0]
+    t2 = event_ms(lambda: plain.update(
+        m2=bc67._partition_mode_plain(px_o, s64, 2)))[0]
+    plain_ms["bc7_partition_mode"] = t0 + t2
+    for (e_k, w_k), key in (((e0, w0), "m0"), ((e2, w2), "m2")):
+        same(w_k, plain[key][1], f"K7 {key} words {size}^2")
+        same(e_k, plain[key][0], f"K7 {key} errors {size}^2")
+    t_s = event_ms(lambda: plain.update(
+        search=bc67._bc7_search_plain(px_o, bc67.SEARCH_MODES_3)))[0]
+    same(w_s, plain["search"][1], f"search with modes 0/2 {size}^2")
+    same(e_s, plain["search"][0], f"search errors with modes 0/2 {size}^2")
+    plain_ms["bc7_refine_3sub"] = event_ms(lambda: plain.update(
+        r3=bc67._bc7_refine_plain(px_o, w_s, (0, 2))))[0]
+    w_m3 = cuda_kernels.bc7_refine(px_o, w_s, (0, 2))
+    same(w_m3, plain["r3"], f"K3 3sub moment {size}^2")
+    plain_ms["bc7_refine_3sub_ladder"] = event_ms(lambda: plain.update(
+        f3=bc67._bc7_refine_plain(px_o, w_mq, (0, 2), 1.0, full)))[0]
+    same(w_fq, plain["f3"], f"K3 3sub full {size}^2")
+    same(w_m, bc67._bc7_refine_plain(px_o, w_s, bc67.REFINE_MODES_3),
+         f"K3 both launches {size}^2")
+    e_p, w_p = bc67._bc7_search_plain(px_o, bc67.SEARCH_MODES_3, 1.0,
+                                      bc67.TIER_MAXQ)
+    same(w_sq, w_p, f"maxq search with modes 0/2 {size}^2")
+    max_err = {
+        "bc7_partition_shapes": max(word_diff(s16, plain["s16"]),
+                                    word_diff(s64, plain["s64"])),
+        "bc7_partition_mode": max(
+            float((e0 - plain["m0"][0]).abs().max()),
+            float((e2 - plain["m2"][0]).abs().max())),
+        "bc7_refine_3sub": word_diff(w_m3, plain["r3"]),
+        "bc7_refine_3sub_ladder": word_diff(w_fq, plain["f3"])}
+
+    # the same on the alpha paths' own inputs: K7 scores modes 0/2 with the
+    # alpha error counted, and K3 refines the alpha image's mode-0/2 winners
+    px_a = px_of(image_to_blocks(img_alpha)[0])
+    search_a = bc67.SEARCH_MODES_3_ALPHA
+    alpha_cmp = {}
+    for n in (16, 64):
+        s_k = cuda_kernels.bc7_partition_shapes(px_a, 2, n)
+        s_p = bc67._partition_shapes_plain(px_a, 2, n, 4)
+        same(s_k, s_p, f"K9 {n} shapes alpha {size}^2")
+        max_err["bc7_partition_shapes"] = max(
+            max_err["bc7_partition_shapes"], word_diff(s_k, s_p))
+        mode = 0 if n == 16 else 2
+        e_k, w_k = cuda_kernels.bc7_partition_mode(px_a, s_k, mode)
+        e_p, w_p = bc67._partition_mode_plain(px_a, s_k, mode)
+        same(w_k, w_p, f"K7 mode {mode} words alpha {size}^2")
+        same(e_k, e_p, f"K7 mode {mode} errors alpha {size}^2")
+        max_err["bc7_partition_mode"] = max(
+            max_err["bc7_partition_mode"], float((e_k - e_p).abs().max()))
+    for tier, key in ((bc67.TIER_DEFAULT, "default"),
+                      (bc67.TIER_MAXQ, "maxq")):
+        e_k, w_k = bc67.bc7_search_words(px_a, search_a, 1.0, tier)
+        e_p, w_p = bc67._bc7_search_plain(px_a, search_a, 1.0, tier)
+        same(w_k, w_p, f"{key} search with modes 0/2 alpha {size}^2")
+        same(e_k, e_p, f"{key} search errors with modes 0/2 alpha {size}^2")
+        # K3 MOMENT over (0, 2) alone, then the path's whole MOMENT scope
+        # (both launches) and, at maxq, FULL over (0, 2) on its output
+        r_k = cuda_kernels.bc7_refine(px_a, w_k, (0, 2))
+        r_p = bc67._bc7_refine_plain(px_a, w_k, (0, 2))
+        same(r_k, r_p, f"K3 3sub moment {key} alpha {size}^2")
+        max_err["bc7_refine_3sub"] = max(max_err["bc7_refine_3sub"],
+                                         word_diff(r_k, r_p))
+        scope = (bc67.REFINE_MODES_3_ALPHA if tier == bc67.TIER_DEFAULT
+                 else search_a)
+        m_k = cuda_kernels.bc7_refine(px_a, w_k, scope)
+        same(m_k, bc67._bc7_refine_plain(px_a, w_k, scope),
+             f"K3 both launches {key} alpha {size}^2")
+        modes_a = bc67._mode_of(bc67._words_i64(w_k))
+        alpha_cmp[key] = {"search_modes": hist(w_k),
+                          "mode02_blocks": int(((modes_a == 0)
+                                                | (modes_a == 2)).sum()),
+                          "moment_refined_blocks": int(
+                              (r_k != w_k).any(dim=0).sum())}
+        if tier == bc67.TIER_MAXQ:
+            f_k = cuda_kernels.bc7_refine(px_a, m_k, (0, 2), 1.0, full)
+            f_p = bc67._bc7_refine_plain(px_a, m_k, (0, 2), 1.0, full)
+            same(f_k, f_p, f"K3 3sub full alpha {size}^2")
+            max_err["bc7_refine_3sub_ladder"] = max(
+                max_err["bc7_refine_3sub_ladder"], word_diff(f_k, f_p))
+            alpha_cmp[key]["full_refined_blocks"] = int(
+                (f_k != m_k).any(dim=0).sum())
+
+    med = {}
+    for name, fn in (
+            ("use3_path_opaque", lambda: path(img_opaque, USE3)),
+            ("use3_path_alpha", lambda: path(img_alpha, USE3)),
+            ("use3_maxq_path_opaque", lambda: path(img_opaque, USE3 | MAXQ)),
+            ("use3_maxq_path_alpha", lambda: path(img_alpha, USE3 | MAXQ)),
+            ("default_path_opaque", lambda: path(img_opaque, 0)),
+            ("default_path_alpha", lambda: path(img_alpha, 0)),
+            ("maxq_path_opaque", lambda: path(img_opaque, MAXQ)),
+            ("maxq_path_alpha", lambda: path(img_alpha, MAXQ)),
+            ("bc7_partition_shapes_16", lambda: cuda_kernels
+             .bc7_partition_shapes(px_o, 2, 16)),
+            ("bc7_partition_shapes_64", lambda: cuda_kernels
+             .bc7_partition_shapes(px_o, 2, 64)),
+            ("bc7_partition_mode_0", lambda: cuda_kernels.bc7_partition_mode(
+                px_o, s16, 0)),
+            ("bc7_partition_mode_2", lambda: cuda_kernels.bc7_partition_mode(
+                px_o, s64, 2)),
+            ("bc7_encode", lambda: cuda_kernels.bc7_encode(px_o)),
+            ("bc7_refine_3sub", lambda: cuda_kernels.bc7_refine(
+                px_o, w_s, (0, 2))),
+            ("bc7_refine_default_scope", lambda: cuda_kernels.bc7_refine(
+                px_o, w_s, bc67.REFINE_MODES)),
+            ("bc7_refine_3sub_ladder", lambda: cuda_kernels.bc7_refine(
+                px_o, w_mq, (0, 2), 1.0, full)),
+            ("bc7_refine_ladder", lambda: cuda_kernels.bc7_refine(
+                px_o, w_mq, bc67.SEARCH_MODES, 1.0, full)),
+            ("search_use3", lambda: bc67.bc7_search_words(
+                px_o, bc67.SEARCH_MODES_3))):
+        fn()
+        med[name] = float(np.median(event_ms(fn, 7)))
+    texels = size * size
+    emit({"phase": "use3_2k", "card": smi, "blocks": nb, "runs": runs,
+          "ms": med, "mtexels_per_s": {
+              k: texels / (med[k] * 1e-3) / 1e6 for k in med
+              if "path" in k},
+          "search_modes_default_tier": hist(w_s),
+          "search_modes_maxq_tier": hist(w_sq),
+          "plain_ms": plain_ms, "plain_search_ms": t_s,
+          "words_equal_plain": True, "alpha_equal_plain": alpha_cmp})
+
+    k_ms = {"bc7_partition_shapes": med["bc7_partition_shapes_16"]
+            + med["bc7_partition_shapes_64"],
+            "bc7_partition_mode": med["bc7_partition_mode_0"]
+            + med["bc7_partition_mode_2"],
+            "bc7_refine_3sub": med["bc7_refine_3sub"],
+            "bc7_refine_3sub_ladder": med["bc7_refine_3sub_ladder"]}
+    modes_s = bc67._mode_of(bc67._words_i64(w_s))
+    modes_m = bc67._mode_of(bc67._words_i64(w_mq))
+    ops = {"bc7_partition_shapes": float(nb) * (BC7_SHAPES_OPS[16]
+                                                + BC7_SHAPES_OPS[64]),
+           "bc7_partition_mode": float(nb) * (BC7_PARTITION_OPS[0]
+                                              + BC7_PARTITION_OPS[2]),
+           "bc7_refine_3sub": per_mode_ops(torch, modes_s, {
+               m: BC7_REFINE_OPS[m] for m in (0, 2)}),
+           "bc7_refine_3sub_ladder": per_mode_ops(torch, modes_m, {
+               m: BC7_REFINE_FULL_OPS[m] for m in (0, 2)})}
+    n02 = {"bc7_refine_3sub": int(((modes_s == 0) | (modes_s == 2)).sum()),
+           "bc7_refine_3sub_ladder": int(
+               ((modes_m == 0) | (modes_m == 2)).sum())}
+    return {"launches": launches, "k_ms": k_ms, "plain_ms": plain_ms,
+            "max_err": max_err, "nb": {k: nb for k in ops}, "ops": ops,
+            "extra_bytes": {k: float(n) * BC7_PIXEL_BYTES
+                            for k, n in n02.items()}}
 
 
 if __name__ == "__main__":

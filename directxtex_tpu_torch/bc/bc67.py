@@ -1,5 +1,6 @@
 """BC7 codec on torch tensors — the default tier (with or without alpha,
-at any alpha weight), the QUICK tier and the MAXQUALITY tier.
+at any alpha weight), the QUICK tier, the MAXQUALITY tier and
+USE_3SUBSETS (modes 0 and 2) in either of them.
 
 The PyTorch counterpart of directxtex_tpu/bc/bc67.py (reference:
 BC6HBC7.cpp). Layouts follow the JAX package: pixel planes are lane-major
@@ -9,13 +10,15 @@ the words as int64 holding the u32 value (masked to 32 bits after every
 left shift) and hands them across function edges as int32 tensors holding
 the u32 bit pattern.
 
-Three functions here are the plain twins of the three CUDA kernels
-(cuda_kernels.py, csrc/): `bc7_decode_words` (K1), `bc7_search_words`
-(K2) and `bc7_refine_words` (K3). Each takes a CUDA tensor to its kernel
-and a CPU tensor to its plain version; nothing else decides. The plain
-versions take every 16-pixel and per-channel sum in index order, as the
-kernels do, so kernel and twin agree bit for bit wherever the arithmetic
-allows (no FMA contraction: the kernels build with --fmad=false).
+Five wrappers here take their CUDA kernels (cuda_kernels.py, csrc/) or
+their plain twins: `bc7_decode_words` (K1), `bc7_search_words` (K2, and
+K9 + K7 for modes 0 and 2), `bc7_refine_words` (K3),
+`bc7_partition_shapes` (K9) and `bc7_partition_mode` (K7). Each takes a
+CUDA tensor to its kernel and a CPU tensor to its plain version; nothing
+else decides. The plain versions take every 16-pixel and per-channel sum
+in index order, as the kernels do, so kernel and twin agree bit for bit
+wherever the arithmetic allows (no FMA contraction: the kernels build
+with --fmad=false).
 
 Encode follows the JAX package's jnp path exactly. The default tier: off-
 axis shape ranking, the shared float trajectory for modes 1/3 and for
@@ -25,9 +28,12 @@ winner-refine over modes (1, 3, 5, 7, 4). The QUICK tier searches mode 6
 alone and skips the refine. The MAXQUALITY tier fits every mode on its
 own (modes 1/3 per shape candidate, modes 4/5 per rotation and, for mode
 4, per index mode) and refines the winner twice over every searched mode:
-LADDER_MOMENT, then the exact LADDER_FULL ladder. `alpha_weight` scales
-the alpha channel's squared error in scoring and index assignment only
-(under modes 4/5 the alpha channel sits where the rotation put it).
+LADDER_MOMENT, then the exact LADDER_FULL ladder. USE_3SUBSETS ranks the
+three-subset shapes off-axis (mode 0 over shapes 0..15), evaluates the
+top 4 for each of modes 0 and 2 on its own, folds them first, and keeps
+both modes in the refine scope. `alpha_weight` scales the alpha
+channel's squared error in scoring and index assignment only (under
+modes 4/5 the alpha channel sits where the rotation put it).
 """
 
 from __future__ import annotations
@@ -106,6 +112,12 @@ REFINE_MODES = (1, 3, 5, 4)
 SEARCH_MODES_ALPHA = (1, 3, 5, 6, 7, 4)
 REFINE_MODES_ALPHA = (1, 3, 5, 7, 4)
 SEARCH_MODES_QUICK = (6,)
+# USE_3SUBSETS (bc67.py:1958): modes 0 and 2 first in the fold and in
+# every tier's refine scope
+SEARCH_MODES_3 = (0, 2) + SEARCH_MODES
+SEARCH_MODES_3_ALPHA = (0, 2) + SEARCH_MODES_ALPHA
+REFINE_MODES_3 = (0, 2) + REFINE_MODES
+REFINE_MODES_3_ALPHA = (0, 2) + REFINE_MODES_ALPHA
 # the search's tier, an explicit argument of the search (one mode tuple
 # serves both tiers): shared fits and mode-4 index mode 0 (default), or
 # every mode fitted on its own and both mode-4 index modes (maxq)
@@ -177,22 +189,27 @@ def _tables(device: torch.device) -> dict:
         pp, pa = _packed_shape_tables_bc7(parts, 64)
         t["pp", parts] = torch.tensor(pp, dtype=torch.int64, device=device)
         t["pa", parts] = torch.tensor(pa, dtype=torch.int64, device=device)
-    t["parts1"] = torch.tensor(PARTITIONS[1], dtype=torch.int32,
-                               device=device)
-    t["fix1"] = torch.tensor(FIXUPS[1], dtype=torch.int64, device=device)
-    for prec in (3, 2):                 # modes 1 and 3 emit per-shape layouts
-        t["offs", 1, prec] = torch.tensor(_index_layout(1, prec)[0],
-                                          device=device)
+    for parts in (1, 2):
+        t[f"parts{parts}"] = torch.tensor(PARTITIONS[parts],
+                                          dtype=torch.int32, device=device)
+        t[f"fix{parts}"] = torch.tensor(FIXUPS[parts], dtype=torch.int64,
+                                        device=device)
+        # per-shape index layouts: modes 1 (3-bit) and 3, 7 (2-bit) with
+        # two subsets, modes 0 (3-bit) and 2 (2-bit) with three
+        for prec in (3, 2):
+            t["offs", parts, prec] = torch.tensor(
+                _index_layout(parts, prec)[0], device=device)
     return t
 
 
 @functools.lru_cache(maxsize=None)
-def _est_tables(device: torch.device, n_shapes: int):
-    """Shape-estimate masks [2 * n_shapes, 16] (rows = every (subset,
-    shape) pair of the first n_shapes two-subset shapes, subset-major) and
-    their inverse pixel counts."""
-    m_host = np.concatenate([(PARTITIONS[1][:n_shapes] == p)
-                             .astype(np.float32) for p in range(2)], axis=0)
+def _est_tables(device: torch.device, n_shapes: int, partitions: int = 1):
+    """Shape-estimate masks [(partitions + 1) * n_shapes, 16] (rows = every
+    (subset, shape) pair of the first n_shapes shapes of the class,
+    subset-major) and their inverse pixel counts."""
+    m_host = np.concatenate([(PARTITIONS[partitions][:n_shapes] == p)
+                             .astype(np.float32)
+                             for p in range(partitions + 1)], axis=0)
     n_inv = 1.0 / np.maximum(m_host.sum(axis=1), 1.0)
     return (torch.tensor(m_host, device=device),
             torch.tensor(n_inv, dtype=torch.float32, device=device))
@@ -817,14 +834,16 @@ def _dual_anchor_fix(w1, w2, prec1: int, prec2: int):
 # ---------------------------------------------------------------------------
 
 def _shape_estimates_table(px_f, n_shapes: int = 64,
-                           axis_w: float = _ON_AXIS_W):
-    """[n_shapes, NB] off-axis error proxy for the first n_shapes
-    two-subset shapes (_shape_estimates_table(partitions=1,
-    off_axis=True), bc67.py:1243): per (shape, subset) the within-subset
-    RGB SSE minus (1 - axis_w)x its dominant-axis variance (3 power
-    iterations), floored at 0. px_f [16, 4, NB]; BC7 ranks its 64 shapes
-    at _ON_AXIS_W, BC6H its 32 at axis_w=0 with a zero alpha plane."""
-    masks, n_inv = _est_tables(px_f.device, n_shapes)
+                           axis_w: float = _ON_AXIS_W, partitions: int = 1):
+    """[n_shapes, NB] off-axis error proxy for the first n_shapes shapes
+    of a partition class (_shape_estimates_table(off_axis=True),
+    bc67.py:1243): per (shape, subset) the within-subset RGB SSE minus
+    (1 - axis_w)x its dominant-axis variance (3 power iterations), floored
+    at 0, summed over the subsets in subset order. px_f [16, 4, NB];
+    partitions 1 (two subsets) or 2 (three). BC7 ranks its shapes at
+    _ON_AXIS_W, BC6H its 32 two-subset shapes at axis_w=0 with a zero
+    alpha plane."""
+    masks, n_inv = _est_tables(px_f.device, n_shapes, partitions)
     mu = _sum0(px_f) * (1 / 16)                       # [4, NB]
     xc = px_f - mu[None, :, :]                        # [16, 4, NB]
     q = _sum0((xc * xc).transpose(0, 1))              # [16, NB]
@@ -838,7 +857,7 @@ def _shape_estimates_table(px_f, n_shapes: int = 64,
         s_all = s_all + masks[:, k, None, None] * rhs[k][None]
 
     est = torch.zeros_like(s_all[:n_shapes, 0])
-    for p in range(2):
+    for p in range(partitions + 1):
         sp = s_all[p * n_shapes:(p + 1) * n_shapes]   # [S, 11, NB]
         ninv = n_inv[p * n_shapes:(p + 1) * n_shapes][:, None]
         s1 = sp[:, 1:5]
@@ -994,22 +1013,31 @@ def _try_mode6(px_i, px_f, aw: float = 1.0):
                           px_i.device)
 
 
-def _try_partition_mode(px_i, px_f, mode_id: int, ests, aw: float = 1.0):
-    """One two-subset mode fitted on its own (_try_partition_mode with
-    ests=est_cache[1], bc67.py:1337, jnp branch): modes 1 and 3 in the
-    maxq tier, mode 7 in every tier. The top BC7_SHAPE_CANDIDATES shapes
-    of the shared ranking, each evaluated on its own (axis fit, one LS
-    refit, keep the better per subset, anchor swaps), folded with a
-    strict `<`. Returns (err [NB], words [4, NB] int64); mode 7's opaque
-    blocks are not masked here (the search does that)."""
+# blocks per plain-search slice: bounds the [192, 11, n] shape-sum planes
+# when the plain twins run at full image size (results are per block, so
+# slicing changes nothing)
+_PLAIN_SEARCH_SLICE = 32768
+
+
+def _partition_candidates(px_i, px_f, s_blks, mode_id: int,
+                          aw: float = 1.0):
+    """One partition mode (0, 1, 2, 3, 7) over given shape candidates
+    (_try_partition_mode's candidate loop, bc67.py:1370-1384): each
+    candidate evaluated on its own (per subset: axis fit, one LS refit,
+    keep the better; then anchor swaps), emitted, and folded with a strict
+    `<`. s_blks: a list of [NB] shape rows. Returns (err [NB], words
+    [4, NB] int64)."""
+    m = _BC7_MODES[mode_id]
     tabs = _tables(px_i.device)
     nb = px_i.shape[2]
     best_err = torch.full((nb,), float("inf"), device=px_i.device)
     best_words = torch.zeros((4, nb), dtype=torch.int64, device=px_i.device)
-    for s_blk in _top_k_shapes(ests, BC7_SHAPE_CANDIDATES):
-        pmask = tabs["parts1"][s_blk].t()                    # [16, NB]
-        mask_list = [pmask == 0, pmask == 1]
-        anchors = [0, tabs["fix1"][s_blk, 1]]
+    for s_blk in s_blks:
+        s_blk = s_blk.to(torch.int64)
+        pmask = tabs[f"parts{m.partitions}"][s_blk].t()      # [16, NB]
+        mask_list = [pmask == p for p in range(m.partitions + 1)]
+        anchors = [0] + [tabs[f"fix{m.partitions}"][s_blk, p]
+                         for p in range(1, m.partitions + 1)]
         err, q0s, q1s, p0s, p1s, idx = _eval_subset_candidate(
             px_i, px_f, mask_list, anchors, mode_id, aw)
         words = _emit_bc7(mode_id, s_blk, 0, 0, q0s, q1s, p0s, p1s, idx,
@@ -1018,6 +1046,90 @@ def _try_partition_mode(px_i, px_f, mode_id: int, ests, aw: float = 1.0):
         best_err = torch.minimum(err, best_err)
         best_words = torch.where(better[None, :], words, best_words)
     return best_err, best_words
+
+
+def _try_partition_mode(px_i, px_f, mode_id: int, ests, aw: float = 1.0):
+    """One partition mode fitted on its own (_try_partition_mode,
+    bc67.py:1337, jnp branch): modes 0 and 2 (USE_3SUBSETS, on the
+    three-subset ranking), modes 1 and 3 in the maxq tier and mode 7 in
+    every tier (on the two-subset ranking). The K9 twin's top-k of the
+    shape estimates `ests` (mode 0 ranks only shapes 0..15, its partition
+    field's), then the K7 twin's candidate evaluation. Returns (err [NB],
+    words [4, NB] int64); mode 7's opaque blocks are not masked here (the
+    search does that)."""
+    ests = ests[:1 << _BC7_MODES[mode_id].partition_bits]
+    return _partition_candidates(
+        px_i, px_f, _top_k_shapes(ests, BC7_SHAPE_CANDIDATES), mode_id, aw)
+
+
+def _partition_shapes_plain(px: torch.Tensor, partitions: int,
+                            n_shapes: int, n_cand: int) -> torch.Tensor:
+    """Plain twin of K9: px [64, NB] int32 -> the n_cand shapes of least
+    off-axis estimate per block, s_blks [n_cand, NB] int32, in rank order
+    (a tie keeps the lower shape first)."""
+    out = []
+    for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE):
+        px_f = px[:, s:s + _PLAIN_SEARCH_SLICE].reshape(16, 4, -1) \
+            .to(torch.float32)
+        ests = _shape_estimates_table(px_f, n_shapes, partitions=partitions)
+        out.append(torch.stack(_top_k_shapes(ests, n_cand)))
+    return torch.cat(out, dim=1).to(torch.int32)
+
+
+def _partition_mode_plain(px: torch.Tensor, s_blks: torch.Tensor,
+                          mode_id: int, aw: float = 1.0):
+    """Plain twin of K7: px [64, NB] int32, s_blks [C, NB] int32 shape
+    candidates -> (err [NB] f32, words [4, NB] int32) of mode_id (0, 1, 2,
+    3 or 7), the best candidate by a strict `<` in candidate order."""
+    errs, words = [], []
+    for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE):
+        px_i = px[:, s:s + _PLAIN_SEARCH_SLICE].reshape(16, 4, -1)
+        sb = s_blks[:, s:s + _PLAIN_SEARCH_SLICE]
+        err, w = _partition_candidates(px_i, px_i.to(torch.float32),
+                                       list(sb), mode_id, aw)
+        errs.append(err)
+        words.append(_words_i32(w))
+    return torch.cat(errs), torch.cat(words, dim=1)
+
+
+def _check_partition_shapes(partitions: int, n_shapes: int, n_cand: int):
+    if partitions not in (1, 2) or not 1 <= n_shapes <= 64 \
+            or not 1 <= n_cand <= n_shapes:
+        raise ValueError(f"partition shapes: partitions 1 or 2, 1-64 "
+                         f"shapes, 1..n_shapes candidates; got "
+                         f"{(partitions, n_shapes, n_cand)}")
+
+
+def bc7_partition_shapes(px: torch.Tensor, partitions: int, n_shapes: int,
+                         n_cand: int = BC7_SHAPE_CANDIDATES) -> torch.Tensor:
+    """K9 wrapper (partition_shapes_pallas, off-axis at _ON_AXIS_W): px
+    [64, NB] int32 -> s_blks [n_cand, NB] int32, the top n_cand of the
+    first n_shapes shapes with partitions + 1 subsets. A CUDA tensor
+    launches the kernel, a CPU tensor runs the plain twin."""
+    _check_px(px)
+    _check_partition_shapes(partitions, n_shapes, n_cand)
+    if _on_cuda(px):
+        return cuda_kernels.bc7_partition_shapes(px, partitions, n_shapes,
+                                                 n_cand)
+    return _partition_shapes_plain(px, partitions, n_shapes, n_cand)
+
+
+def bc7_partition_mode(px: torch.Tensor, s_blks: torch.Tensor, mode_id: int,
+                       aw: float = 1.0):
+    """K7 wrapper (partition_mode_pallas): px [64, NB] int32, s_blks
+    [C, NB] int32 -> (err [NB] f32, words [4, NB] int32) of partition mode
+    mode_id (0, 1, 2, 3 or 7). A CUDA tensor launches the kernel, a CPU
+    tensor runs the plain twin."""
+    _check_px(px)
+    if s_blks.dtype != torch.int32 or s_blks.dim() != 2 \
+            or s_blks.shape[1] != px.shape[1]:
+        raise ValueError(f"s_blks must be [C, NB] int32, got "
+                         f"{tuple(s_blks.shape)} {s_blks.dtype}")
+    if mode_id not in (0, 1, 2, 3, 7):
+        raise ValueError(f"partition modes are 0, 1, 2, 3, 7; got {mode_id}")
+    if _on_cuda(px, s_blks):
+        return cuda_kernels.bc7_partition_mode(px, s_blks, mode_id, aw)
+    return _partition_mode_plain(px, s_blks, mode_id, aw)
 
 
 def _rotate(px, rot: int):
@@ -1153,34 +1265,31 @@ def _try_single_mode45(px_i, px_f, mode_id: int, aw: float = 1.0):
     return best_err, best_words
 
 
-# blocks per plain-search slice: bounds the [128, 11, n] shape-sum planes
-# when the plain twin runs at full image size (results are per block, so
-# slicing changes nothing)
-_PLAIN_SEARCH_SLICE = 32768
-
 def _check_search(modes, tier: str) -> tuple:
     modes = tuple(modes)
     if tier not in (TIER_DEFAULT, TIER_MAXQ):
         raise ValueError(f"tier {tier!r}: the search tiers are "
                          f"{TIER_DEFAULT!r} and {TIER_MAXQ!r}")
-    if modes not in (SEARCH_MODES, SEARCH_MODES_ALPHA, SEARCH_MODES_QUICK):
-        raise NotImplementedError(
-            f"search modes {modes}: the port searches {SEARCH_MODES}, "
-            f"{SEARCH_MODES_ALPHA} and {SEARCH_MODES_QUICK} (modes 0 and 2, "
-            "USE_3SUBSETS: ROADMAP.md queue 1, 'The other BC7 tiers')")
+    searches = (SEARCH_MODES, SEARCH_MODES_ALPHA, SEARCH_MODES_QUICK,
+                SEARCH_MODES_3, SEARCH_MODES_3_ALPHA)
+    if modes not in searches:
+        raise ValueError(f"search modes {modes}: the searches are "
+                         f"{searches}")
     return modes
 
 
 def _bc7_search_plain(px: torch.Tensor, modes=SEARCH_MODES,
                       aw: float = 1.0, tier: str = TIER_DEFAULT):
-    """Plain twin of K2: px [64, NB] int32 (0..255) -> (err [NB] f32,
-    words [4, NB] int32). `modes` (one of the three search tuples) are
-    folded in their order with a strict `<`; mode 7 scores inf on a block
-    whose alpha is 255 everywhere (bc67.py:2034). `tier` TIER_DEFAULT
-    shares one float trajectory between modes 1 and 3 and between modes 4
-    and 5 (mode 4 at index mode 0); TIER_MAXQ fits each of them on its own
-    and searches both mode-4 index modes. Mode 6 (and so QUICK) is the
-    same search in both tiers."""
+    """Plain twin of the search (K2, and K9 + K7 for modes 0 and 2): px
+    [64, NB] int32 (0..255) -> (err [NB] f32, words [4, NB] int32).
+    `modes` (one of the five search tuples) are folded in their order with
+    a strict `<`; mode 7 scores inf on a block whose alpha is 255
+    everywhere (bc67.py:2034). `tier` TIER_DEFAULT shares one float
+    trajectory between modes 1 and 3 and between modes 4 and 5 (mode 4 at
+    index mode 0); TIER_MAXQ fits each of them on its own and searches
+    both mode-4 index modes. Mode 6 (and so QUICK) and modes 0 and 2 (on
+    the three-subset ranking, mode 0 over shapes 0..15) are the same
+    search in both tiers."""
     modes = _check_search(modes, tier)
     errs, words = [], []
     for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE):
@@ -1188,6 +1297,11 @@ def _bc7_search_plain(px: torch.Tensor, modes=SEARCH_MODES,
         px_f = px_i.to(torch.float32)
         nb = px_i.shape[2]
         res = {6: _try_mode6(px_i, px_f, aw)}
+        if 0 in modes:
+            ests3 = _shape_estimates_table(px_f, partitions=2)
+            for mode_id in (0, 2):
+                res[mode_id] = _try_partition_mode(px_i, px_f, mode_id,
+                                                   ests3, aw)
         if 1 in modes:
             ests = _shape_estimates_table(px_f)
             if tier == TIER_MAXQ:
@@ -1219,17 +1333,38 @@ def _bc7_search_plain(px: torch.Tensor, modes=SEARCH_MODES,
 
 def bc7_search_words(px: torch.Tensor, modes=SEARCH_MODES,
                      aw: float = 1.0, tier: str = TIER_DEFAULT):
-    """K2 wrapper: the whole search of one tier. px [64, NB] int32
-    (texels 0..255, row = pixel * 4 + channel) -> (err [NB] f32, words
-    [4, NB] int32); `modes` is SEARCH_MODES (opaque), SEARCH_MODES_ALPHA
-    (with mode 7) or SEARCH_MODES_QUICK, `tier` TIER_DEFAULT or
-    TIER_MAXQ. A CUDA tensor launches the kernel, a CPU tensor runs the
-    plain twin."""
+    """The whole search of one tier. px [64, NB] int32 (texels 0..255,
+    row = pixel * 4 + channel) -> (err [NB] f32, words [4, NB] int32);
+    `modes` is SEARCH_MODES (opaque), SEARCH_MODES_ALPHA (with mode 7),
+    SEARCH_MODES_QUICK, or SEARCH_MODES_3 / SEARCH_MODES_3_ALPHA
+    (USE_3SUBSETS), `tier` TIER_DEFAULT or TIER_MAXQ. A CUDA tensor
+    launches the kernels (K2; with modes 0 and 2 first K9 and K7 for each
+    of them), a CPU tensor runs the plain twin."""
     _check_px(px)
     modes = _check_search(modes, tier)
-    if _on_cuda(px):
+    if not _on_cuda(px):
+        return _bc7_search_plain(px, modes, aw, tier)
+    if modes[:2] != (0, 2):
         return cuda_kernels.bc7_encode(px, modes, aw, tier)
-    return _bc7_search_plain(px, modes, aw, tier)
+    # modes 0 and 2 never share a fit, so both tiers search them the same
+    # way (pallas_kernels.py:1910-1921): K9 ranks the three-subset shapes
+    # (mode 0 only shapes 0..15, its 4-bit partition field's), K7
+    # evaluates the top 4; K2 searches the other modes
+    s0 = cuda_kernels.bc7_partition_shapes(px, 2, 16, BC7_SHAPE_CANDIDATES)
+    err0, words0 = cuda_kernels.bc7_partition_mode(px, s0, 0, aw)
+    s2 = cuda_kernels.bc7_partition_shapes(px, 2, 64, BC7_SHAPE_CANDIDATES)
+    err2, words2 = cuda_kernels.bc7_partition_mode(px, s2, 2, aw)
+    err_r, words_r = cuda_kernels.bc7_encode(px, modes[2:], aw, tier)
+    # Modes 0 and 2 come first in the fold order, so the strict-`<` fold
+    # of (0, 2, rest...) is the fold of the rest (K2's own), taken only
+    # where it is strictly below the fold of (0, 2): the same words and
+    # errors as one fold over the whole list.
+    take2 = err2 < err0
+    err02 = torch.where(take2, err2, err0)
+    words02 = torch.where(take2[None, :], words2, words0)
+    take_r = err_r < err02
+    return (torch.where(take_r, err_r, err02),
+            torch.where(take_r[None, :], words_r, words02))
 
 
 # ---------------------------------------------------------------------------
@@ -1468,7 +1603,7 @@ def _keep_reassigned(err_t, err_l):
 
 def _refine_mode_subsets(px_i, words, mode_id: int, ladder=LADDER_MOMENT,
                          aw: float = 1.0):
-    """Winner-refine one partition-family mode (1, 3, 6, 7): unpack, the
+    """Winner-refine one partition-family mode (0-3, 6, 7): unpack, the
     ladder's endpoint move per subset with indices fixed, one
     re-assignment, keep per subset where the error drops, anchor swaps,
     re-emit. Returns (err_new, err_old [NB], words [4, NB] int64)."""
@@ -1486,7 +1621,8 @@ def _refine_mode_subsets(px_i, words, mode_id: int, ladder=LADDER_MOMENT,
         pa = tabs["pa", m.partitions][shape]
         pm = torch.stack([(pp >> (2 * i)) & 3 for i in range(16)])
         mask_list = [pm == p for p in range(n_sub)]
-        anchors = [0, pa & 0xF]
+        anchors = [0, pa & 0xF] + ([(pa >> 4) & 0xF]
+                                   if m.partitions == 2 else [])
     else:                                 # mode 6: one subset
         mask_list = [torch.ones((16, nb), dtype=torch.bool,
                                 device=px_i.device)]
@@ -1595,18 +1731,15 @@ def _refine_mode45(px_i, words, mode_id: int, ladder=LADDER_MOMENT,
                                     [p0], [p1], w1n, w2n, nb, px_i.device)
 
 
-# the modes the refine takes (bc67.py:1865-1896 without the 3-subset
-# modes 0 and 2)
-_REFINE_SCOPE = (1, 3, 4, 5, 6, 7)
+# the modes the refine takes (bc67.py:1865-1896)
+_REFINE_SCOPE = (0, 1, 2, 3, 4, 5, 6, 7)
 
 
 def _check_refine_modes(modes) -> tuple:
     modes = tuple(modes)
     if not set(modes) <= set(_REFINE_SCOPE):
-        raise NotImplementedError(
-            f"refine modes {modes}: the port refines modes {_REFINE_SCOPE} "
-            "(modes 0 and 2, USE_3SUBSETS: ROADMAP.md queue 1, 'The other "
-            "BC7 tiers')")
+        raise ValueError(f"refine modes {modes}: the BC7 modes are "
+                         f"{_REFINE_SCOPE}")
     return modes
 
 
@@ -1647,10 +1780,10 @@ def bc7_refine_words(px: torch.Tensor, words: torch.Tensor,
                      modes=REFINE_MODES, aw: float = 1.0,
                      ladder=LADDER_MOMENT) -> torch.Tensor:
     """K3 wrapper: winner-refine with one ladder (LADDER_MOMENT or an
-    exact (rounds, deltas) ladder) over `modes`, a subset of (1, 3, 4, 5,
-    6, 7). px [64, NB] int32, words [4, NB] int32 -> words [4, NB] int32.
-    A CUDA tensor launches the kernel, a CPU tensor runs the plain
-    twin."""
+    exact (rounds, deltas) ladder) over `modes`, a subset of 0..7. px
+    [64, NB] int32, words [4, NB] int32 -> words [4, NB] int32. A CUDA
+    tensor launches the kernel (a second instance for modes 0 and 2), a
+    CPU tensor runs the plain twin."""
     _check_words(words)
     _check_px(px, words.shape[1])
     modes = _check_refine_modes(modes)
@@ -1688,24 +1821,23 @@ def _quantize_ldr(blocks: torch.Tensor) -> torch.Tensor:
 def encode_bc7(blocks: torch.Tensor, flags: int = 0, opaque: bool = False,
                alpha_weight: float = 1.0) -> torch.Tensor:
     """[NB, 16, 4] f32 -> [NB, 16] u8 (D3DXEncodeBC7, BC6HBC7.cpp:2783).
-    On a CUDA tensor the search and the refines run as kernels (K2, K3).
+    On a CUDA tensor the search and the refines run as kernels (K2, K3;
+    with USE_3SUBSETS also K9 and K7).
 
     The default tier searches modes (1, 3, 5, 6, 7, 4) and refines the
     winner with one MOMENT pass over (1, 3, 5, 7, 4); QUICK (0x100000)
     searches mode 6 alone, with no refine; MAXQUALITY (0x200000) fits
     every mode on its own and refines twice, MOMENT then LADDER_FULL, over
     every searched mode (QUICK|MAXQUALITY: mode 6, refined twice).
+    USE_3SUBSETS (0x80000) puts modes 0 and 2 first in the search and in
+    the refine scope of either tier; with QUICK it changes nothing.
     `opaque=True` is the caller's promise that alpha is 1 everywhere and
     drops mode 7. With the default `opaque=False` the port checks the
     quantized alpha (one host sync) and drops mode 7 where no block has
     alpha: mode 7 scores inf on every opaque block in the JAX package too,
     so the words are the same. `alpha_weight` scales the alpha channel's
-    squared error in scoring. USE_3SUBSETS raises NotImplementedError;
-    other flag bits are ignored, as in the JAX package."""
-    if flags & _BC7_USE_3SUBSETS:
-        raise NotImplementedError(
-            f"flags {flags:#x}: USE_3SUBSETS (modes 0 and 2) is not ported "
-            "(ROADMAP.md queue 1, 'The other BC7 tiers')")
+    squared error in scoring. Other flag bits are ignored, as in the JAX
+    package."""
     if blocks.dim() != 3 or blocks.shape[1:] != (16, 4):
         raise ValueError(f"blocks must be [NB, 16, 4], got "
                          f"{tuple(blocks.shape)}")
@@ -1721,6 +1853,8 @@ def encode_bc7(blocks: torch.Tensor, flags: int = 0, opaque: bool = False,
             (px.reshape(16, 4, nb)[:, 3, :] != 255).any())
         search, refine = ((SEARCH_MODES_ALPHA, REFINE_MODES_ALPHA) if alpha
                           else (SEARCH_MODES, REFINE_MODES))
+        if flags & _BC7_USE_3SUBSETS:
+            search, refine = (0, 2) + search, (0, 2) + refine
     ladders = (LADDER_MOMENT,)
     if maxq:                       # the whole search scope, twice
         refine, ladders = search, (LADDER_MOMENT, LADDER_FULL)

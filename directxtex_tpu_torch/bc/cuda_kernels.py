@@ -17,10 +17,17 @@ live in bc67.py, and bc67's wrappers call these only for CUDA tensors.
        ladders; launch counts kept apart for the default scope,
        bc7_refine, the scope with mode 7, bc7_refine_alpha, the maxq
        scope with mode 6, bc7_refine_maxq, and the exact ladders,
-       bc7_refine_ladder)
+       bc7_refine_ladder; modes 0 and 2 run in instances of their own,
+       bc7_refine_3sub.cu and bc7_refine_3sub_ladder.cu, counted as
+       bc7_refine_3sub and bc7_refine_3sub_ladder)
     K4 bc6h_decode csrc/bc6h_decode.cu replaces pallas_kernels.py:2784
     K5 bc6h_encode csrc/bc6h_encode.cu replaces pallas_kernels.py:3744
     K6 bc6h_refine csrc/bc6h_refine.cu replaces pallas_kernels.py:3704
+    K7 bc7_partition_mode csrc/bc7_partition.cuh replaces
+       pallas_kernels.py:1414 (modes 1, 3, 7 built in bc7_partition.cu,
+       modes 0 and 2 in bc7_partition_0.cu and bc7_partition_2.cu)
+    K9 bc7_partition_shapes csrc/bc7_shapes.cu replaces
+       pallas_kernels.py:1850
 
 Words cross the C interface as int32 tensors read as uint32_t*; `signed`
 crosses as an int, alpha_weight as the int holding its f32 bit pattern,
@@ -72,6 +79,11 @@ KERNELS = {
     "bc6h_decode": CudaKernel("bc6h_decode_launch", 2, 2),
     "bc6h_encode": CudaKernel("bc6h_encode_launch", 3, 2),
     "bc6h_refine": CudaKernel("bc6h_refine_launch", 3, 8),
+    "bc7_partition_shapes": CudaKernel("bc7_partition_shapes_launch", 2, 3),
+    "bc7_partition_mode": CudaKernel("bc7_partition_mode_launch", 4, 4),
+    "bc7_refine_3sub": CudaKernel("bc7_refine_3sub_launch", 3, 3),
+    "bc7_refine_3sub_ladder": CudaKernel("bc7_refine_3sub_ladder_launch", 3,
+                                         5),
 }
 
 
@@ -169,31 +181,89 @@ def bc7_ladder_ints(ladder) -> tuple:
 def bc7_refine(px: torch.Tensor, words: torch.Tensor, modes: tuple,
                aw: float = 1.0, ladder="moment") -> torch.Tensor:
     """K3: winner-refine of the blocks whose mode is in `modes` (a subset
-    of (1, 3, 4, 5, 6, 7)) with one ladder: "moment" (LADDER_MOMENT) or an
-    exact (rounds, deltas) ladder (0-15 rounds, 1-4 deltas in 1..127),
-    the alpha channel's squared error weighted by aw. px [64, NB], words
-    [4, NB] int32 -> words [4, NB] int32."""
+    of 0..7) with one ladder: "moment" (LADDER_MOMENT) or an exact
+    (rounds, deltas) ladder (0-15 rounds, 1-4 deltas in 1..127), the alpha
+    channel's squared error weighted by aw. px [64, NB], words [4, NB]
+    int32 -> words [4, NB] int32. Modes 0 and 2 run in a second launch,
+    of the three-subset instance, after the one over the other modes: a
+    block is re-emitted only by its own mode's branch, so the two
+    launches over disjoint scopes give the words of one over both."""
     _check(words, "words", 4)
     nb = words.shape[1]
     _check(px, "px", 64, nb)
     if px.device != words.device:
         raise ValueError(f"px on {px.device}, words on {words.device}")
-    mode_mask = 0
     for m in modes:
-        if m not in (1, 3, 4, 5, 6, 7):
-            raise ValueError(f"K3 refines modes 1, 3, 4, 5, 6, 7; got {m}")
-        mode_mask |= 1 << m
-    ints = (nb, mode_mask, _f32_bits(aw))
-    if ladder == "moment":
-        name = ("bc7_refine_maxq" if 6 in modes else
-                "bc7_refine_alpha" if 7 in modes else "bc7_refine")
-    else:
-        name = "bc7_refine_ladder"
-        ints += bc7_ladder_ints(ladder)
-    out = torch.empty_like(words)
-    if nb:
-        KERNELS[name].launch((px, words, out), ints, px.device)
+        if m not in range(8):
+            raise ValueError(f"K3 refines modes 0-7; got {m}")
+    rest = tuple(m for m in modes if m not in (0, 2))
+    sub3 = tuple(m for m in modes if m in (0, 2))
+    lad = () if ladder == "moment" else bc7_ladder_ints(ladder)
+    launches = []
+    if rest or not sub3:
+        launches.append((rest, "bc7_refine_ladder" if lad else
+                         "bc7_refine_maxq" if 6 in rest else
+                         "bc7_refine_alpha" if 7 in rest else "bc7_refine"))
+    if sub3:
+        launches.append((sub3, "bc7_refine_3sub_ladder" if lad
+                         else "bc7_refine_3sub"))
+    out = words
+    for scope, name in launches:
+        step = torch.empty_like(words)
+        if nb:
+            KERNELS[name].launch(
+                (px, out, step),
+                (nb, sum(1 << m for m in scope), _f32_bits(aw)) + lad,
+                px.device)
+        out = step
     return out
+
+
+def bc7_partition_shapes(px: torch.Tensor, partitions: int, n_shapes: int,
+                         n_cand: int = 4) -> torch.Tensor:
+    """K9: px [64, NB] int32 -> s_blks [n_cand, NB] int32, the top n_cand
+    of the first n_shapes shapes with partitions + 1 subsets by the
+    off-axis estimate at _ON_AXIS_W. Takes what the BC7 callers use:
+    (partitions, n_shapes) (2, 16) for mode 0, (2, 64) for mode 2 and
+    (1, 64) for modes 1, 3 and 7; n_cand 4."""
+    if (partitions, n_shapes) not in ((2, 16), (2, 64), (1, 64)) \
+            or n_cand != 4:
+        raise ValueError(f"K9 ranks (partitions, n_shapes) (2, 16), (2, 64) "
+                         f"or (1, 64) into 4 candidates; got partitions="
+                         f"{partitions}, n_shapes={n_shapes}, "
+                         f"n_cand={n_cand}")
+    _check(px, "px", 64)
+    nb = px.shape[1]
+    s_blks = torch.empty((n_cand, nb), dtype=torch.int32, device=px.device)
+    if nb:
+        KERNELS["bc7_partition_shapes"].launch(
+            (px, s_blks), (nb, partitions, n_shapes), px.device)
+    return s_blks
+
+
+def bc7_partition_mode(px: torch.Tensor, s_blks: torch.Tensor, mode_id: int,
+                       aw: float = 1.0):
+    """K7: px [64, NB] int32, s_blks [C, NB] int32 shape candidates (mode
+    0: shapes 0..15) -> (err [NB] f32, words [4, NB] int32) of partition
+    mode mode_id (0, 1, 2, 3 or 7), the alpha channel's squared error
+    weighted by aw."""
+    _check(px, "px", 64)
+    nb = px.shape[1]
+    if s_blks.dim() != 2 or s_blks.shape[0] < 1:
+        raise ValueError(f"s_blks must be [C, NB] int32, got "
+                         f"{tuple(s_blks.shape)}")
+    _check(s_blks, "s_blks", s_blks.shape[0], nb)
+    if px.device != s_blks.device:
+        raise ValueError(f"px on {px.device}, s_blks on {s_blks.device}")
+    if mode_id not in (0, 1, 2, 3, 7):
+        raise ValueError(f"K7 evaluates modes 0, 1, 2, 3, 7; got {mode_id}")
+    err = torch.empty(nb, dtype=torch.float32, device=px.device)
+    words = torch.empty((4, nb), dtype=torch.int32, device=px.device)
+    if nb:
+        KERNELS["bc7_partition_mode"].launch(
+            (px, s_blks, err, words),
+            (nb, s_blks.shape[0], mode_id, _f32_bits(aw)), px.device)
+    return err, words
 
 
 def bc6h_decode(words: torch.Tensor, signed: bool) -> torch.Tensor:

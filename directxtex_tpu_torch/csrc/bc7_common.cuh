@@ -1,6 +1,6 @@
 // BC7 shared device code: the mode table, the spec's partition tables,
 // 128-bit block reads and writes, and the integer palette math that the
-// decode (K1), search (K2) and refine (K3) kernels share.
+// decode (K1), search (K2, K7, K9) and refine (K3) kernels share.
 //
 // Layouts follow the JAX package's lane-major arrays, one CUDA thread per
 // 4x4 block: texels are [64, NB] int32 (row = pixel * 4 + channel, values
@@ -118,6 +118,21 @@ __device__ __forceinline__ unsigned subset1_mask(int shape) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) m |= ((pp >> (2 * i)) & 1u) << i;
   return m;
+}
+
+// 16-bit pixel masks of the three subsets of a three-subset shape
+__device__ __forceinline__ void subset_masks3(int shape, unsigned msk[3]) {
+  const uint32_t pp = c_pp3[shape];
+  unsigned m1 = 0, m2 = 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const unsigned s = (pp >> (2 * i)) & 3u;
+    m1 |= (s == 1u ? 1u : 0u) << i;
+    m2 |= (s == 2u ? 1u : 0u) << i;
+  }
+  msk[0] = ~(m1 | m2) & 0xFFFFu;
+  msk[1] = m1;
+  msk[2] = m2;
 }
 
 // ---------------------------------------------------------------------------
@@ -335,6 +350,34 @@ __device__ __forceinline__ void anchor_swaps_2sub(int shape, unsigned m1,
 #pragma unroll
       for (int i = 0; i < 16; ++i)
         if (((m1 >> i) & 1u) == (unsigned)sub) idx[i] = (1 << P) - 1 - idx[i];
+    }
+  }
+}
+
+// Anchor swaps of a three-subset block (modes 0 and 2): as
+// anchor_swaps_2sub, with the anchors of subsets 1 and 2 in c_pa3's low
+// and high nibbles. msk: the subsets' pixel masks.
+template <int P>
+__device__ __forceinline__ void anchor_swaps_3sub(int shape,
+                                                  const unsigned msk[3],
+                                                  int q0[3][4], int q1[3][4],
+                                                  int p0[3], int p1[3],
+                                                  int idx[16]) {
+  const int a2 = c_pa3[shape] & 0xF, a3 = c_pa3[shape] >> 4;
+#pragma unroll
+  for (int sub = 0; sub < 3; ++sub) {
+    const int anchor = sub == 0 ? 0 : (sub == 1 ? a2 : a3);
+    int a = idx[0];
+#pragma unroll
+    for (int i = 1; i < 16; ++i)
+      if (i == anchor) a = idx[i];
+    if (a & (1 << (P - 1))) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) swap_ints(q0[sub][c], q1[sub][c]);
+      swap_ints(p0[sub], p1[sub]);
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if ((msk[sub] >> i) & 1u) idx[i] = (1 << P) - 1 - idx[i];
     }
   }
 }

@@ -265,11 +265,16 @@ __device__ __forceinline__ void quantize_endpoints(const float e0f[4],
   p1 = nvote ? (v1 > (nvote >> 1) ? 1 : 0) : 0;
 }
 
-// Off-axis ranking of the 64 two-subset shapes
+// Off-axis ranking of the first S shapes with NS subsets
 // (_shape_estimates_table(off_axis=True) + _top_k_shapes, bc67.py:1243):
-// the 4 shapes of least (estimate, shape), in that order
+// the 4 shapes of least (estimate, shape), in that order. K2 ranks the 64
+// two-subset shapes; K9 (bc7_shapes.cu) any of (2 or 3 subsets) x (16 or
+// 64 shapes). Each subset's 11 masked sums run over the 16 pixels in
+// pixel order, as the plain twin's masked sums do.
+template <int NS = 2, int S = 64>
 __device__ __forceinline__ void shape_top4(const uint32_t pix[16],
                                            int cand[4]) {
+  static_assert(NS == 2 || NS == 3, "two or three subsets");
   float mu[4], xc[16][4], q[16];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
@@ -291,19 +296,35 @@ __device__ __forceinline__ void shape_top4(const uint32_t pix[16],
   float bv[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
   int bi[4] = {0, 0, 0, 0};
 #pragma unroll 1
-  for (int s = 0; s < 64; ++s) {
-    const uint32_t pp = c_pp2[s];
+  for (int s = 0; s < S; ++s) {
+    const uint32_t pp = NS == 2 ? c_pp2[s] : c_pp3[s];
     // 11 masked 16-pixel sums per subset: |xc|^2, xc (4), RGB cross (6)
-    float acc[2][11];
+    float acc[NS][11];
 #pragma unroll
-    for (int k = 0; k < 11; ++k) acc[0][k] = acc[1][k] = 0.0f;
+    for (int k = 0; k < 11; ++k) {
+#pragma unroll
+      for (int p = 0; p < NS; ++p) acc[p][k] = 0.0f;
+    }
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const float v[11] = {q[i], xc[i][0], xc[i][1], xc[i][2], xc[i][3],
                            xc[i][0] * xc[i][0], xc[i][0] * xc[i][1],
                            xc[i][0] * xc[i][2], xc[i][1] * xc[i][1],
                            xc[i][1] * xc[i][2], xc[i][2] * xc[i][2]};
-      if ((pp >> (2 * i)) & 1u) {
+      // pp is the same in every thread: no divergence
+      if constexpr (NS == 3) {
+        const unsigned sub = (pp >> (2 * i)) & 3u;
+        if (sub == 2u) {
+#pragma unroll
+          for (int k = 0; k < 11; ++k) acc[2][k] = acc[2][k] + v[k];
+        } else if (sub == 1u) {
+#pragma unroll
+          for (int k = 0; k < 11; ++k) acc[1][k] = acc[1][k] + v[k];
+        } else {
+#pragma unroll
+          for (int k = 0; k < 11; ++k) acc[0][k] = acc[0][k] + v[k];
+        }
+      } else if ((pp >> (2 * i)) & 1u) {
 #pragma unroll
         for (int k = 0; k < 11; ++k) acc[1][k] = acc[1][k] + v[k];
       } else {
@@ -311,12 +332,22 @@ __device__ __forceinline__ void shape_top4(const uint32_t pix[16],
         for (int k = 0; k < 11; ++k) acc[0][k] = acc[0][k] + v[k];
       }
     }
-    const int n1 = __popc(subset1_mask(s));
+    int cnt[NS];
+    if constexpr (NS == 3) {
+      unsigned msk[3];
+      subset_masks3(s, msk);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) cnt[p] = __popc(msk[p]);
+    } else {
+      const int n1 = __popc(subset1_mask(s));
+      cnt[0] = 16 - n1;
+      cnt[1] = n1;
+    }
     float est = 0.0f;
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
+    for (int p = 0; p < NS; ++p) {
       const float* sp = acc[p];
-      const int n = p ? n1 : 16 - n1;
+      const int n = cnt[p];
       const float ninv = 1.0f / (float)max(n, 1);
       float s2 = sp[1] * sp[1];
       s2 = s2 + sp[2] * sp[2];
@@ -464,29 +495,49 @@ __device__ __forceinline__ Best eval_mode6(const uint32_t pix[16], float aw) {
   return Best{err, emit_block<6>(0, 0, 0, q0, q1, p0, p1, idx, nullptr)};
 }
 
-// A two-subset mode on one shape candidate, each subset fitted on its own
-// (_eval_subset_candidate over the shape's two subsets, then anchor swaps
-// and emit; bc67.py:1348-1360): mode 7 in every tier, modes 1 and 3 in the
-// maxq tier
+// A partition mode on one shape candidate, each subset fitted on its own
+// (_eval_subset_candidate over the shape's subsets, then anchor swaps and
+// emit; bc67.py:1348-1384): mode 7 in every tier and modes 1 and 3 in the
+// maxq tier (two subsets, m1 the pixel mask of subset 1), modes 0 and 2
+// (three subsets, from c_pp3; m1 unused) in K7
 template <int M, bool W>
 __device__ __forceinline__ void eval_partition(const uint32_t pix[16],
                                                int shape, unsigned m1,
                                                float aw, Best& best) {
-  int q0[2][4], q1[2][4], p0[2], p1[2], idx[16];
-  float total = 0.0f;
+  if constexpr (parts(M) == 2) {
+    int q0[3][4], q1[3][4], p0[3], p1[3], idx[16];
+    unsigned msk[3];
+    subset_masks3(shape, msk);
+    float total = 0.0f;
 #pragma unroll
-  for (int sub = 0; sub < 2; ++sub) {
-    const unsigned msk = sub ? m1 : (~m1 & 0xFFFFu);
-    int it[16];
-    total = total + fit_subset<M, W>(pix, msk, aw, q0[sub], q1[sub], p0[sub],
-                                     p1[sub], it);
+    for (int sub = 0; sub < 3; ++sub) {
+      int it[16];
+      total = total + fit_subset<M, W>(pix, msk[sub], aw, q0[sub], q1[sub],
+                                       p0[sub], p1[sub], it);
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
-      if ((msk >> i) & 1u) idx[i] = it[i];
+      for (int i = 0; i < 16; ++i)
+        if ((msk[sub] >> i) & 1u) idx[i] = it[i];
+    }
+    anchor_swaps_3sub<index_prec(M)>(shape, msk, q0, q1, p0, p1, idx);
+    keep_if_better(best, total,
+                   emit_block<M>(shape, 0, 0, q0, q1, p0, p1, idx, nullptr));
+  } else {
+    int q0[2][4], q1[2][4], p0[2], p1[2], idx[16];
+    float total = 0.0f;
+#pragma unroll
+    for (int sub = 0; sub < 2; ++sub) {
+      const unsigned msk = sub ? m1 : (~m1 & 0xFFFFu);
+      int it[16];
+      total = total + fit_subset<M, W>(pix, msk, aw, q0[sub], q1[sub],
+                                       p0[sub], p1[sub], it);
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if ((msk >> i) & 1u) idx[i] = it[i];
+    }
+    anchor_swaps_2sub<index_prec(M)>(shape, m1, q0, q1, p0, p1, idx);
+    keep_if_better(best, total,
+                   emit_block<M>(shape, 0, 0, q0, q1, p0, p1, idx, nullptr));
   }
-  anchor_swaps_2sub<index_prec(M)>(shape, m1, q0, q1, p0, p1, idx);
-  keep_if_better(best, total,
-                 emit_block<M>(shape, 0, 0, q0, q1, p0, p1, idx, nullptr));
 }
 
 // Mode 4 or 5 at index mode 0 from one rotation's shared trajectory

@@ -5,8 +5,9 @@
 // Replaces directxtex_tpu/bc/pallas_kernels.py:bc7_refine_pallas /
 // _bc7_refine_kernel (its _k_refine_2sub and _k_refine_45uni passes, built
 // on _k_moment_subset_dyn and _k_perturb_subset_dyn, and _k_refine_subsets
-// for mode 6). Plain twin: bc67._bc7_refine_plain (refine_bc7_words over
-// modes 1, 3, 4, 5, 6, 7; bit m of the mode mask puts mode m in scope).
+// for mode 6, with n_sub = 3 for modes 0 and 2). Plain twin:
+// bc67._bc7_refine_plain (refine_bc7_words; bit m of the mode mask puts
+// mode m in scope).
 // Each block unpacks its own winner from its words, moves its endpoints
 // with the indices fixed, re-assigns indices once and re-emits where the
 // exact error drops:
@@ -27,7 +28,9 @@
 // instance (W) runs where it is not 1.0. Sources: bc7_refine.cu builds the
 // moment instances (mode 6 only in the instance launched with mode-mask
 // bit 6, so the default tier's instance keeps its code), and
-// bc7_refine_ladder.cu the exact-ladder instance.
+// bc7_refine_ladder.cu the exact-ladder instance, and bc7_refine_3sub.cu /
+// bc7_refine_3sub_ladder.cu the instances of modes 0 and 2 alone
+// (bc7_refine_3sub_kernel, launched as a second K3 launch).
 //
 // Bound: compute. A block reads 80 bytes and writes 16, against a few
 // thousand integer and f32 operations for its one mode (tens of thousands
@@ -241,7 +244,7 @@ __device__ __forceinline__ float ladder_move(
   }
 }
 
-// Modes 1/3/7 (two subsets) and 6 (one) (_refine_mode_subsets,
+// Modes 1/3/7 (two subsets), 6 (one) and 0/2 (three) (_refine_mode_subsets,
 // bc67.py:1685)
 template <int M, int L, bool W>
 __device__ __forceinline__ void refine_subsets(const uint32_t pix[16],
@@ -252,7 +255,7 @@ __device__ __forceinline__ void refine_subsets(const uint32_t pix[16],
   constexpr int P = index_prec(M);
   constexpr int NS = parts(M) + 1;
   int pos = M + 1;
-  const int shape = NS == 2 ? (int)get_bits(w, pos, 6) : 0;
+  const int shape = NS >= 2 ? (int)get_bits(w, pos, partition_bits(M)) : 0;
   pos += partition_bits(M);
   int q0[NS][4], q1[NS][4], p0[NS], p1[NS], idx[16];
 #pragma unroll
@@ -267,24 +270,33 @@ __device__ __forceinline__ void refine_subsets(const uint32_t pix[16],
       if (e & 1) q1[e >> 1][c] = v; else q0[e >> 1][c] = v;
     }
   }
-  int pb[p_bits(M)];
+  int pb[p_bits(M) > 0 ? p_bits(M) : 1];       // mode 2 has no p bits
 #pragma unroll
   for (int j = 0; j < p_bits(M); ++j) pb[j] = get_bits(w, pos + j, 1);
   pos += p_bits(M);
 #pragma unroll
   for (int sub = 0; sub < NS; ++sub) {
-    p0[sub] = shared_p(M) ? pb[sub] : pb[2 * sub];
-    p1[sub] = shared_p(M) ? pb[sub] : pb[2 * sub + 1];
+    if constexpr (p_bits(M) == 0) {
+      p0[sub] = p1[sub] = 0;
+    } else {
+      p0[sub] = shared_p(M) ? pb[sub] : pb[2 * sub];
+      p1[sub] = shared_p(M) ? pb[sub] : pb[2 * sub + 1];
+    }
   }
-  const int anchor = NS == 2 ? c_pa2[shape] & 0xF : 0;
+  const int anchor = NS == 2 ? c_pa2[shape] & 0xF
+                             : (NS == 3 ? c_pa3[shape] & 0xF : 0);
+  const int anchor3 = NS == 3 ? c_pa3[shape] >> 4 : 0;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const int n = P - ((i == 0 || i == anchor) ? 1 : 0);
+    const int n =
+        P - ((i == 0 || i == anchor || (NS == 3 && i == anchor3)) ? 1 : 0);
     idx[i] = get_bits(w, pos, n);
     pos += n;
   }
 
   const unsigned m1 = NS == 2 ? subset1_mask(shape) : 0u;
+  unsigned msk3[3] = {0u, 0u, 0u};
+  if constexpr (NS == 3) subset_masks3(shape, msk3);
   int wk[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) wk[i] = pal_weight<1 << P>(idx[i]);
@@ -292,7 +304,7 @@ __device__ __forceinline__ void refine_subsets(const uint32_t pix[16],
   err_old = 0.0f;
 #pragma unroll
   for (int sub = 0; sub < NS; ++sub) {
-    const unsigned msk = sub ? m1 : (~m1 & 0xFFFFu);
+    const unsigned msk = NS == 3 ? msk3[sub] : (sub ? m1 : (~m1 & 0xFFFFu));
     int q0t[4], q1t[4], u0[4], u1[4], it[16];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
@@ -327,6 +339,8 @@ __device__ __forceinline__ void refine_subsets(const uint32_t pix[16],
   }
   if constexpr (NS == 2) {
     anchor_swaps_2sub<P>(shape, m1, q0, q1, p0, p1, idx);
+  } else if constexpr (NS == 3) {
+    anchor_swaps_3sub<P>(shape, msk3, q0, q1, p0, p1, idx);
   } else if (idx[0] & (1 << (P - 1))) {
     // one subset: the anchor is pixel 0 (BC6HBC7.cpp:3181-3194)
 #pragma unroll
@@ -492,6 +506,57 @@ int launch_refine(const void* px, const void* words_in, void* words_out,
             (uint32_t*)words_out, nb, mode_mask, aw, lad);
   else
     bc7_refine_kernel<L, false, M6>
+        <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+            (const int32_t*)px, (const uint32_t*)words_in,
+            (uint32_t*)words_out, nb, mode_mask, aw, lad);
+  return (int)cudaGetLastError();
+}
+
+// Modes 0 and 2 alone, the three-subset modes of USE_3SUBSETS: a kernel
+// of its own, so that the instances above keep their code. A block of
+// another mode passes through. Launched after the instance above with the
+// scope's other modes: a block is re-emitted only by the branch of its own
+// mode and only where its own error drops, so two launches over disjoint
+// scopes give the words of one launch over their union.
+template <int L, bool W>
+__global__ void __launch_bounds__(kThreads)
+    bc7_refine_3sub_kernel(const int32_t* __restrict__ px,
+                           const uint32_t* __restrict__ words_in,
+                           uint32_t* __restrict__ words_out, int nb,
+                           int mode_mask, float aw, ExactLadder lad) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  const Bits128 w = load_words(words_in, nb, b);
+  Bits128 out = w;
+  const int mode = block_mode(w);
+  if ((mode == 0 || mode == 2) && ((mode_mask >> mode) & 1)) {
+    uint32_t pix[16];
+    load_pixels(px, nb, b, pix);
+    Bits128 nw = w;
+    float err_new = 0.0f, err_old = 0.0f;
+    if (mode == 0)
+      refine_subsets<0, L, W>(pix, w, aw, lad, nw, err_new, err_old);
+    else
+      refine_subsets<2, L, W>(pix, w, aw, lad, nw, err_new, err_old);
+    if (err_new < err_old) out = nw;
+  }
+  store_words(words_out, nb, b, out);
+}
+
+template <int L>
+int launch_refine_3sub(const void* px, const void* words_in, void* words_out,
+                       int nb, int mode_mask, int aw_bits, ExactLadder lad,
+                       void* stream) {
+  float aw;
+  std::memcpy(&aw, &aw_bits, sizeof aw);
+  const int grid = (nb + kThreads - 1) / kThreads;
+  if (aw != 1.0f)
+    bc7_refine_3sub_kernel<L, true>
+        <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+            (const int32_t*)px, (const uint32_t*)words_in,
+            (uint32_t*)words_out, nb, mode_mask, aw, lad);
+  else
+    bc7_refine_3sub_kernel<L, false>
         <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
             (const int32_t*)px, (const uint32_t*)words_in,
             (uint32_t*)words_out, nb, mode_mask, aw, lad);

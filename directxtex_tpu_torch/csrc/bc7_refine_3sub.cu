@@ -1,0 +1,12 @@
+// K3 with LADDER_MOMENT over modes 0 and 2 (USE_3SUBSETS): the instances
+// of bc7_refine.cuh's bc7_refine_3sub_kernel, launched as a second K3
+// launch beside bc7_refine.cu's instance over the scope's other modes.
+#include "bc7_refine.cuh"
+
+extern "C" int bc7_refine_3sub_launch(const void* px, const void* words_in,
+                                      void* words_out, int nb, int mode_mask,
+                                      int aw_bits, void* stream) {
+  return bc7::launch_refine_3sub<bc7::kMoment>(
+      px, words_in, words_out, nb, mode_mask, aw_bits,
+      bc7::ExactLadder{0, 0}, stream);
+}

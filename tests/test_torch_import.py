@@ -35,7 +35,9 @@ def test_launchers_import_without_building():
         "bc7_encode_quick": 0, "bc7_encode_maxq": 0,
         "bc7_encode_maxq_alpha": 0, "bc7_refine": 0, "bc7_refine_alpha": 0,
         "bc7_refine_maxq": 0, "bc7_refine_ladder": 0,
-        "bc6h_decode": 0, "bc6h_encode": 0, "bc6h_refine": 0}
+        "bc6h_decode": 0, "bc6h_encode": 0, "bc6h_refine": 0,
+        "bc7_partition_shapes": 0, "bc7_partition_mode": 0,
+        "bc7_refine_3sub": 0, "bc7_refine_3sub_ladder": 0}
 
 
 def _blocks(nb=32, seed=3, alpha=1.0):
@@ -87,6 +89,11 @@ def test_cpu_tensors_take_the_bc6h_plain_twins(signed):
     ("bc6h_refine", lambda: (torch.zeros((48, 8), dtype=torch.int32),
                              torch.zeros((4, 8), dtype=torch.int32),
                              (1, (4, 1)), (1, (4, 1)), False, True, False)),
+    ("bc7_partition_shapes", lambda: (torch.zeros((64, 8), dtype=torch.int32),
+                                      2, 64)),
+    ("bc7_partition_mode", lambda: (torch.zeros((64, 8), dtype=torch.int32),
+                                    torch.zeros((4, 8), dtype=torch.int32),
+                                    0)),
 ])
 def test_launchers_refuse_cpu_tensors(launcher, args):
     with pytest.raises(ValueError, match="CUDA"):
@@ -115,35 +122,22 @@ LADDER_FULL = (2, (2, 1))
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"flags": 0x80000}, {"flags": 0x80000 | 0x200000}, {"modes": (0, 1, 3)}])
-def test_unsupported_encode_settings_raise(kwargs):
-    # USE_3SUBSETS, alone or with MAXQUALITY (encode_bc7), and a refine
-    # scope with the 3-subset modes (refine_bc7_words) are the next slice
-    blocks = _blocks(4, alpha=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if "modes" in kwargs:
-            px_i = bc67._quantize_ldr(blocks)
-            words = torch.zeros((4, 4), dtype=torch.int32)
-            bc67.refine_bc7_words(px_i, words, **kwargs)
-        else:
-            bc67.encode_bc7(blocks, **kwargs)
-
-
-@pytest.mark.parametrize("kwargs", [
     {"flags": 0x100000}, {"opaque": False}, {"alpha_weight": 2.0},
-    {"flags": 0x200000}, {"ladder": LADDER_FULL}])
+    {"flags": 0x200000}, {"ladder": LADDER_FULL}, {"flags": 0x80000},
+    {"flags": 0x80000 | 0x200000}, {"modes": (0, 1, 3)}])
 def test_accepted_encode_settings_run_the_plain_twins(kwargs):
     """QUICK, the default call on blocks with alpha (mode 7), an alpha
-    weight, MAXQUALITY (encode_bc7) and the exact ladder
-    (refine_bc7_words over the maxq scope): a CPU tensor takes the plain
-    twins and gives [NB, 16] u8 blocks ([NB, 4] words)."""
+    weight, MAXQUALITY, USE_3SUBSETS alone and with MAXQUALITY
+    (encode_bc7), the exact ladder (refine_bc7_words over the maxq scope)
+    and a refine scope with the three-subset modes: a CPU tensor takes
+    the plain twins and gives [NB, 16] u8 blocks ([NB, 4] words)."""
     cuda_kernels.reset_launch_counts()
     blocks = _blocks(4, alpha=0.5)
-    if "ladder" in kwargs:
+    if "ladder" in kwargs or "modes" in kwargs:
         px_i = bc67._quantize_ldr(blocks)
         words = bc67.encode_bc7(blocks).view(torch.int32)
-        out = bc67.refine_bc7_words(px_i, words, modes=(1, 3, 5, 6, 7, 4),
-                                    **kwargs)
+        kwargs = {"modes": (1, 3, 5, 6, 7, 4), **kwargs}
+        out = bc67.refine_bc7_words(px_i, words, **kwargs)
         assert out.dtype == torch.int32 and tuple(out.shape) == (4, 4)
     else:
         out = bc67.encode_bc7(blocks, **kwargs)
@@ -171,16 +165,29 @@ def test_unported_pipeline_kinds_raise(kind):
 
 
 def test_unsupported_refine_settings_raise():
-    # the 3-subset modes 0 and 2 are not ported; a ladder that is not
-    # (rounds, deltas) is refused
+    # a mode outside 0..7 and a ladder that is not (rounds, deltas) are
+    # refused
     px_i = torch.zeros((16, 4, 4), dtype=torch.int32)
     words = torch.zeros((4, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        bc67.refine_bc7_words(px_i, words, modes=(2,))
-    with pytest.raises(NotImplementedError):
-        bc67.refine_bc7_words(px_i, words, modes=(0, 1, 3, 5, 6, 4))
+    with pytest.raises(ValueError):
+        bc67.refine_bc7_words(px_i, words, modes=(8,))
+    with pytest.raises(ValueError):
+        bc67.refine_bc7_words(px_i, words, modes=(0, 1, 3, 5, 6, 9, 4))
     with pytest.raises(ValueError):
         bc67.refine_bc7_words(px_i, words, ladder="fast")
+
+
+@pytest.mark.parametrize("partitions,n_shapes,n_cand", [
+    (3, 64, 4), (0, 64, 4), (2, 32, 4), (1, 16, 4), (2, 64, 3), (1, 64, 8)])
+def test_k9_launcher_refuses_what_callers_do_not_use(partitions, n_shapes,
+                                                     n_cand):
+    """K9's launcher takes (partitions, shapes) (2, 16), (2, 64) and
+    (1, 64) into 4 candidates (what the BC7 callers use) and refuses the
+    rest before it builds anything; the plain twin ranks any 1..64
+    shapes."""
+    px = torch.zeros((64, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="K9"):
+        cuda_kernels.bc7_partition_shapes(px, partitions, n_shapes, n_cand)
 
 
 @pytest.mark.parametrize("ladder", [(2, (4, 3, 2, 1, 1)), (1, (200,))])

@@ -20,7 +20,8 @@ what a lane-parallel TPU twin computes:
 - a two-region candidate's per-pixel work is counted over its subsets'
   own pixels, 16 in all: the subset fits are traced on two 8-pixel
   subsets with all-true masks (the cost is linear in the pixel count, so
-  any split of the 16 gives the same total);
+  any split of the 16 gives the same total); a three-region candidate
+  (modes 0 and 2) the same way on subsets of 5, 5 and 6 pixels;
 - the decoders and the refines do one mode's (one unit's) work per
   block, so they are counted per mode, mode row or winner class, and
   chip_smoke.py weighs each count by the blocks of its run that have it.
@@ -232,6 +233,64 @@ def _assign8(px_i, u0, u1, prec, mask, *a, **kw):
     return _widen(idx), err
 
 
+# -- the three-region helpers on subsets of 5, 5 and 6 pixels ----------------
+_SPLIT3 = ((0, 5), (5, 10), (10, 16))
+
+
+def _widen16(idx):
+    """A subset's index plane stands for all 16 pixels."""
+    return jnp.concatenate([idx] * (-(-16 // idx.shape[0])))[:16]
+
+
+def _eval_subset_split(px_i, px_f, mask_list, anchors, mode_id, aw=1.0):
+    """_eval_subset8, and for three subsets one single-subset evaluation
+    per (5, 5, 6)-pixel slice: per-subset fits and anchor swaps over the
+    subsets' own 16 pixels, and two adds of their errors."""
+    if len(mask_list) != 3:
+        return _eval_subset8(px_i, px_f, mask_list, anchors, mode_id, aw)
+    f = _ORIG["_eval_subset_candidate"]
+    err, q0s, q1s, p0s, p1s, idx = 0.0, [], [], [], [], []
+    for lo, hi in _SPLIT3:
+        e, q0, q1, p0, p1, ix = f(px_i[lo:hi], px_f[lo:hi],
+                                  [jnp.ones((hi - lo, px_i.shape[2]), bool)],
+                                  [0], mode_id, aw=aw)
+        err = err + e
+        q0s, q1s, p0s, p1s = q0s + q0, q1s + q1, p0s + p0, p1s + p1
+        idx.append(ix)
+    return err, q0s, q1s, p0s, p1s, jnp.concatenate(idx)
+
+
+def _cycling(fn):
+    """One subset's refine step on the next (5, 5, 6)-pixel slice: the
+    refine calls it once per subset, in subset order."""
+    state = {"k": 0}
+
+    def sliced(px_i, *a, **kw):
+        lo, hi = _SPLIT3[state["k"] % 3]
+        state["k"] += 1
+        return fn(px_i[lo:hi], hi - lo, *a, **kw)
+    return sliced
+
+
+def _moment3(p, n, mask, m, shared_p, q0, q1, p0, p1, wk_ch, **kw):
+    return _ORIG["_moment_channels_t"](
+        p, jnp.ones((n, p.shape[2]), bool), m, shared_p, q0, q1, p0, p1,
+        [w[:n] for w in wk_ch], **kw)
+
+
+def _perturb3(p, n, mask, m, shared_p, q0, q1, p0, p1, wk_ch, **kw):
+    return _ORIG["_perturb_channels_t"](
+        p, jnp.ones((n, p.shape[2]), bool), m, shared_p, q0, q1, p0, p1,
+        [w[:n] for w in wk_ch], **kw)
+
+
+def _assign3(p, n, u0, u1, prec, mask, *a, **kw):
+    idx, err = _ORIG["_assign_indices_t"](p, u0, u1, prec,
+                                          jnp.ones((n, p.shape[2]), bool),
+                                          *a, **kw)
+    return _widen16(idx), err
+
+
 # -- inputs ------------------------------------------------------------------
 def _ldr_blocks(nb, opaque=True):
     rng = np.random.default_rng(0)
@@ -284,14 +343,45 @@ def bc7_refine_ops(ladder=jbc67.LADDER_MOMENT) -> dict:
     px = jnp.zeros((16, 4, NB), jnp.int32)
     w = jnp.zeros((NB, 4), jnp.uint32)
     out = {}
-    for mode in (1, 3, 5, 6, 7, 4):
+    for mode in (1, 3, 5, 6, 7, 4, 0, 2):
         ctx = (_patched(_moment_channels_t=_moment8,
                         _perturb_channels_t=_perturb8,
                         _assign_indices_t=_assign8) if mode in (1, 3, 7)
-               else contextlib.nullcontext())
+               else _patched(_moment_channels_t=_cycling(_moment3),
+                             _perturb_channels_t=_cycling(_perturb3),
+                             _assign_indices_t=_cycling(_assign3))
+               if mode in (0, 2) else contextlib.nullcontext())
         with ctx:
             out[mode] = needed_ops(lambda p, x: jbc67.refine_bc7_words(
                 p, x, ladder, modes=(mode,)), px, w) / NB
+    return out
+
+
+def bc7_shapes_ops(n_shapes: int) -> float:
+    """K9: the three-subset estimate table over the first n_shapes shapes
+    (off-axis, 3 power iterations) and its top 4, from the [64, NB]
+    texels (USE_3SUBSETS: 16 shapes for mode 0, 64 for mode 2)."""
+    def fn(p):
+        ests = jbc67._shape_estimates_table(p.astype(jnp.float32), 2, 4,
+                                            n_shapes=n_shapes, off_axis=True)
+        return jbc67._top_k_shapes(ests, 4)
+    return needed_ops(fn, jnp.zeros((16, 4, NB), jnp.int32)) / NB
+
+
+def bc7_partition_ops() -> dict:
+    """K7: one partition mode (0, 1, 2, 3, 7) over 4 given shape
+    candidates, from the texels and the candidates: _try_partition_mode
+    on an unknown estimate table, less the top 4 of that table (K9's)."""
+    px = jnp.zeros((16, 4, NB), jnp.int32)
+    out = {}
+    for mode in (0, 1, 2, 3, 7):
+        n = 1 << jbc67._BC7_MODES[mode].partition_bits
+        ests = jnp.zeros((64, NB), jnp.float32)
+        with _patched(_eval_subset_candidate=_eval_subset_split):
+            whole = needed_ops(lambda p, e: jbc67._try_partition_mode(
+                p, p.astype(jnp.float32), mode, ests=e), px, ests)
+        top = needed_ops(lambda e: jbc67._top_k_shapes(e[:n], 4), ests)
+        out[mode] = (whole - top) / NB
     return out
 
 
@@ -466,6 +556,8 @@ def main() -> None:
         "BC6H_DECODE_OPS": bc6h_decode_ops(),
         "BC6H_SEARCH_OPS": bc6h_search_ops(),
         "BC6H_REFINE_OPS": bc6h_maxq_refine_ops(),
+        "BC7_SHAPES_OPS": {n: bc7_shapes_ops(n) for n in (16, 64)},
+        "BC7_PARTITION_OPS": bc7_partition_ops(),
     }
     print(json.dumps(counts))
 
@@ -564,6 +656,34 @@ def test_mode7_split_counts_sixteen_pixels():
     n2, n8 = needed_ops(two, px) / 64, needed_ops(one8, px) / 64
     assert n8 > 0 and n2 == 2 * n8 + 1
     assert n2 < 0.6 * needed_ops(masked, px) / 64
+
+
+def test_three_region_split_counts_sixteen_pixels():
+    """A mode-0 candidate on subsets of 5, 5 and 6 pixels costs its three
+    single-subset fits over those pixels and two adds of their errors,
+    well below the lane-masked count (three subsets over all 16 pixels
+    each)."""
+    rng = np.random.default_rng(4)
+    px = jnp.asarray(rng.integers(0, 256, (16, 4, 64)).astype(np.int32))
+    ones = [jnp.ones((16, 64), bool)] * 3
+
+    def three(p):
+        return _eval_subset_split(p, p.astype(jnp.float32), ones, [0] * 3, 0)
+
+    def one(p, lo, hi):
+        return _ORIG["_eval_subset_candidate"](
+            p[lo:hi], p[lo:hi].astype(jnp.float32),
+            [jnp.ones((hi - lo, 64), bool)], [0], 0)
+
+    def masked(p):
+        return _ORIG["_eval_subset_candidate"](
+            p, p.astype(jnp.float32), ones, [0] * 3, 0)
+
+    n3 = needed_ops(three, px) / 64
+    parts = sum(needed_ops(lambda p, lo=lo, hi=hi: one(p, lo, hi), px) / 64
+                for lo, hi in _SPLIT3)
+    assert parts > 0 and n3 == parts + 2
+    assert n3 < 0.5 * needed_ops(masked, px) / 64
 
 
 def test_ladder_split_counts_sixteen_pixels():
