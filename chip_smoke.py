@@ -17,7 +17,12 @@ every kernel against its plain PyTorch twin on the card:
 - USE_3SUBSETS (encode_bc7(flags=0x80000), with MAXQUALITY 0x280000):
   per mode 0 and 2, K9 ranks the three-subset shapes and K7 evaluates
   the top 4, K2 searches the other modes, and K3 refines modes 0 and 2 in
-  a second launch of its three-subset instance.
+  a second launch of its three-subset instance;
+- BC6H with bc6h.BC6H_SHARED_FIT = False (encode_bc6h in every tier, and
+  so config 4): K10 (rows 10-13, each evaluated in full), the BC6H shape
+  ranking, K11 once per precision group, a strict-`<` fold in torch, then
+  K6 for the mid and maxq tiers;
+- K8, bc67.bc7_single_modes: modes 4, 5 and 6 in one pass.
 
 Phases:
 
@@ -85,7 +90,25 @@ Phases:
      new kernel's plain twin at the path's shapes held against it, on the
      opaque image's inputs and on the image with alpha's (its own picks,
      search words and MOMENT words, both tiers);
- 21. the kernels line: every kernel's launches, error against its twin,
+ 21. K10, the BC6H ranking and K11 (every precision group) against their
+     twins on the HDR corpus contents and the 200-block random / bimodal
+     set, and on config 4's 98,304 face-512 blocks (the twins on the first
+     16,384), unsigned and signed: picks, words and errors equal;
+ 22. the BC6H_SHARED_FIT=False paths: config 4 at face 512 with its launch
+     counts (one K10, one ranking, six K11, one K4) and its words held
+     against the plain twins' fold, CUDA-event times of the path, of the
+     default, mid and maxq encodes of the same faces and of each kernel,
+     beside the shared-fit path's in the same phase;
+ 23. BC6H gates with the flag off: the frozen reference's bc6h_hdr_psnr,
+     and each corpus content within 0.05 dB of the JAX package's own
+     flag-off encode (tests/golden/bc6h_unshared.npz, decoded by K4) and
+     at its floor, or at that PSNR where it is below the floor (the
+     floors are the shipped search's);
+ 24. K8 on the 2048^2 bench image and on that image with alpha, at alpha
+     weights 1.0 and 2.0, through bc67.bc7_single_modes with its launch
+     count: each mode's words and errors equal the twins', and the errors
+     equal the decoded (K1) squared error at weight 1.0;
+ 25. the kernels line: every kernel's launches, error against its twin,
      time, plain time and bound (bytes or operations, whichever is
      larger, at the H100's published peaks, for the work each block of
      the run needs).
@@ -144,6 +167,14 @@ SOURCES = {
     "bc7_refine_3sub_ladder": (
         "directxtex_tpu_torch/csrc/bc7_refine_3sub_ladder.cu",
         "directxtex_tpu/bc/pallas_kernels.py:2667"),
+    "bc6h_1region": ("directxtex_tpu_torch/csrc/bc6h_1region.cu",
+                     "directxtex_tpu/bc/pallas_kernels.py:3789"),
+    "bc6h_shapes": ("directxtex_tpu_torch/csrc/bc6h_shapes.cu",
+                    "directxtex_tpu/bc/pallas_kernels.py:1850"),
+    "bc6h_2region": ("directxtex_tpu_torch/csrc/bc6h_2region.cu",
+                     "directxtex_tpu/bc/pallas_kernels.py:3811"),
+    "bc7_single_modes": ("directxtex_tpu_torch/csrc/bc7_single_modes.cu",
+                         "directxtex_tpu/bc/pallas_kernels.py:1714"),
 }
 # Operations each kernel's function needs per 4x4 block, as printed by
 # `PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_op_counts.py`:
@@ -193,7 +224,14 @@ BYTES_PER_BLOCK = {"bc7_decode": 16 + 64, "bc7_encode": 64 + 16,
                    # block's words, and pixels only for a mode-0/2 block
                    # (BC7_PIXEL_BYTES each, counted from the run's winners)
                    "bc7_refine_3sub": 16 + 16,
-                   "bc7_refine_3sub_ladder": 16 + 16}
+                   "bc7_refine_3sub_ladder": 16 + 16,
+                   # BC6H_SHARED_FIT=False: K10 writes err and words; the
+                   # ranking 4 picks; K11 launches once per precision
+                   # group, each reading 4 candidates
+                   "bc6h_1region": 96 + 4 + 16, "bc6h_shapes": 96 + 16,
+                   "bc6h_2region": 6 * (96 + 16 + 4 + 16),
+                   # K8: each of modes 4, 5 and 6's err and words
+                   "bc7_single_modes": 64 + 3 * (4 + 16)}
 BC7_PIXEL_BYTES = 64
 # H100 SXM published peaks: HBM bytes/s, and
 # f32 elementwise operations/s = 132 SMs x 128 lanes x 1.98 GHz (the
@@ -231,6 +269,15 @@ USE3_FLOOR = 36.0          # img_blocks with USE_3SUBSETS (test_bc7.py:240)
 # shapes; K7 per block over 4 candidates, per mode
 BC7_SHAPES_OPS = {16: 9092, 64: 35300}
 BC7_PARTITION_OPS = {0: 22063, 1: 20459, 2: 21295, 3: 19811, 7: 23147}
+# BC6H_SHARED_FIT=False: K10 per block (rows 10-13 each evaluated in
+# full), the BC6H shape ranking per block, and K11 per block for each
+# precision group, rows (0,), (1,), (2, 3, 4), (5,), (6, 7, 8), (9,)
+BC6H_1REGION_OPS = 23383
+BC6H_SHAPES_OPS = 13892
+BC6H_2REGION_OPS = (28530, 28530, 38074, 28482, 38074, 28446)
+# K8 per block: modes 4, 5 and 6 over their candidates
+BC7_SINGLE_MODES_OPS = 51970
+UNSHARED_PLAIN_BLOCKS = 16384  # face-512 blocks of the K10 / K11 twins
 
 
 def emit(obj) -> None:
@@ -277,6 +324,19 @@ def bench_image(size: int = SLICE_SIZE, alpha: bool = False) -> np.ndarray:
         img[..., 3] = np.where(cols < 512, 1.0,
                                np.where(rows < 1024, blend, cut))
     return img
+
+
+def hdr_random_set(signed: bool) -> np.ndarray:
+    """benchmarks/verify_bc6h_tpu.py:41-52: 200 random blocks; the first
+    40 signed ones sign-crossing bimodal."""
+    r = np.random.default_rng(17)
+    scale = 4.0 if signed else 8.0
+    rgb = r.random((200, 16, 3)).astype(np.float32) * scale
+    if signed:
+        rgb -= scale / 2
+        rgb[:N_BIMODAL, 8:, :] += scale
+        rgb[:N_BIMODAL, :8, :] -= scale
+    return np.concatenate([rgb, np.ones((200, 16, 1), np.float32)], -1)
 
 
 def per_mode_ops(torch, modes, table: dict) -> float:
@@ -507,6 +567,19 @@ def main() -> None:
         d.update(r[key])
     extra_bytes = r["extra_bytes"]
 
+    r = bc6h_unshared_phases(torch, to_dev, event_ms, smi)
+    for d, key in ((launches, "launches"), (k_ms, "k_ms"),
+                   (plain_ms, "plain_ms"), (max_err, "max_err"),
+                   (nb_of, "nb"), (plain_nb, "plain_nb"), (ops_of, "ops")):
+        d.update(r[key])
+
+    r = bc7_single_modes_phase(torch, to_dev, event_ms, smi, img_d,
+                               img_alpha)
+    for d, key in ((launches, "launches"), (k_ms, "k_ms"),
+                   (plain_ms, "plain_ms"), (max_err, "max_err"),
+                   (nb_of, "nb"), (plain_nb, "nb"), (ops_of, "ops")):
+        d.update(r[key])
+
     lines = []
     for k in SOURCES:
         n_bytes = BYTES_PER_BLOCK[k] * nb_of[k] + extra_bytes.get(k, 0.0)
@@ -525,6 +598,64 @@ def main() -> None:
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
+
+
+def log_psnr(a, b):
+    """Log-domain PSNR of HDR RGB (tests/test_golden.py)."""
+    a = np.maximum(a[..., :3], 0) + 1e-4
+    b = np.maximum(b[..., :3], 0) + 1e-4
+    m = float(np.mean((np.log2(a) - np.log2(b)) ** 2))
+    return 10 * np.log10(36.0 / max(m, 1e-30))
+
+
+def content_psnr(dec, src, signed: bool) -> float:
+    """A BC6H corpus content's gate metric (tests/test_golden.py): log-PSNR
+    unsigned, peak-linear PSNR signed. dec, src: [NB, 16, 4] numpy."""
+    if signed:
+        peak = float(np.abs(src[..., :3]).max())
+        m = float(np.mean((dec[..., :3] - src[..., :3]) ** 2))
+        return 10 * np.log10(peak * peak / max(m, 1e-30))
+    return log_psnr(dec, src)
+
+
+def bc6h_gates(torch, to_dev, corpus, what: str, frozen=None):
+    """The BC6H gates through encode_bc6h -> decode_bc6h on the card at
+    the search setting in force: every HDR corpus content at its floor
+    and within 0.05 dB of its frozen PSNR (tests/test_golden.py:118-177),
+    and the frozen reference's bc6h_hdr_psnr (:314-329). `frozen` (by
+    content) replaces the corpus's frozen PSNRs, which are the shipped
+    search's; a content whose given frozen PSNR is below its floor is then
+    held to that PSNR instead of the floor. Returns (PSNR by content,
+    bc6h_hdr_psnr, the reference's)."""
+    from directxtex_tpu_torch.bc import bc6h
+    from directxtex_tpu_torch.bc.common import image_to_blocks
+
+    gates = {}
+    for c in HDR_CORPUS:
+        signed = c == "hdr_signed"
+        blocks = image_to_blocks(to_dev(corpus[c]))[0]
+        dec = bc6h.decode_bc6h(bc6h.encode_bc6h(blocks, signed), signed)
+        psnr = content_psnr(dec.cpu().numpy(), blocks.cpu().numpy(), signed)
+        floor = BC6H_FLOORS[c]
+        if frozen is None:
+            fz = float(corpus["psnr_bc6hs_hdr_signed" if signed
+                              else f"psnr_bc6h_{c}"])
+        else:
+            fz = frozen[c]
+            floor = min(floor, fz)
+        check(psnr >= floor and psnr >= fz - 0.05,
+              f"BC6H{what} {c}: {psnr} dB < floor {floor} / frozen {fz}")
+        gates[c] = psnr
+    ref = np.load(os.path.join(GOLDEN, "ref_encodes.npz"))
+    blocks = image_to_blocks(to_dev(corpus["hdr"]))[0]
+    dec = bc6h.decode_bc6h(bc6h.encode_bc6h(blocks, False), False)
+    peak = float(ref["bc6h_hdr_peak"])
+    mse = float(((dec[..., :3] - blocks[..., :3]).to(torch.float64) ** 2)
+                .mean())
+    ref_gate = 10 * np.log10(peak * peak / max(mse, 1e-30))
+    check(ref_gate >= float(ref["bc6h_hdr_psnr"]),
+          f"bc6h_hdr_psnr{what} {ref_gate} < {float(ref['bc6h_hdr_psnr'])}")
+    return gates, ref_gate, float(ref["bc6h_hdr_psnr"])
 
 
 def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
@@ -566,24 +697,12 @@ def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
     # 8. K5 and K6 against their twins ----------------------------------
     corpus = np.load(os.path.join(GOLDEN, "corpus.npz"))
 
-    def random_set(signed):
-        """benchmarks/verify_bc6h_tpu.py:41-52: 200 random blocks; the
-        first 40 signed ones sign-crossing bimodal."""
-        r = np.random.default_rng(17)
-        scale = 4.0 if signed else 8.0
-        rgb = r.random((200, 16, 3)).astype(np.float32) * scale
-        if signed:
-            rgb -= scale / 2
-            rgb[:N_BIMODAL, 8:, :] += scale
-            rgb[:N_BIMODAL, :8, :] -= scale
-        return np.concatenate([rgb, np.ones((200, 16, 1), np.float32)], -1)
-
     tiers = (("mid", bc6h.BC6H_LADDER_MID, False),
              ("maxq", bc6h.BC6H_LADDER_MAXQ, True))
     for signed in (False, True):
         contents = [(c, image_to_blocks(to_dev(corpus[c]))[0])
                     for c in HDR_CORPUS]
-        contents.append(("random", to_dev(random_set(signed))))
+        contents.append(("random", to_dev(hdr_random_set(signed))))
         for label, blocks in contents:
             px = bc6h.px_of_blocks(blocks, signed)
             e_k, w_k = cuda_kernels.bc6h_encode(px, signed)
@@ -607,42 +726,9 @@ def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
             emit(out)
 
     # 9. BC6H quality gates (tests/test_golden.py:118-177, :314-329) ----
-    def log_psnr(a, b):
-        a = np.maximum(a[..., :3], 0) + 1e-4
-        b = np.maximum(b[..., :3], 0) + 1e-4
-        m = float(np.mean((np.log2(a) - np.log2(b)) ** 2))
-        return 10 * np.log10(36.0 / max(m, 1e-30))
-
-    gates = {}
-    for c in HDR_CORPUS:
-        signed = c == "hdr_signed"
-        blocks = image_to_blocks(to_dev(corpus[c]))[0]
-        dec = bc6h.decode_bc6h(bc6h.encode_bc6h(blocks, signed), signed)
-        dec, src = dec.cpu().numpy(), blocks.cpu().numpy()
-        if signed:
-            peak = float(np.abs(src[..., :3]).max())
-            m = float(np.mean((dec[..., :3] - src[..., :3]) ** 2))
-            psnr = 10 * np.log10(peak * peak / max(m, 1e-30))
-            frozen = float(corpus["psnr_bc6hs_hdr_signed"])
-        else:
-            psnr = log_psnr(dec, src)
-            frozen = float(corpus[f"psnr_bc6h_{c}"])
-        check(psnr >= BC6H_FLOORS[c] and psnr >= frozen - 0.05,
-              f"BC6H {c}: {psnr} dB < floor {BC6H_FLOORS[c]} / frozen "
-              f"{frozen}")
-        gates[c] = psnr
-    ref = np.load(os.path.join(GOLDEN, "ref_encodes.npz"))
-    blocks = image_to_blocks(to_dev(corpus["hdr"]))[0]
-    dec = bc6h.decode_bc6h(bc6h.encode_bc6h(blocks, False), False)
-    peak = float(ref["bc6h_hdr_peak"])
-    mse = float(((dec[..., :3] - blocks[..., :3]).to(torch.float64) ** 2)
-                .mean())
-    ref_gate = 10 * np.log10(peak * peak / max(mse, 1e-30))
-    check(ref_gate >= float(ref["bc6h_hdr_psnr"]),
-          f"bc6h_hdr_psnr {ref_gate} < {float(ref['bc6h_hdr_psnr'])}")
+    gates, ref_gate, ref_psnr = bc6h_gates(torch, to_dev, corpus, "")
     emit({"phase": "bc6h_gates", "psnr": gates, "floors": BC6H_FLOORS,
-          "ref_parity_psnr": ref_gate,
-          "ref_psnr": float(ref["bc6h_hdr_psnr"])})
+          "ref_parity_psnr": ref_gate, "ref_psnr": ref_psnr})
 
     # 10. config 4 at face 512 (benchmarks/run_all.py:141-153) ---------
     rng = np.random.default_rng(2)
@@ -1502,6 +1588,287 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
             "max_err": max_err, "nb": {k: nb for k in ops}, "ops": ops,
             "extra_bytes": {k: float(n) * BC7_PIXEL_BYTES
                             for k, n in n02.items()}}
+
+
+def bc6h_unshared_phases(torch, to_dev, event_ms, smi) -> dict:
+    """Phases 21-23, BC6H with bc6h.BC6H_SHARED_FIT = False. Returns the
+    launches (from config 4's run), times, plain times, errors against the
+    twins, block counts and operations of K10, the BC6H shape ranking and
+    K11."""
+    from directxtex_tpu_torch.bc import bc6h, cuda_kernels
+    from directxtex_tpu_torch.bc.common import image_to_blocks
+    from directxtex_tpu_torch.models import pipelines
+
+    def same(a, b, what):
+        """Kernel and twin agree: picks and words exactly, errors bit for
+        bit (infinities included)."""
+        check(a.shape == b.shape and torch.equal(a, b),
+              f"{what} differs from plain")
+
+    groups = bc6h._bc6h_row_groups()
+    fold = bc6h._fold_launches
+
+    def finite_diff(a, b):
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        return float((a - b)[fin].abs().max()) if bool(fin.any()) else 0.0
+
+    max_err = {"bc6h_1region": 0.0, "bc6h_shapes": 0.0, "bc6h_2region": 0.0}
+
+    def hold(px, signed, what, n_plain=None):
+        """K10, the ranking and K11 for every group on px, held against
+        their twins on the first n_plain blocks (all by default); the
+        largest differences go into max_err. Returns the twins' times,
+        the kernels' outputs and the twins' fold."""
+        e1, w1 = cuda_kernels.bc6h_1region(px, signed)
+        sb = cuda_kernels.bc6h_shapes(px)
+        res2 = [cuda_kernels.bc6h_2region(px, sb, g, signed)
+                for g in range(len(groups))]
+        n = px.shape[1] if n_plain is None else n_plain
+        pp = px[:, :n].contiguous()
+        out, t = {}, {}
+        t["bc6h_1region"] = event_ms(lambda: out.update(
+            k10=bc6h._bc6h_1region_plain(pp, signed)))[0]
+        t["bc6h_shapes"] = event_ms(lambda: out.update(
+            sh=bc6h._bc6h_shapes_plain(pp)))[0]
+        same(sb[:, :n], out["sh"], f"ranking picks {what}")
+        same(w1[:, :n], out["k10"][1], f"K10 words {what}")
+        same(e1[:n], out["k10"][0], f"K10 errors {what}")
+        max_err["bc6h_1region"] = max(max_err["bc6h_1region"],
+                                      finite_diff(e1[:n], out["k10"][0]))
+        max_err["bc6h_shapes"] = max(max_err["bc6h_shapes"], float(
+            (sb[:, :n] - out["sh"]).abs().max()))
+        sbp = sb[:, :n].contiguous()
+        plain2 = []
+        t["bc6h_2region"] = 0.0
+        for g, rows in enumerate(groups):
+            t["bc6h_2region"] += event_ms(lambda: out.update(
+                g=bc6h._bc6h_2region_plain(pp, sbp, rows, signed)))[0]
+            same(res2[g][1][:, :n], out["g"][1], f"K11 {rows} words {what}")
+            same(res2[g][0][:n], out["g"][0], f"K11 {rows} errors {what}")
+            max_err["bc6h_2region"] = max(max_err["bc6h_2region"],
+                                          finite_diff(res2[g][0][:n],
+                                                      out["g"][0]))
+            plain2.append(out["g"])
+        inf = {f"group{g}_no_fit": int((~torch.isfinite(r[0])).sum())
+               for g, r in enumerate(res2)}
+        return t, (e1, w1), sb, res2, fold([out["k10"]] + plain2), inf
+
+    # 21. K10, the ranking and K11 against their twins -------------------
+    corpus = np.load(os.path.join(GOLDEN, "corpus.npz"))
+
+    for signed in (False, True):
+        contents = [(c, image_to_blocks(to_dev(corpus[c]))[0])
+                    for c in HDR_CORPUS]
+        contents.append(("random", to_dev(hdr_random_set(signed))))
+        for label, blocks in contents:
+            px = bc6h.px_of_blocks(blocks, signed)
+            what = f"{label} signed={signed}"
+            _, _, _, _, (fe, fw), inf = hold(px, signed, what)
+            e_s, w_s = bc6h._search_unshared(px, signed)
+            same(w_s, fw, f"unshared search words {what}")
+            same(e_s, fe, f"unshared search errors {what}")
+            emit({"phase": "K10_K11", "content": label, "signed": signed,
+                  "blocks": px.shape[1], "picks_words_errors_equal": True,
+                  "search_words_equal": True, **inf})
+
+    rng = np.random.default_rng(2)
+    eq = to_dev(rng.random((FACE * 2, FACE * 4, 4)).astype(np.float32)
+                * 4.0)
+    faces = pipelines.cube_faces(eq)
+    blocks4 = torch.cat([image_to_blocks(faces[i])[0] for i in range(6)])
+    nb4 = blocks4.shape[0]
+    n_plain = UNSHARED_PLAIN_BLOCKS
+    held = {}
+    for signed in (False, True):
+        px = bc6h.px_of_blocks(blocks4, signed)
+        what = f"face {FACE} signed={signed}"
+        t, k10, sb, res2, (fe, fw), inf = hold(px, signed, what, n_plain)
+        e_s, w_s = bc6h._search_unshared(px, signed)
+        same(w_s[:, :n_plain], fw, f"unshared search words {what}")
+        same(e_s[:n_plain], fe, f"unshared search errors {what}")
+        held[signed] = (px, t, k10, sb, res2, e_s, w_s)
+        emit({"phase": "K10_K11", "content": f"face{FACE}", "signed": signed,
+              "blocks": nb4, "plain_blocks": n_plain,
+              "picks_words_errors_equal": True, "search_words_equal": True,
+              **inf})
+
+    # 22. the BC6H_SHARED_FIT=False paths at face 512 -----------------------
+    pipe = pipelines.hdr_cubemap_pipeline()
+    px4, plain_ms, k10, sb4, res2, e_s, w_s = held[False]
+    tiers = (("default", 0), ("mid", bc6h._BC6H_MID),
+             ("maxq", bc6h._BC7_MAXQUALITY))
+    saved = bc6h.BC6H_SHARED_FIT
+    bc6h.BC6H_SHARED_FIT = False
+    try:
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        packed = torch.cat(pipe(eq))
+        dec = bc6h.decode_bc6h(packed, False)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cuda_kernels.launch_counts().items()
+                  if v}
+        want = {"bc6h_1region": 1, "bc6h_shapes": 1,
+                "bc6h_2region": len(groups), "bc6h_decode": 1}
+        check(counts == want, f"config 4 unshared launch counts {counts}")
+        check(tuple(dec.shape) == (nb4, 16, 4)
+              and bool(torch.isfinite(dec).all()), "config 4 unshared output")
+        check(torch.equal(packed, w_s.t().contiguous().view(torch.uint8)
+                          .reshape(-1, 16)), "config 4 unshared words")
+        psnr = {"default": log_psnr(dec.cpu().numpy(),
+                                    blocks4.cpu().numpy())}
+        cuda_kernels.reset_launch_counts()
+        encs = {t: bc6h.encode_bc6h(blocks4, False, f) for t, f in tiers[1:]}
+        torch.cuda.synchronize()
+        counts_t = {k: v for k, v in cuda_kernels.launch_counts().items()
+                    if v}
+        check(counts_t == {"bc6h_1region": 2, "bc6h_shapes": 2,
+                           "bc6h_2region": 2 * len(groups),
+                           "bc6h_refine": 2},
+              f"unshared mid / maxq launch counts {counts_t}")
+        for t, e in encs.items():
+            psnr[t] = log_psnr(bc6h.decode_bc6h(e, False).cpu().numpy(),
+                               blocks4.cpu().numpy())
+        runs = {"path": lambda: pipe(eq)}
+        for t, f in tiers:
+            runs[f"encode_{t}"] = (
+                lambda f=f: bc6h.encode_bc6h(blocks4, False, f))
+        runs["bc6h_1region"] = lambda: cuda_kernels.bc6h_1region(px4, False)
+        runs["bc6h_shapes"] = lambda: cuda_kernels.bc6h_shapes(px4)
+        for g in range(len(groups)):
+            runs[f"bc6h_2region_group{g}"] = (
+                lambda g=g: cuda_kernels.bc6h_2region(px4, sb4, g, False))
+        runs["fold"] = lambda: fold([k10] + res2)
+        ms = {}
+        for name, fn in runs.items():
+            fn()
+            ms[name] = float(np.median(event_ms(fn, 7)))
+    finally:
+        bc6h.BC6H_SHARED_FIT = saved
+    # the shared-fit path and encodes in the same phase
+    shared_ms = {"path": float(np.median(event_ms(lambda: pipe(eq), 7)))}
+    for t, f in tiers:
+        shared_ms[f"encode_{t}"] = float(np.median(event_ms(
+            lambda f=f: bc6h.encode_bc6h(blocks4, False, f), 7)))
+    shared_ms["bc6h_encode"] = float(np.median(event_ms(
+        lambda: cuda_kernels.bc6h_encode(px4, False), 7)))
+    psnr_shared = log_psnr(bc6h.decode_bc6h(bc6h.encode_bc6h(
+        blocks4, False), False).cpu().numpy(), blocks4.cpu().numpy())
+    texels = 6 * FACE * FACE
+    k_ms = {"bc6h_1region": ms["bc6h_1region"],
+            "bc6h_shapes": ms["bc6h_shapes"],
+            "bc6h_2region": sum(ms[f"bc6h_2region_group{g}"]
+                                for g in range(len(groups)))}
+    emit({"phase": "config4_unshared", "card": smi, "face": FACE,
+          "blocks": nb4, "launches": counts, "tier_launches": counts_t,
+          "log_psnr": psnr, "log_psnr_shared": psnr_shared, "ms": ms,
+          "kernel_ms": k_ms,
+          "path_mtexels_per_s": texels / (ms["path"] * 1e-3) / 1e6,
+          "shared_ms": shared_ms,
+          "shared_path_mtexels_per_s":
+              texels / (shared_ms["path"] * 1e-3) / 1e6,
+          "plain_ms": plain_ms, "plain_blocks": n_plain,
+          "search_modes": torch.bincount(bc6h._mode_rows(bc6h._words_i64(
+              w_s)) + 1, minlength=15).tolist(),
+          "words_equal_plain": True})
+
+    # 23. BC6H gates with the flag off --------------------------------------
+    # The frozen PSNRs are the JAX package's own flag-off encodes
+    # (tests/golden/bc6h_unshared.npz), decoded here by K4: the corpus
+    # floors were set for the shipped (shared-fit) search, and the JAX
+    # package's flag-off words fall below two of them (hdr, hdr_sun).
+    frozen_words = np.load(os.path.join(GOLDEN, "bc6h_unshared.npz"))
+    frozen, n_differ = {}, {}
+    bc6h.BC6H_SHARED_FIT = False
+    try:
+        for c in HDR_CORPUS:
+            signed = c == "hdr_signed"
+            blocks = image_to_blocks(to_dev(corpus[c]))[0]
+            words = to_dev(frozen_words["corpus_" + c])
+            frozen[c] = content_psnr(bc6h.decode_bc6h(words, signed).cpu()
+                                     .numpy(), blocks.cpu().numpy(), signed)
+            n_differ[c] = int((bc6h.encode_bc6h(blocks, signed) != words)
+                              .any(dim=1).sum())
+        gates, ref_gate, ref_psnr = bc6h_gates(torch, to_dev, corpus,
+                                               " (unshared)", frozen)
+    finally:
+        bc6h.BC6H_SHARED_FIT = saved
+    emit({"phase": "bc6h_gates_unshared", "psnr": gates,
+          "floors": BC6H_FLOORS, "jax_unshared_psnr": frozen,
+          "blocks_differing_from_jax": n_differ,
+          "ref_parity_psnr": ref_gate, "ref_psnr": ref_psnr})
+
+    launches = {k: counts[k] for k in k_ms}
+    ops = {"bc6h_1region": BC6H_1REGION_OPS * float(nb4),
+           "bc6h_shapes": BC6H_SHAPES_OPS * float(nb4),
+           "bc6h_2region": sum(BC6H_2REGION_OPS) * float(nb4)}
+    return {"launches": launches, "k_ms": k_ms, "plain_ms": plain_ms,
+            "max_err": max_err, "nb": {k: nb4 for k in ops},
+            "plain_nb": {k: n_plain for k in ops}, "ops": ops}
+
+
+def bc7_single_modes_phase(torch, to_dev, event_ms, smi, img_opaque,
+                           img_alpha) -> dict:
+    """Phase 24, K8 at 2048^2. Returns its launches (the opaque image's
+    run at weight 1.0), time, plain time, error against the twin, block
+    count and operations."""
+    from directxtex_tpu_torch.bc import bc67, cuda_kernels
+    from directxtex_tpu_torch.bc.common import image_to_blocks
+
+    def same(a, b, what):
+        check(a.shape == b.shape and torch.equal(a, b),
+              f"{what} differs from plain")
+
+    runs, plain_ms, ms = {}, {}, {}
+    launches = None
+    max_err = 0.0
+    for name, img in (("opaque", img_opaque), ("alpha", img_alpha)):
+        px = bc67._quantize_ldr(image_to_blocks(img)[0]).reshape(64, -1) \
+            .contiguous()
+        for aw in ALPHA_WEIGHTS:
+            torch.cuda.synchronize()
+            cuda_kernels.reset_launch_counts()
+            out = bc67.bc7_single_modes(px, aw)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in cuda_kernels.launch_counts().items()
+                      if v}
+            check(counts == {"bc7_single_modes": 1},
+                  f"K8 {name} aw={aw} launches {counts}")
+            if launches is None:
+                launches = counts["bc7_single_modes"]
+            plain = {}
+            t = event_ms(lambda: plain.update(
+                r=bc67._single_modes_plain(px, aw)))[0]
+            key = f"{name}_aw{aw:g}"
+            plain_ms[key] = t
+            sse = {}
+            for m in (4, 5, 6):
+                err, words = out[m]
+                same(words, plain["r"][m][1], f"K8 mode {m} words {key}")
+                same(err, plain["r"][m][0], f"K8 mode {m} errors {key}")
+                check(bool(torch.isfinite(err).all()), f"K8 {m} {key} inf")
+                max_err = max(max_err, float(
+                    (err - plain["r"][m][0]).abs().max()))
+                d = (cuda_kernels.bc7_decode(words) - px).to(torch.float64)
+                blk = (d * d).sum(dim=0)
+                if aw == 1.0:
+                    check(torch.equal(blk, err.to(torch.float64)),
+                          f"K8 mode {m} {key}: error != decoded SSE")
+                sse[m] = float(blk.sum())
+            fn = (lambda px=px, aw=aw: cuda_kernels.bc7_single_modes(px, aw))
+            fn()
+            ms[key] = float(np.median(event_ms(fn, 7)))
+            best = torch.stack([out[m][0] for m in (4, 5, 6)]).argmin(dim=0)
+            runs[key] = {"decoded_sse": sse, "best_mode_blocks": {
+                m: int((best == k).sum()) for k, m in enumerate((4, 5, 6))}}
+    nb = px.shape[1]
+    emit({"phase": "K8_2k", "card": smi, "blocks": nb, "ms": ms,
+          "plain_ms": plain_ms, "runs": runs, "words_errors_equal": True})
+    return {"launches": {"bc7_single_modes": launches},
+            "k_ms": {"bc7_single_modes": ms["opaque_aw1"]},
+            "plain_ms": {"bc7_single_modes": plain_ms["opaque_aw1"]},
+            "max_err": {"bc7_single_modes": max_err},
+            "nb": {"bc7_single_modes": nb},
+            "ops": {"bc7_single_modes": BC7_SINGLE_MODES_OPS * float(nb)}}
 
 
 if __name__ == "__main__":

@@ -10,10 +10,11 @@ the words as int64 holding the u32 value (masked to 32 bits after every
 left shift) and hands them across function edges as int32 tensors holding
 the u32 bit pattern.
 
-Five wrappers here take their CUDA kernels (cuda_kernels.py, csrc/) or
+Six wrappers here take their CUDA kernels (cuda_kernels.py, csrc/) or
 their plain twins: `bc7_decode_words` (K1), `bc7_search_words` (K2, and
 K9 + K7 for modes 0 and 2), `bc7_refine_words` (K3),
-`bc7_partition_shapes` (K9) and `bc7_partition_mode` (K7). Each takes a
+`bc7_partition_shapes` (K9), `bc7_partition_mode` (K7) and
+`bc7_single_modes` (K8: modes 4, 5 and 6, each mode's winner). Each takes a
 CUDA tensor to its kernel and a CPU tensor to its plain version; nothing
 else decides. The plain versions take every 16-pixel and per-channel sum
 in index order, as the kernels do, so kernel and twin agree bit for bit
@@ -49,7 +50,8 @@ from .bc67_tables import (BC6H_DESC, BC6H_MODE_INFO, BC6H_MODE_TO_INFO,
                           FIXUPS, PARTITIONS, WEIGHTS2, WEIGHTS3, WEIGHTS4)
 
 __all__ = ["decode_bc7", "encode_bc7", "refine_bc7_words", "tables_as_numpy",
-           "bc7_decode_words", "bc7_search_words", "bc7_refine_words"]
+           "bc7_decode_words", "bc7_search_words", "bc7_refine_words",
+           "bc7_partition_shapes", "bc7_partition_mode", "bc7_single_modes"]
 
 _M32 = 0xFFFFFFFF
 
@@ -1231,16 +1233,17 @@ def _dual_eval_t(pr_i, pr_f, mode_id: int, im: int, aw: float = 1.0,
             torch.minimum(err_b, err))
 
 
-def _try_single_mode45(px_i, px_f, mode_id: int, aw: float = 1.0):
+def _try_single_mode45(px_i, px_f, mode_id: int, aw: float = 1.0,
+                       m4_ims: tuple = _MODE4_IMS_MAXQ):
     """Mode 4 or 5 with every (rotation, index mode) candidate fitted on
-    its own (_try_single_mode with the maxq tier's m4_ims, bc67.py:1438):
-    mode 4 over rotations 0-3 x index modes (0, 1), mode 5 over rotations
-    0-3 at index mode 0; independent colour and alpha anchor fixes per
-    candidate, fold with a strict `<`. Returns (err [NB], words [4, NB]
-    int64)."""
+    its own (_try_single_mode, bc67.py:1438): mode 4 over rotations 0-3 x
+    index modes m4_ims (the maxq tier's (0, 1) by default; K8 takes
+    _MODE4_IMS), mode 5 over rotations 0-3 at index mode 0; independent
+    colour and alpha anchor fixes per candidate, fold with a strict `<`.
+    Returns (err [NB], words [4, NB] int64)."""
     m = _BC7_MODES[mode_id]
     nb = px_i.shape[2]
-    ims = _MODE4_IMS_MAXQ if m.index_mode_bits else (0,)
+    ims = tuple(m4_ims) if m.index_mode_bits else (0,)
     zero = torch.zeros(nb, dtype=torch.int32, device=px_i.device)
     best_err = torch.full((nb,), float("inf"), device=px_i.device)
     best_words = torch.zeros((4, nb), dtype=torch.int64, device=px_i.device)
@@ -1263,6 +1266,39 @@ def _try_single_mode45(px_i, px_f, mode_id: int, aw: float = 1.0):
             best_err = torch.minimum(err, best_err)
             best_words = torch.where(better[None, :], words, best_words)
     return best_err, best_words
+
+
+def _single_modes_plain(px: torch.Tensor, aw: float = 1.0) -> dict:
+    """Plain twin of K8: px [64, NB] int32 (0..255) -> {mode: (err [NB]
+    f32, words [4, NB] int32)} for modes 4, 5 and 6, each the best of its
+    candidates (rotations 0-3; mode 4 at index modes _MODE4_IMS) by a
+    strict `<`."""
+    out = {m: ([], []) for m in (4, 5, 6)}
+    for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE):
+        px_i = px[:, s:s + _PLAIN_SEARCH_SLICE].reshape(16, 4, -1)
+        px_f = px_i.to(torch.float32)
+        res = {m: _try_single_mode45(px_i, px_f, m, aw, _MODE4_IMS)
+               for m in (4, 5)}
+        res[6] = _try_mode6(px_i, px_f, aw)
+        for m, (err, words) in res.items():
+            out[m][0].append(err)
+            out[m][1].append(_words_i32(words))
+    return {m: (torch.cat(e), torch.cat(w, dim=1))
+            for m, (e, w) in out.items()}
+
+
+def bc7_single_modes(px: torch.Tensor, aw: float = 1.0) -> dict:
+    """K8 wrapper (single_modes_pallas at its defaults): px [64, NB] int32
+    (0..255) -> {4: (err, words), 5: ..., 6: ...}, each mode's best over
+    rotations 0-3 (mode 4 at index mode 0) with every candidate fitted on
+    its own; err [NB] f32, words [4, NB] int32; the alpha channel's
+    squared error weighted by aw. A CUDA tensor launches the kernel, a CPU
+    tensor runs the plain twin."""
+    _check_px(px)
+    if _on_cuda(px):
+        err, words = cuda_kernels.bc7_single_modes(px, aw)
+        return {m: (err[k], words[k]) for k, m in enumerate((4, 5, 6))}
+    return _single_modes_plain(px, aw)
 
 
 def _check_search(modes, tier: str) -> tuple:

@@ -9,9 +9,10 @@ blocks are 4 u32 words per block, handed across function edges as int32
 bit patterns and computed on as int64 holding the u32 value (torch has no
 uint32 shifts on the CPU).
 
-Three functions here are the plain twins of the three CUDA kernels
-(cuda_kernels.py, csrc/): `bc6h_decode_words` (K4), `bc6h_search_words`
-(K5) and `bc6h_refine_words` (K6). Each takes a CUDA tensor to its kernel
+The wrappers of the CUDA kernels (cuda_kernels.py, csrc/) are
+`bc6h_decode_words` (K4), `bc6h_search_words` (K5), `bc6h_refine_words`
+(K6), `bc6h_1region_words` (K10), `bc6h_shape_picks` (the shape ranking)
+and `bc6h_2region_words` (K11). Each takes a CUDA tensor to its kernel
 and a CPU tensor to its plain version; nothing else decides. The plain
 versions take every 16-pixel and per-channel sum in index order, as the
 kernels do, so kernel and twin agree bit for bit wherever the arithmetic
@@ -23,6 +24,11 @@ then the top 4 of the 32 two-region shapes (off-axis ranking at
 axis_w=0), one trajectory per candidate, a quantize + rescore (+ one
 quantized refit below 11 bits) per precision group, and a fold in the
 order rows 10-13, then rows 0-9 with candidates in rank order, strict `<`.
+With BC6H_SHARED_FIT off (read at call time, as the JAX package does),
+every (row, candidate) gets the full quantized-domain evaluation instead
+(_bc6h_eval_candidate, BC6H_REFIT_ROUNDS LS rounds), run as K10 (rows
+10-13), the shape ranking, one K11 launch per precision group and a
+strict-`<` fold over their results (_search_unshared).
 """
 
 from __future__ import annotations
@@ -40,7 +46,8 @@ from .bc67 import (BC7_SHAPE_CANDIDATES, _check_words, _div, _gb_t,
 from .bc67_tables import BC6H_DESC, BC6H_MODE_INFO, BC6H_MODE_TO_INFO
 
 __all__ = ["decode_bc6h", "encode_bc6h", "refine_bc6h_words",
-           "bc6h_decode_words", "bc6h_search_words", "bc6h_refine_words"]
+           "bc6h_decode_words", "bc6h_search_words", "bc6h_refine_words",
+           "bc6h_1region_words", "bc6h_shape_picks", "bc6h_2region_words"]
 
 _F16MAX = 0x7BFF
 
@@ -52,6 +59,11 @@ _F16MAX = 0x7BFF
 BC6H_SHARED_ROUNDS = 3
 BC6H_GROUP_REFIT_MINPREC = 11
 BC6H_LS_MAG_CAP = 1024.0
+# the search's setting (bc67.py:2076): one shared fit trajectory per
+# region family (K5), or the full evaluation per (row, candidate) with
+# BC6H_REFIT_ROUNDS quantized LS rounds (bc67.py:2064; K10, K11)
+BC6H_SHARED_FIT = True
+BC6H_REFIT_ROUNDS = 2
 
 # winner-refine ladders (rounds, deltas), bc67.py:2918-2932
 BC6H_LADDER_LIGHT = (1, (1,))
@@ -286,6 +298,13 @@ def _bc6h_quantize(v, prec: int, signed: bool):
                                           rounding_mode="floor")
 
 
+def _quantize_f(ef, precW, signed: bool):
+    """Float endpoints [3, NB] -> quantized at precW (round half even)."""
+    return torch.stack([_bc6h_quantize(
+        torch.round(ef[c]).to(torch.int32), precW[c], signed)
+        for c in range(3)])
+
+
 def _nbits_fit(v, prec: int, is_signed_field: bool):
     """True where v fits a prec-bit (two's complement if signed) field."""
     if is_signed_field:
@@ -439,22 +458,18 @@ def _bc6h_group_rescore(px_int, mask_list, anchors, shared, row: int,
     total_err = torch.zeros(px_int.shape[2], dtype=torch.float32,
                             device=px_int.device)
 
-    def quant(ef):
-        return torch.stack([_bc6h_quantize(
-            torch.round(ef[c]).to(torch.int32), precW[c], signed)
-            for c in range(3)])
-
     q_pairs = []
     for sub, mask in enumerate(mask_list):
         e0, e1 = shared[sub]
-        q0, q1 = quant(e0), quant(e1)
+        q0, q1 = _quantize_f(e0, precW, signed), _quantize_f(e1, precW, signed)
         idx, err = _bc6h_palette_err_t(px_int, mask, q0, q1, precW, iprec,
                                        signed)
         if precW[0] < BC6H_GROUP_REFIT_MINPREC:
             _, _, cap = _mag_cap(px_f, mask)
             x = _pal_weight(idx, 1 << iprec).to(torch.float32) * (1 / 64)
             r0, r1 = _bc6h_ls_refit(px_f, x, mask, e0, e1, cap, signed)
-            q0r, q1r = quant(r0), quant(r1)
+            q0r, q1r = (_quantize_f(r0, precW, signed),
+                        _quantize_f(r1, precW, signed))
             idx_r, err_r = _bc6h_palette_err_t(px_int, mask, q0r, q1r,
                                                precW, iprec, signed)
             better = err_r < err
@@ -642,16 +657,23 @@ def _check_px48(px: torch.Tensor, nb: int | None = None) -> None:
                          f"{tuple(px.shape)} {px.dtype}")
 
 
-def _bc6h_search_plain(px: torch.Tensor, signed: bool):
-    """Plain twin of K5: px [48, NB] int32 F16-ints (row = channel * 16 +
-    pixel) -> (err [NB] f32, words [4, NB] int32)."""
+def _plain_slices(px: torch.Tensor, fn, *extra):
+    """fn(px_int, *extra) -> (err, words int64) over _PLAIN_SEARCH_SLICE
+    blocks at a time, px_int the slice's [16, 3, n] pixels and each extra
+    [C, NB] tensor sliced alike: (err [NB], words [4, NB] int32)."""
     errs, words = [], []
     for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE):
-        err, w = _search_slice(
-            _px_lane_major(px[:, s:s + _PLAIN_SEARCH_SLICE]), signed)
+        sl = slice(s, s + _PLAIN_SEARCH_SLICE)
+        err, w = fn(_px_lane_major(px[:, sl]), *(e[:, sl] for e in extra))
         errs.append(err)
         words.append(_words_i32(w))
     return torch.cat(errs), torch.cat(words, dim=1)
+
+
+def _bc6h_search_plain(px: torch.Tensor, signed: bool):
+    """Plain twin of K5: px [48, NB] int32 F16-ints (row = channel * 16 +
+    pixel) -> (err [NB] f32, words [4, NB] int32)."""
+    return _plain_slices(px, lambda p: _search_slice(p, signed))
 
 
 def bc6h_search_words(px: torch.Tensor, signed: bool):
@@ -662,6 +684,224 @@ def bc6h_search_words(px: torch.Tensor, signed: bool):
     if _on_cuda(px):
         return cuda_kernels.bc6h_encode(px, signed)
     return _bc6h_search_plain(px, signed)
+
+
+# ---------------------------------------------------------------------------
+# the BC6H_SHARED_FIT=False search (bc67.py:3219-3335, :3497-3535)
+# ---------------------------------------------------------------------------
+
+def _bc6h_eval_subsets(px_int, mask_list, anchors, row: int, signed: bool):
+    """The full quantized-domain evaluation of one candidate up to its
+    anchor swaps (_bc6h_eval_candidate, bc67.py:3219-3310): per subset the
+    min/max box quantized at the row's precision and rescored exactly,
+    then BC6H_REFIT_ROUNDS LS rounds at the integer palette weights of the
+    latest indices, each requantized and rescored, the last kept where it
+    scores strictly lower. Rows sharing (precW, iprec) get the same
+    result. Returns (total_err, anchor-fixed q_pairs, idx_full)."""
+    _, _, _, iprec, precW, _, _, _ = BC6H_MODE_INFO[row]
+    px_f = px_int.to(torch.float32)
+    idx_full = torch.zeros_like(px_int[:, 0, :])
+    total_err = torch.zeros(px_int.shape[2], dtype=torch.float32,
+                            device=px_int.device)
+    q_pairs = []
+    for mask in mask_list:
+        mi, ma, cap = _mag_cap(px_f, mask)
+        q0, q1 = _quantize_f(mi, precW, signed), _quantize_f(ma, precW, signed)
+        idx, err = _bc6h_palette_err_t(px_int, mask, q0, q1, precW, iprec,
+                                       signed)
+        e0f, e1f = mi, ma
+        idx_b, err_b = idx, err
+        q0b, q1b = q0, q1
+        for _ in range(BC6H_REFIT_ROUNDS):
+            x = _pal_weight(idx_b, 1 << iprec).to(torch.float32) * (1 / 64)
+            e0f, e1f = _bc6h_ls_refit(px_f, x, mask, e0f, e1f, cap, signed)
+            q0b, q1b = (_quantize_f(e0f, precW, signed),
+                        _quantize_f(e1f, precW, signed))
+            idx_b, err_b = _bc6h_palette_err_t(px_int, mask, q0b, q1b, precW,
+                                               iprec, signed)
+        better = err_b < err
+        q0 = torch.where(better[None, :], q0b, q0)
+        q1 = torch.where(better[None, :], q1b, q1)
+        idx = torch.where(better[None, :], idx_b, idx)
+        err = torch.minimum(err_b, err)
+        total_err = total_err + err
+        q_pairs.append((q0, q1))
+        idx_full = torch.where(mask, idx, idx_full)
+    fixed, idx_full = _anchor_swap(idx_full, mask_list, anchors, q_pairs,
+                                   iprec)
+    return total_err, fixed, idx_full
+
+
+def _bc6h_eval_candidate(px_int, mask_list, anchors, row: int,
+                         signed: bool):
+    """One (row, shape) candidate end to end (bc67.py:3219): the subset
+    evaluation, then the row's delta transform and fit. px_int [16, 3, NB];
+    masks [16, NB]. Returns (err [NB], field-masked pairs, idx [16, NB])."""
+    total_err, q_pairs, idx = _bc6h_eval_subsets(px_int, mask_list, anchors,
+                                                 row, signed)
+    err, pairs = _bc6h_transform_fit_t(q_pairs, total_err, row, signed)
+    return err, pairs, idx
+
+
+def _fold_first(best, err, words):
+    """One step of the kernels' in-launch fold: None takes the first
+    candidate as it is (an infinite error included), then a strict `<`."""
+    if best is None:
+        return err, words
+    better = err < best[0]
+    return (torch.where(better, err, best[0]),
+            torch.where(better[None, :], words, best[1]))
+
+
+def _one_region_slice(px_int, signed: bool):
+    nb = px_int.shape[2]
+    ones = torch.ones((16, nb), dtype=torch.bool, device=px_int.device)
+    best = None
+    for row in range(10, 14):
+        err, pairs, idx = _bc6h_eval_candidate(px_int, [ones], [0], row,
+                                               signed)
+        best = _fold_first(best, err, _bc6h_emit(row, 0, pairs, idx, nb,
+                                                 px_int.device))
+    return best
+
+
+def _bc6h_1region_plain(px: torch.Tensor, signed: bool):
+    """Plain twin of K10 (_k_bc6h_1region): px [48, NB] int32 F16-ints ->
+    (err [NB] f32, words [4, NB] int32), rows 10-13 each evaluated in full,
+    folded in row order with a strict `<` from row 10's result."""
+    return _plain_slices(px, lambda p: _one_region_slice(p, signed))
+
+
+def _check_rows(rows) -> tuple:
+    rows = tuple(int(r) for r in rows)
+    keys = {(BC6H_MODE_INFO[r][3], BC6H_MODE_INFO[r][4]) for r in rows
+            if r in range(10)}
+    if not rows or len(keys) != 1 or not all(r in range(10) for r in rows):
+        raise ValueError(f"rows {rows}: two-region rows (0-9) that share "
+                         f"one precision group")
+    return rows
+
+
+def _two_region_slice(px_int, s_blks, rows: tuple, signed: bool):
+    nb = px_int.shape[2]
+    dev = px_int.device
+    tabs = _tables(dev)
+    cands = []
+    for s_blk in s_blks.to(torch.int64):
+        pmask = tabs["parts1"][s_blk].t()
+        mask_list = [pmask == 0, pmask == 1]
+        anchors = [0, tabs["fix1"][s_blk, 1]]
+        cands.append((s_blk,) + _bc6h_eval_subsets(
+            px_int, mask_list, anchors, rows[0], signed))
+    best = None
+    for row in rows:
+        best_row = None
+        for s_blk, terr, q_pairs, idx in cands:
+            err, pairs = _bc6h_transform_fit_t(q_pairs, terr, row, signed)
+            best_row = _fold_first(best_row, err, _bc6h_emit(
+                row, s_blk, pairs, idx, nb, dev))
+        best = _fold_first(best, *best_row)
+    return best
+
+
+def _bc6h_2region_plain(px: torch.Tensor, s_blks: torch.Tensor, rows,
+                        signed: bool):
+    """Plain twin of K11 (_k_bc6h_group): px [48, NB] int32 F16-ints,
+    s_blks [C, NB] int32 shapes 0..31, rows: two-region rows sharing one
+    (precW, iprec) -> (err [NB] f32, words [4, NB] int32). Each candidate
+    is evaluated in full once, at rows[0]; each row applies its own delta
+    fit and emit; the fold runs within a row over the candidates, then
+    across the rows, each with a strict `<` from its first entry."""
+    rows = _check_rows(rows)
+    return _plain_slices(
+        px, lambda p, sb: _two_region_slice(p, sb, rows, signed), s_blks)
+
+
+def _bc6h_shapes_plain(px: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the BC6H shape ranking: px [48, NB] int32 F16-ints ->
+    s_blks [4, NB] int32, the BC7_SHAPE_CANDIDATES shapes of least
+    off-axis estimate (axis_w 0, RGB and a zero alpha plane) of the 32
+    two-region shapes, in rank order (a tie keeps the lower shape)."""
+    out = []
+    for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE):
+        px_f = _px_lane_major(px[:, s:s + _PLAIN_SEARCH_SLICE]) \
+            .to(torch.float32)
+        px4 = torch.cat([px_f, torch.zeros_like(px_f[:, :1, :])], dim=1)
+        ests = _shape_estimates_table(px4, n_shapes=32, axis_w=0.0)
+        out.append(torch.stack(_top_k_shapes(ests, BC7_SHAPE_CANDIDATES)))
+    return torch.cat(out, dim=1).to(torch.int32)
+
+
+def bc6h_1region_words(px: torch.Tensor, signed: bool):
+    """K10 wrapper: rows 10-13 each evaluated in full, folded. px [48, NB]
+    int32 F16-ints -> (err [NB] f32, words [4, NB] int32). A CUDA tensor
+    launches the kernel, a CPU tensor runs the plain twin."""
+    _check_px48(px)
+    if _on_cuda(px):
+        return cuda_kernels.bc6h_1region(px, signed)
+    return _bc6h_1region_plain(px, signed)
+
+
+def bc6h_shape_picks(px: torch.Tensor) -> torch.Tensor:
+    """The shape ranking's wrapper: px [48, NB] int32 F16-ints -> s_blks
+    [4, NB] int32. A CUDA tensor launches the kernel, a CPU tensor runs
+    the plain twin."""
+    _check_px48(px)
+    if _on_cuda(px):
+        return cuda_kernels.bc6h_shapes(px)
+    return _bc6h_shapes_plain(px)
+
+
+def bc6h_2region_words(px: torch.Tensor, s_blks: torch.Tensor, group: int,
+                       signed: bool):
+    """K11 wrapper: the rows of precision group `group` (an index into
+    _bc6h_row_groups()) over the candidates s_blks [C, NB] int32. px
+    [48, NB] int32 F16-ints -> (err [NB] f32, words [4, NB] int32). A CUDA
+    tensor launches the kernel, a CPU tensor runs the plain twin."""
+    _check_px48(px)
+    if s_blks.dtype != torch.int32 or s_blks.dim() != 2 \
+            or s_blks.shape[1] != px.shape[1]:
+        raise ValueError(f"s_blks must be [C, NB] int32, got "
+                         f"{tuple(s_blks.shape)} {s_blks.dtype}")
+    groups = _bc6h_row_groups()
+    if group not in range(len(groups)):
+        raise ValueError(f"group {group}: the precision groups are "
+                         f"0-{len(groups) - 1}, {groups}")
+    if _on_cuda(px, s_blks):
+        return cuda_kernels.bc6h_2region(px, s_blks, group, signed)
+    return _bc6h_2region_plain(px, s_blks, groups[group], signed)
+
+
+def _search_unshared(px: torch.Tensor, signed: bool):
+    """The BC6H_SHARED_FIT=False search (bc67.py:3497-3535): K10 (rows
+    10-13), the shape ranking, K11 for each precision group, then a
+    strict-`<` fold over (K10, group 0, ..., group 5) from (inf, zero
+    words). Every piece runs where px lies (kernel or plain twin). px
+    [48, NB] int32 F16-ints -> (err [NB] f32, words [4, NB] int32).
+
+    The nested folds (within a row, across a group's rows, across the
+    launches) pick the first least error in (row, candidate) order, which
+    is the jnp path's one flat fold. A launch whose every candidate reads
+    inf on a block hands its first candidate's words to this fold, which
+    never takes an infinite error: where every row reads inf the words
+    stay zero, as in the jnp path."""
+    _check_px48(px)
+    s_blks = bc6h_shape_picks(px)
+    return _fold_launches([bc6h_1region_words(px, signed)] + [
+        bc6h_2region_words(px, s_blks, g, signed)
+        for g in range(len(_bc6h_row_groups()))])
+
+
+def _fold_launches(results):
+    """The unshared search's fold: a strict `<` over [(err [NB], words
+    [4, NB] int32), ...] in order, from (inf, zero words)."""
+    best_err = torch.full_like(results[0][0], float("inf"))
+    best_words = torch.zeros_like(results[0][1])
+    for err, words in results:
+        better = err < best_err
+        best_err = torch.where(better, err, best_err)
+        best_words = torch.where(better[None, :], words, best_words)
+    return best_err, best_words
 
 
 # ---------------------------------------------------------------------------
@@ -1052,7 +1292,10 @@ def encode_bc6h(blocks: torch.Tensor, signed: bool, flags: int = 0,
                 rows_sel=None) -> torch.Tensor:
     """[NB, 16, 4] f32 -> [NB, 16] u8 (D3DXEncodeBC6HU/S, BC6HBC7.cpp:1817).
 
-    The default tier is the shared-fit search (K5 on a CUDA tensor). The
+    The default tier is the shared-fit search (K5 on a CUDA tensor), or
+    with BC6H_SHARED_FIT off (read at each call) the full evaluation per
+    (row, candidate) (_search_unshared: K10, the shape ranking and six K11
+    launches on a CUDA tensor). The
     mid tier (_BC6H_MID, texconv -bc b) adds one re-mapping ladder round at
     the winner's own precision (BC6H_LADDER_MID); the maxq tier
     (_BC7_MAXQUALITY) the full re-mapping ladder over every two-region
@@ -1070,7 +1313,10 @@ def encode_bc6h(blocks: torch.Tensor, signed: bool, flags: int = 0,
                          f"{tuple(blocks.shape)}")
     nb = blocks.shape[0]
     px = px_of_blocks(blocks, signed)
-    _, words = bc6h_search_words(px, signed)
+    if BC6H_SHARED_FIT:
+        _, words = bc6h_search_words(px, signed)
+    else:
+        _, words = _search_unshared(px, signed)
     maxq = bool(flags & _BC7_MAXQUALITY)
     if flags & _BC6H_MID:
         # with maxq set too, the JAX package runs mid first (bc67.py:3405)

@@ -28,6 +28,13 @@ live in bc67.py, and bc67's wrappers call these only for CUDA tensors.
        modes 0 and 2 in bc7_partition_0.cu and bc7_partition_2.cu)
     K9 bc7_partition_shapes csrc/bc7_shapes.cu replaces
        pallas_kernels.py:1850
+    K8 bc7_single_modes csrc/bc7_single_modes.cu replaces
+       pallas_kernels.py:1714
+    K10 bc6h_1region csrc/bc6h_1region.cu replaces pallas_kernels.py:3789
+    K11 bc6h_2region csrc/bc6h_2region.cu replaces pallas_kernels.py:3811
+    bc6h_shapes csrc/bc6h_shapes.cu, the BC6H shape ranking as a launch
+       of its own (partition_shapes_pallas at 32 shapes, axis_w 0,
+       pallas_kernels.py:1850), for K11's candidates
 
 Words cross the C interface as int32 tensors read as uint32_t*; `signed`
 crosses as an int, alpha_weight as the int holding its f32 bit pattern,
@@ -84,6 +91,10 @@ KERNELS = {
     "bc7_refine_3sub": CudaKernel("bc7_refine_3sub_launch", 3, 3),
     "bc7_refine_3sub_ladder": CudaKernel("bc7_refine_3sub_ladder_launch", 3,
                                          5),
+    "bc7_single_modes": CudaKernel("bc7_single_modes_launch", 3, 2),
+    "bc6h_1region": CudaKernel("bc6h_1region_launch", 3, 2),
+    "bc6h_shapes": CudaKernel("bc6h_shapes_launch", 2, 1),
+    "bc6h_2region": CudaKernel("bc6h_2region_launch", 4, 4),
 }
 
 
@@ -266,6 +277,21 @@ def bc7_partition_mode(px: torch.Tensor, s_blks: torch.Tensor, mode_id: int,
     return err, words
 
 
+def bc7_single_modes(px: torch.Tensor, aw: float = 1.0):
+    """K8: px [64, NB] int32 (0..255) -> (err [3, NB] f32, words [3, 4, NB]
+    int32), the best of modes 4, 5 and 6 (in that order) over rotations
+    0-3 and mode-4 index mode 0, each candidate fitted on its own, the
+    alpha channel's squared error weighted by aw."""
+    _check(px, "px", 64)
+    nb = px.shape[1]
+    err = torch.empty((3, nb), dtype=torch.float32, device=px.device)
+    words = torch.empty((3, 4, nb), dtype=torch.int32, device=px.device)
+    if nb:
+        KERNELS["bc7_single_modes"].launch((px, err, words),
+                                           (nb, _f32_bits(aw)), px.device)
+    return err, words
+
+
 def bc6h_decode(words: torch.Tensor, signed: bool) -> torch.Tensor:
     """K4: words [4, NB] int32 -> half bits [48, NB] int32 (row = pixel *
     3 + channel; reserved modes give 0)."""
@@ -288,6 +314,56 @@ def bc6h_encode(px: torch.Tensor, signed: bool):
     if nb:
         KERNELS["bc6h_encode"].launch((px, err, words),
                                       (nb, int(bool(signed))), px.device)
+    return err, words
+
+
+def bc6h_1region(px: torch.Tensor, signed: bool):
+    """K10: px [48, NB] int32 F16-ints -> (err [NB] f32, words [4, NB]
+    int32), rows 10-13 each evaluated in full and folded in row order."""
+    _check(px, "px", 48)
+    nb = px.shape[1]
+    err = torch.empty(nb, dtype=torch.float32, device=px.device)
+    words = torch.empty((4, nb), dtype=torch.int32, device=px.device)
+    if nb:
+        KERNELS["bc6h_1region"].launch((px, err, words),
+                                       (nb, int(bool(signed))), px.device)
+    return err, words
+
+
+def bc6h_shapes(px: torch.Tensor) -> torch.Tensor:
+    """The BC6H shape ranking: px [48, NB] int32 F16-ints -> s_blks
+    [4, NB] int32, the top 4 of the 32 two-region shapes by the off-axis
+    estimate at axis_w 0, in rank order."""
+    _check(px, "px", 48)
+    nb = px.shape[1]
+    s_blks = torch.empty((4, nb), dtype=torch.int32, device=px.device)
+    if nb:
+        KERNELS["bc6h_shapes"].launch((px, s_blks), (nb,), px.device)
+    return s_blks
+
+
+def bc6h_2region(px: torch.Tensor, s_blks: torch.Tensor, group: int,
+                 signed: bool):
+    """K11: px [48, NB] int32 F16-ints, s_blks [C, NB] int32 shapes 0..31
+    -> (err [NB] f32, words [4, NB] int32), the rows of precision group
+    `group` (0-5: rows (0,) (1,) (2, 3, 4) (5,) (6, 7, 8) (9,)) over the
+    candidates, each evaluated in full once for the group."""
+    _check(px, "px", 48)
+    nb = px.shape[1]
+    if s_blks.dim() != 2 or s_blks.shape[0] < 1:
+        raise ValueError(f"s_blks must be [C, NB] int32, got "
+                         f"{tuple(s_blks.shape)}")
+    _check(s_blks, "s_blks", s_blks.shape[0], nb)
+    if px.device != s_blks.device:
+        raise ValueError(f"px on {px.device}, s_blks on {s_blks.device}")
+    if group not in range(6):
+        raise ValueError(f"K11 launches precision groups 0-5; got {group}")
+    err = torch.empty(nb, dtype=torch.float32, device=px.device)
+    words = torch.empty((4, nb), dtype=torch.int32, device=px.device)
+    if nb:
+        KERNELS["bc6h_2region"].launch(
+            (px, s_blks, err, words),
+            (nb, s_blks.shape[0], group, int(bool(signed))), px.device)
     return err, words
 
 

@@ -1,7 +1,8 @@
 // BC6H shared device code: the mode table, the header layouts, block
 // unpack and emit, the F16-int quantize / unquantize steps, the projection
-// palette scorer and the LS refit that the decode (K4), search (K5) and
-// refine (K6) kernels share. Every function mirrors a plain-twin step of
+// palette scorer, the LS refit and the full quantized-domain subset
+// evaluation that the decode (K4), search (K5, K10, K11) and refine (K6)
+// kernels share. Every function mirrors a plain-twin step of
 // directxtex_tpu_torch/bc/bc6h.py in the same operation order.
 //
 // Layouts, one CUDA thread per 4x4 block: F16-int pixels arrive as
@@ -341,6 +342,55 @@ __device__ __forceinline__ void ls_refit(const Px& px, unsigned msk,
       e1[c] = n1;
     }
   }
+}
+
+// LS refit rounds of the full quantized-domain evaluation
+// (BC6H_REFIT_ROUNDS, bc6h.py)
+constexpr int kRefitRounds = 2;
+
+// One subset of the full quantized-domain evaluation (the per-subset part
+// of _bc6h_eval_candidate, bc6h.py; the BC6H_SHARED_FIT=False search, K10
+// and K11): the masked min/max box quantized at prec_w and rescored
+// exactly, then kRefitRounds LS rounds at the integer palette weights of
+// the latest indices (capped, singular systems keep their endpoints),
+// each requantized and rescored; the last round's result is kept where it
+// scores strictly lower. Writes the subset's pixels of idx (the other
+// pixels keep theirs); returns the subset error.
+template <int K>
+__device__ __forceinline__ float eval_subset_q(const Px& px, unsigned msk,
+                                               bool sgn, int prec_w,
+                                               int q0[3], int q1[3],
+                                               unsigned long long& idx) {
+  float e0[3], e1[3], cap[3];
+  mag_cap(px, msk, e0, e1, cap);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    q0[c] = quantize((int)rintf(e0[c]), prec_w, sgn);
+    q1[c] = quantize((int)rintf(e1[c]), prec_w, sgn);
+  }
+  const float err = palette_err_q<K>(px, msk, q0, q1, prec_w, sgn, idx);
+  int qb0[3], qb1[3];
+  unsigned long long idx_b = idx;
+  float err_b = err;
+#pragma unroll 1
+  for (int r = 0; r < kRefitRounds; ++r) {
+    ls_refit<K, true>(px, msk, idx_b, cap, sgn, e0, e1);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      qb0[c] = quantize((int)rintf(e0[c]), prec_w, sgn);
+      qb1[c] = quantize((int)rintf(e1[c]), prec_w, sgn);
+    }
+    err_b = palette_err_q<K>(px, msk, qb0, qb1, prec_w, sgn, idx_b);
+  }
+  if (err_b < err) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      q0[c] = qb0[c];
+      q1[c] = qb1[c];
+    }
+    idx = idx_b;
+  }
+  return fminf(err_b, err);
 }
 
 // Delta transform + endpoint-fit check (_bc6h_transform_fit_t,

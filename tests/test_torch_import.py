@@ -37,7 +37,9 @@ def test_launchers_import_without_building():
         "bc7_refine_maxq": 0, "bc7_refine_ladder": 0,
         "bc6h_decode": 0, "bc6h_encode": 0, "bc6h_refine": 0,
         "bc7_partition_shapes": 0, "bc7_partition_mode": 0,
-        "bc7_refine_3sub": 0, "bc7_refine_3sub_ladder": 0}
+        "bc7_refine_3sub": 0, "bc7_refine_3sub_ladder": 0,
+        "bc7_single_modes": 0, "bc6h_1region": 0, "bc6h_shapes": 0,
+        "bc6h_2region": 0}
 
 
 def _blocks(nb=32, seed=3, alpha=1.0):
@@ -75,6 +77,14 @@ def test_cpu_tensors_take_the_bc6h_plain_twins(signed):
         px, words, bc6h.BC6H_LADDER_MID, signed, remap=True))
     bits = bc6h.bc6h_decode_words(refined, signed)
     assert torch.equal(bits, bc6h._bc6h_decode_plain(refined, signed))
+    err1, words1 = bc6h.bc6h_1region_words(px, signed)
+    ref1 = bc6h._bc6h_1region_plain(px, signed)
+    assert torch.equal(words1, ref1[1]) and torch.equal(err1, ref1[0])
+    s_blks = bc6h.bc6h_shape_picks(px)
+    assert torch.equal(s_blks, bc6h._bc6h_shapes_plain(px))
+    err2, words2 = bc6h.bc6h_2region_words(px, s_blks, 2, signed)
+    ref2 = bc6h._bc6h_2region_plain(px, s_blks, (2, 3, 4), signed)
+    assert torch.equal(words2, ref2[1]) and torch.equal(err2, ref2[0])
     assert set(cuda_kernels.launch_counts().values()) == {0}
 
 
@@ -94,6 +104,13 @@ def test_cpu_tensors_take_the_bc6h_plain_twins(signed):
     ("bc7_partition_mode", lambda: (torch.zeros((64, 8), dtype=torch.int32),
                                     torch.zeros((4, 8), dtype=torch.int32),
                                     0)),
+    ("bc7_single_modes", lambda: (torch.zeros((64, 8), dtype=torch.int32),)),
+    ("bc6h_1region", lambda: (torch.zeros((48, 8), dtype=torch.int32),
+                              False)),
+    ("bc6h_shapes", lambda: (torch.zeros((48, 8), dtype=torch.int32),)),
+    ("bc6h_2region", lambda: (torch.zeros((48, 8), dtype=torch.int32),
+                              torch.zeros((4, 8), dtype=torch.int32), 2,
+                              True)),
 ])
 def test_launchers_refuse_cpu_tensors(launcher, args):
     with pytest.raises(ValueError, match="CUDA"):
@@ -115,6 +132,16 @@ def test_wrappers_check_shapes_and_types():
         bc6h.bc6h_refine_words(torch.zeros((48, 8), dtype=torch.int32),
                                torch.zeros((4, 8), dtype=torch.int32),
                                (1, (4, 0)), False)
+    with pytest.raises(ValueError):
+        bc6h.bc6h_2region_words(torch.zeros((48, 8), dtype=torch.int32),
+                                torch.zeros((4, 8), dtype=torch.int32), 6,
+                                False)
+    with pytest.raises(ValueError):
+        bc6h.bc6h_2region_words(torch.zeros((48, 8), dtype=torch.int32),
+                                torch.zeros((4, 8), dtype=torch.int64), 0,
+                                False)
+    with pytest.raises(ValueError):
+        bc67.bc7_single_modes(torch.zeros((48, 8), dtype=torch.int32))
 
 
 # the JAX package's LADDER_FULL (bc67.py:724): the maxq tier's exact ladder

@@ -180,7 +180,7 @@ def _widen(idx):
 _ORIG = {k: getattr(jbc67, k) for k in (
     "_bc6h_shared_fit", "_bc6h_group_rescore", "_eval_2sub_shared",
     "_eval_subset_candidate", "_moment_channels_t", "_perturb_channels_t",
-    "_assign_indices_t")}
+    "_assign_indices_t", "_bc6h_eval_candidate")}
 
 
 def _shared_fit8(px_f, mask_list, iprec, signed):
@@ -197,6 +197,14 @@ def _group_rescore8(px_int, mask_list, anchors, shared, row, signed):
     terr, fixed, idx = f(px_int[:8], [_ones8(px_int.shape[2])] * 2, [0, 0],
                          shared, row, signed)
     return terr, fixed, _widen(idx)
+
+
+def _bc6h_eval8(px_int, px_f, row, signed):
+    """_bc6h_eval_candidate of a two-region row on two 8-pixel subsets."""
+    err, pairs, idx = _ORIG["_bc6h_eval_candidate"](
+        px_int[:8], px_f[:8], [_ones8(px_int.shape[2])] * 2, [0, 0], row,
+        signed)
+    return err, pairs, _widen(idx)
 
 
 def _eval_2sub8(px_i, px_f, mask_list, anchors, mode_ids, aw=1.0):
@@ -385,6 +393,101 @@ def bc7_partition_ops() -> dict:
     return out
 
 
+def bc7_single_modes_ops() -> float:
+    """K8: modes 4, 5 and 6 each over their candidates (_try_single_mode
+    at its defaults: rotations 0-3, mode 4 at index mode 0), from the
+    [64, NB] texels."""
+    def fn(p):
+        pf = p.astype(jnp.float32)
+        return [jbc67._try_single_mode(p, pf, m) for m in (4, 5, 6)]
+    return needed_ops(fn, jnp.zeros((16, 4, NB), jnp.int32)) / NB
+
+
+def _fold_first(best, err, words):
+    """The kernels' in-launch fold: the first candidate as it is, then a
+    strict `<`."""
+    if best is None:
+        return err, words
+    bt = err < best[0]
+    return (jnp.where(bt, err, best[0]),
+            jnp.where(bt[:, None], words, best[1]))
+
+
+def bc6h_1region_ops(signed: bool = False, nb: int = NB) -> float:
+    """K10: rows 10-13, each evaluated in full (_bc6h_eval_candidate),
+    emitted and folded, from the [48, NB] F16-int pixels."""
+    def fn(p):
+        pf = p.astype(jnp.float32)
+        ones = jnp.ones((16, nb), bool)
+        best = None
+        for row in range(10, 14):
+            err, pairs, idx = jbc67._bc6h_eval_candidate(p, pf, [ones], [0],
+                                                         row, signed)
+            best = _fold_first(best, err,
+                               jbc67._bc6h_emit(row, 0, pairs, idx, nb))
+        return best
+    return needed_ops(fn, jnp.zeros((16, 3, nb), jnp.int32)) / nb
+
+
+def _bc6h_rows_flat(rows, signed: bool, nb: int) -> float:
+    """`rows` over 4 given candidates, each (row, candidate) evaluated in
+    full on two 8-pixel subsets, emitted and folded (the jnp search's
+    two-region loop)."""
+    def fn(p, sb):
+        pf = p.astype(jnp.float32)
+        best = None
+        for row in rows:
+            for k in range(4):
+                err, pairs, idx = _bc6h_eval8(p, pf, row, signed)
+                best = _fold_first(best, err, jbc67._bc6h_emit(
+                    row, sb[k].astype(jnp.uint32), pairs, idx, nb))
+        return best
+    return needed_ops(fn, jnp.zeros((16, 3, nb), jnp.int32),
+                      jnp.zeros((4, nb), jnp.int32)) / nb
+
+
+def bc6h_group_eval_ops(row: int, signed: bool = False,
+                        nb: int = NB) -> float:
+    """One two-region candidate's full evaluation up to its anchor swaps
+    at a row's precision: _bc6h_eval_candidate on two 8-pixel subsets,
+    less the row's delta fit (_bc6h_transform_fit_t), which it ends
+    with."""
+    def fit(q, e):
+        return jbc67._bc6h_transform_fit_t([(q[0], q[1]), (q[2], q[3])], e,
+                                           row, signed, nb)
+    whole = needed_ops(lambda p: _bc6h_eval8(p, p.astype(jnp.float32), row,
+                                             signed),
+                       jnp.zeros((16, 3, nb), jnp.int32))
+    tail = needed_ops(fit, jnp.zeros((4, 3, nb), jnp.int32),
+                      jnp.zeros((nb,), jnp.float32))
+    return (whole - tail) / nb
+
+
+def bc6h_2region_ops(signed: bool = False, nb: int = NB) -> dict:
+    """K11 per precision group (its rows as the key): each of 4 candidates
+    evaluated in full once, then per row and candidate the delta fit, emit
+    and fold — the jnp search's loop over the group's rows, less the
+    evaluations that its rows past the first repeat."""
+    out = {}
+    for rows in jbc67._bc6h_row_groups():
+        out[rows] = _bc6h_rows_flat(rows, signed, nb) - (len(rows) - 1) \
+            * 4 * bc6h_group_eval_ops(rows[0], signed, nb)
+    return out
+
+
+def bc6h_shapes_ops() -> float:
+    """The BC6H shape ranking: the 32-shape off-axis estimate table at
+    axis_w 0 on RGB and a zero alpha plane, and its top 4, from the
+    [48, NB] F16-int pixels."""
+    def fn(p):
+        pf = p.astype(jnp.float32)
+        px4 = jnp.concatenate([pf, jnp.zeros_like(pf[:, :1, :])], axis=1)
+        ests = jbc67._shape_estimates_table(px4, 1, 3, n_shapes=32,
+                                            off_axis=True, axis_w=0.0)
+        return jbc67._top_k_shapes(ests, 4)
+    return needed_ops(fn, jnp.zeros((16, 3, NB), jnp.int32)) / NB
+
+
 def bc7_decode_ops() -> list:
     """K1: per mode 0-7."""
     return [needed_ops(lambda x: jbc67._decode_bc7_mode_t(x, m),
@@ -558,6 +661,11 @@ def main() -> None:
         "BC6H_REFINE_OPS": bc6h_maxq_refine_ops(),
         "BC7_SHAPES_OPS": {n: bc7_shapes_ops(n) for n in (16, 64)},
         "BC7_PARTITION_OPS": bc7_partition_ops(),
+        "BC7_SINGLE_MODES_OPS": bc7_single_modes_ops(),
+        "BC6H_1REGION_OPS": bc6h_1region_ops(),
+        "BC6H_SHAPES_OPS": bc6h_shapes_ops(),
+        "BC6H_2REGION_OPS": [bc6h_2region_ops()[g]
+                             for g in jbc67._bc6h_row_groups()],
     }
     print(json.dumps(counts))
 
@@ -713,6 +821,17 @@ def test_ladder_split_counts_sixteen_pixels():
     assert eight == n8 and n8 - n4 > 0
     assert n16 == n8 + 2 * (n8 - n4)
     assert masked > n16
+
+
+def test_group_rows_share_one_evaluation():
+    """The rows of a precision group cost the same full evaluation (so
+    K11's count may take one per candidate for the whole group), and a
+    row's evaluation is most of its flat count."""
+    nb = 16
+    e2, e3 = (bc6h_group_eval_ops(r, nb=nb) for r in (2, 3))
+    assert e2 == e3 > 0
+    flat = _bc6h_rows_flat((2,), False, nb)
+    assert flat / 2 < 4 * e2 < flat
 
 
 def test_decode_counts_within_twins():

@@ -39,7 +39,8 @@ def test_bc6h_mode_info_equal():
 @pytest.mark.parametrize("name", [
     "BC6H_SHARED_ROUNDS", "BC6H_GROUP_REFIT_MINPREC", "BC6H_LS_MAG_CAP",
     "BC6H_LADDER_LIGHT", "BC6H_LADDER_FULL", "BC6H_LADDER_MID",
-    "BC6H_LADDER_MAXQ", "_BC7_MAXQUALITY", "_BC6H_MID"])
+    "BC6H_LADDER_MAXQ", "_BC7_MAXQUALITY", "_BC6H_MID", "BC6H_SHARED_FIT",
+    "BC6H_REFIT_ROUNDS"])
 def test_bc6h_constants_equal(name):
     assert getattr(bc6h, name) == getattr(jbc67, name)
 
