@@ -5,8 +5,9 @@ Drives the port's paths through their hand-written CUDA kernels and holds
 every kernel against its plain PyTorch twin on the card:
 
 - the BC7 default tier (image_to_blocks -> encode_bc7 -> decode_bc7): K1
-  decode, K2 search, K3 MOMENT refine; on opaque images (K2's opaque
-  variant), on images with alpha (K2's alpha variant with mode 7, K3 with
+  decode, K2 search, K3 MOMENT refine (its bucket pass, then one launch
+  per mode in scope); on opaque images (K2's opaque variant, a team of
+  four warps per 32 blocks), on images with alpha (K2's alpha variant with mode 7, K3 with
   mode 7 in scope), at alpha weights 1.0 and 2.0, and the QUICK tier (K2's
   quick variant, mode 6 alone);
 - the BC7 MAXQUALITY tier (encode_bc7(flags=0x200000)): K2's maxq
@@ -16,8 +17,8 @@ every kernel against its plain PyTorch twin on the card:
   mid / maxq tiers of encode_bc6h): K4 decode, K5 search, K6 refine;
 - USE_3SUBSETS (encode_bc7(flags=0x80000), with MAXQUALITY 0x280000):
   per mode 0 and 2, K9 ranks the three-subset shapes and K7 evaluates
-  the top 4, K2 searches the other modes, and K3 refines modes 0 and 2 in
-  a second launch of its three-subset instance;
+  the top 4, K2 searches the other modes, and K3 refines modes 0 and 2 as
+  two more of its per-mode launches;
 - BC6H with bc6h.BC6H_SHARED_FIT = False (encode_bc6h in every tier, and
   so config 4): K10 (rows 10-13, each evaluated in full), the BC6H shape
   ranking, K11 once per precision group, a strict-`<` fold in torch, then
@@ -32,12 +33,18 @@ Phases:
   2. K1: bit-exact on tests/golden/decode_vectors.npz and equal to the
      plain decode on 262,144 random mixed-mode words;
   3. K2: kernel search vs plain search on bench512.npz and the opaque
-     corpus.npz contents, under the near-tie rule;
+     corpus.npz contents: words and errors equal (bench512 also at alpha
+     weight 2.0);
   4. K3: kernel refine vs plain refine on the same input words: equal;
+     K3's bucket pass vs its plain twin: equal counts, each bucket the
+     same set;
   5. 512^2 gate: encode_bc7 -> decode_bc7 PSNR >= the frozen reference's;
   6. the 2048^2 bench image through the BC7 path, with launch counts,
-     CUDA-event times of the path and of each kernel, and one run of the
-     plain path on the same inputs, held against the kernels' output;
+     CUDA-event times of the path and of each kernel (K3 as its
+     launcher's whole call, the bucket pass and a plain copy of the words
+     also alone), the bucket counts, and one run of the plain path on the
+     same inputs, held against the kernels' output (K2 at both weights,
+     words and errors equal);
   7. K4: bit-exact on the golden BC6H vectors (unsigned and signed) and
      equal to the plain decode on 262,144 random words per mode;
   8. K5 and K6 (mid, maxq): kernel vs plain on the five HDR corpus
@@ -68,14 +75,15 @@ Phases:
      reference's, and a sample of the maxq words decoded by K1 equal to
      the plain decode;
  17. the maxq path at 2048^2 on the bench image and on the image with
-     alpha, each with its launch counts (one K2, two K3), CUDA-event times
+     alpha, each with its launch counts (one K2; per K3 ladder a bucket
+     pass and a launch per mode), CUDA-event times
      of the paths and kernels beside the default tier's, and one run of
      each plain twin at the path's shapes held against its kernel;
  18. K9 (three subsets, 16 and 64 shapes; two subsets, 64), K7 (modes 0
      and 2 on the three-subset picks, 1, 3 and 7 on the two-subset
      picks), the search with modes 0 and 2 (K9, K7, K2 and the fold) and
-     K3's three-subset instances (MOMENT, FULL, LIGHT; and the two K3
-     launches over a whole scope) against their twins on bench512, the
+     K3 over modes 0 and 2 (MOMENT, FULL, LIGHT; and over a whole scope)
+     against their twins on bench512, the
      opaque corpus, alphagrad, the 200-block mixed set and the synthetic
      three-gradient batch of tests/golden/bc7_3subsets.npz, at alpha
      weights 1.0 and 2.0: picks, words and errors equal;
@@ -85,7 +93,8 @@ Phases:
      0x280000;
  20. the USE_3SUBSETS paths at 2048^2 (default and maxq tiers, opaque and
      with alpha), each with its launch counts (two K9, two K7, one K2,
-     two K3 a ladder), winner histograms, CUDA-event times of the paths
+     and per K3 ladder a bucket pass and a launch per mode), winner
+     histograms, CUDA-event times of the paths
      and kernels beside the default and maxq paths', and one run of each
      new kernel's plain twin at the path's shapes held against it, on the
      opaque image's inputs and on the image with alpha's (its own picks,
@@ -134,8 +143,10 @@ GOLDEN = os.path.join(ROOT, "tests", "golden")
 SOURCES = {
     "bc7_decode": ("directxtex_tpu_torch/csrc/bc7_decode.cu",
                    "directxtex_tpu/bc/pallas_kernels.py:2735"),
-    "bc7_encode": ("directxtex_tpu_torch/csrc/bc7_encode.cu",
+    "bc7_encode": ("directxtex_tpu_torch/csrc/bc7_encode.cuh",
                    "directxtex_tpu/bc/pallas_kernels.py:2020"),
+    "bc7_mode_buckets": ("directxtex_tpu_torch/csrc/bc7_refine.cu",
+                         "directxtex_tpu/bc/pallas_kernels.py:2667"),
     "bc7_refine": ("directxtex_tpu_torch/csrc/bc7_refine.cuh",
                    "directxtex_tpu/bc/pallas_kernels.py:2667"),
     "bc7_encode_alpha": ("directxtex_tpu_torch/csrc/bc7_encode.cuh",
@@ -150,7 +161,7 @@ SOURCES = {
                               "directxtex_tpu/bc/pallas_kernels.py:2020"),
     "bc7_refine_maxq": ("directxtex_tpu_torch/csrc/bc7_refine.cuh",
                         "directxtex_tpu/bc/pallas_kernels.py:2667"),
-    "bc7_refine_ladder": ("directxtex_tpu_torch/csrc/bc7_refine_ladder.cu",
+    "bc7_refine_ladder": ("directxtex_tpu_torch/csrc/bc7_refine.cuh",
                           "directxtex_tpu/bc/pallas_kernels.py:2667"),
     "bc6h_decode": ("directxtex_tpu_torch/csrc/bc6h_decode.cu",
                     "directxtex_tpu/bc/pallas_kernels.py:2784"),
@@ -162,11 +173,10 @@ SOURCES = {
                              "directxtex_tpu/bc/pallas_kernels.py:1850"),
     "bc7_partition_mode": ("directxtex_tpu_torch/csrc/bc7_partition.cuh",
                            "directxtex_tpu/bc/pallas_kernels.py:1414"),
-    "bc7_refine_3sub": ("directxtex_tpu_torch/csrc/bc7_refine_3sub.cu",
+    "bc7_refine_3sub": ("directxtex_tpu_torch/csrc/bc7_refine.cuh",
                         "directxtex_tpu/bc/pallas_kernels.py:2667"),
-    "bc7_refine_3sub_ladder": (
-        "directxtex_tpu_torch/csrc/bc7_refine_3sub_ladder.cu",
-        "directxtex_tpu/bc/pallas_kernels.py:2667"),
+    "bc7_refine_3sub_ladder": ("directxtex_tpu_torch/csrc/bc7_refine.cuh",
+                               "directxtex_tpu/bc/pallas_kernels.py:2667"),
     "bc6h_1region": ("directxtex_tpu_torch/csrc/bc6h_1region.cu",
                      "directxtex_tpu/bc/pallas_kernels.py:3789"),
     "bc6h_shapes": ("directxtex_tpu_torch/csrc/bc6h_shapes.cu",
@@ -208,6 +218,9 @@ BC6H_REFINE_OPS = {"one_region": 815084, "two_region": 1294096}
 # bytes each block must move, inputs read once and outputs written once at
 # the data's own width: u8 texels, f16 pixels and halves, 16-byte words
 BYTES_PER_BLOCK = {"bc7_decode": 16 + 64, "bc7_encode": 64 + 16,
+                   # K3's bucket pass: the words read, their copy and one
+                   # list entry written
+                   "bc7_mode_buckets": 16 + 16 + 4,
                    "bc7_refine": 64 + 16 + 16, "bc6h_decode": 16 + 96,
                    "bc6h_encode": 96 + 16, "bc6h_refine": 96 + 16 + 16,
                    "bc7_encode_alpha": 64 + 16, "bc7_encode_quick": 64 + 16,
@@ -220,8 +233,8 @@ BYTES_PER_BLOCK = {"bc7_decode": 16 + 64, "bc7_encode": 64 + 16,
                    # and 2); K7 reads 4 candidates, writes err and words
                    "bc7_partition_shapes": 2 * (64 + 16),
                    "bc7_partition_mode": 2 * (64 + 16 + 4 + 16),
-                   # K3's three-subset instances read and write every
-                   # block's words, and pixels only for a mode-0/2 block
+                   # K3 over modes 0 and 2 reads and writes every block's
+                   # words, and pixels only for a mode-0/2 block
                    # (BC7_PIXEL_BYTES each, counted from the run's winners)
                    "bc7_refine_3sub": 16 + 16,
                    "bc7_refine_3sub_ladder": 16 + 16,
@@ -233,6 +246,8 @@ BYTES_PER_BLOCK = {"bc7_decode": 16 + 64, "bc7_encode": 64 + 16,
                    # K8: each of modes 4, 5 and 6's err and words
                    "bc7_single_modes": 64 + 3 * (4 + 16)}
 BC7_PIXEL_BYTES = 64
+# K3's bucket pass does a few integer operations a block: bytes bound it
+BC7_BUCKET_OPS = 0
 # H100 SXM published peaks: HBM bytes/s, and
 # f32 elementwise operations/s = 132 SMs x 128 lanes x 1.98 GHz (the
 # 67 TFLOP/s figure counts an FMA as two; the kernels build with
@@ -257,10 +272,11 @@ ALPHA_WEIGHTS = (1.0, 2.0)
 ALPHAGRAD_FLOOR = 37.17
 REF_PARITY_MARGINS = {"albedo": 0.04, "tworegion": 0.28, "normal": 2.65,
                       "alphagrad": 0.32}
-# the opaque BC7 path's times in PERF.md section 5 before the maxq tier
-# was added (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
-EARLIER_OPAQUE_MS = {"path": 3.384, "bc7_encode": 1.961,
-                     "bc7_refine": 0.833}
+# the opaque BC7 path's times with the one-thread K2 opaque and the
+# single-kernel K3 (PERF.md sections 5 and 6; NVIDIA H100 80GB HBM3,
+# 700 W), printed beside this run's
+EARLIER_OPAQUE_MS = {"path": 3.497, "bc7_encode": 1.923,
+                     "bc7_refine": 0.840, "bc7_refine_ladder": 5.721}
 MAXQ = 0x200000            # encode_bc7's MAXQUALITY flag
 MAXQ_GATE_SLACK = 0.001    # dB below the default tier (test_bc7.py:211)
 USE3 = 0x80000             # encode_bc7's USE_3SUBSETS flag
@@ -346,6 +362,24 @@ def per_mode_ops(torch, modes, table: dict) -> float:
     return float(sum(n * table.get(m, 0) for m, n in enumerate(counts)))
 
 
+def buckets_equal(torch, words, modes, what: str) -> list:
+    """K3's bucket pass on words [4, NB] over `modes` held against its
+    plain twin: equal counts, and each bucket the same set of blocks, in
+    whatever order the warps' atomics gave. Returns the counts."""
+    from directxtex_tpu_torch.bc import bc67, cuda_kernels
+
+    mask = sum(1 << m for m in modes)
+    copy, lists, counts = cuda_kernels.bc7_mode_buckets(words, mask)
+    counts_p, buckets_p = bc67._mode_buckets_plain(words, mask)
+    check(torch.equal(copy, words), f"bucket pass copy {what}")
+    check(torch.equal(counts.cpu(), counts_p.cpu()),
+          f"bucket counts {what}: {counts.tolist()} vs {counts_p.tolist()}")
+    for m in range(8):
+        got = torch.sort(lists[m, :int(counts_p[m])])[0]
+        check(torch.equal(got, buckets_p[m]), f"bucket {m} {what}")
+    return counts.tolist()
+
+
 def main() -> None:
     import torch
 
@@ -382,26 +416,11 @@ def main() -> None:
         """[NB, 16, 4] f32 on the card -> [64, NB] int32 texels."""
         return bc67._quantize_ldr(blocks).reshape(64, -1).contiguous()
 
-    def block_sse(words, px):
-        """Per-block decoded SSE of words [4, NB] against px [64, NB]."""
-        d = (bc67._bc7_decode_plain(words) - px).to(torch.float64)
-        return (d * d).sum(dim=0)
-
-    def near_tie(w_a, w_b, px, what):
-        """The near-tie rule: few blocks differ, those that do decode to
-        nearly the same SSE, and the total SSE is no worse."""
-        nb = px.shape[1]
-        differ = (w_a != w_b).any(dim=0)
-        n = int(differ.sum())
-        check(n <= max(2, nb // 25), f"{what}: {n}/{nb} blocks differ")
-        sa, sb = block_sse(w_a, px), block_sse(w_b, px)
-        if n:
-            da, db = sa[differ], sb[differ]
-            check(bool(((da - db).abs() <= 4.0 + 2e-2 * db.abs()).all()),
-                  f"{what}: per-block SSE of differing blocks")
-        tot_a, tot_b = float(sa.sum()), float(sb.sum())
-        check(tot_a <= tot_b * 1.001 + 1e-3, f"{what}: total SSE")
-        return n, tot_a, tot_b
+    def same(a, b, what):
+        """Kernel and twin agree word for word, and the errors bit for
+        bit."""
+        check(a.shape == b.shape and torch.equal(a, b),
+              f"{what} differs from plain")
 
     def event_ms(fn, reps: int = 1) -> list[float]:
         times = []
@@ -436,19 +455,29 @@ def main() -> None:
         (c, corpus[c]) for c in OPAQUE_CORPUS]
     for label, img in contents:
         px = px_of(image_to_blocks(to_dev(img))[0])
-        err_k, w_k = cuda_kernels.bc7_encode(px)
-        err_p, w_p = bc67._bc7_search_plain(px)
-        n, tot_k, tot_p = near_tie(w_k, w_p, px, f"K2 {label}")
-        emit({"phase": "K2", "content": label, "blocks": px.shape[1],
-              "words_differ": n, "sse_kernel": tot_k, "sse_plain": tot_p,
-              "max_abs_err_diff": float((err_k - err_p).abs().max())})
+        for aw in ALPHA_WEIGHTS if label == "bench512" else (1.0,):
+            err_k, w_k = cuda_kernels.bc7_encode(px, bc67.SEARCH_MODES, aw)
+            err_p, w_p = bc67._bc7_search_plain(px, bc67.SEARCH_MODES, aw)
+            n = int((w_k != w_p).any(dim=0).sum())
+            err_diff = float((err_k - err_p).abs().max())
+            check(n == 0 and err_diff == 0.0,
+                  f"K2 {label} aw={aw}: {n} blocks differ, error "
+                  f"difference {err_diff}")
+            emit({"phase": "K2", "content": label, "aw": aw,
+                  "blocks": px.shape[1], "words_differ": n,
+                  "max_abs_err_diff": err_diff})
+            if aw == 1.0:
+                w_1 = w_k
+        w_k = w_1
         r_k = cuda_kernels.bc7_refine(px, w_k, bc67.REFINE_MODES)
         r_p = bc67._bc7_refine_plain(px, w_k, bc67.REFINE_MODES)
         n3 = int((r_k != r_p).any(dim=0).sum())
         check(n3 == 0, f"K3 {label}: {n3} blocks differ from plain refine")
         emit({"phase": "K3", "content": label, "blocks": px.shape[1],
               "words_equal": True,
-              "refined_blocks": int((r_k != w_k).any(dim=0).sum())})
+              "refined_blocks": int((r_k != w_k).any(dim=0).sum()),
+              "buckets": buckets_equal(torch, w_k, bc67.REFINE_MODES,
+                                       f"{label} default scope")})
 
     # 5. 512^2 quality gate (benchmarks/verify_bc7_tpu.py:177-199) ---------
     blocks512 = image_to_blocks(to_dev(b512["img"]))[0]
@@ -472,9 +501,11 @@ def main() -> None:
     enc = bc67.encode_bc7(blocks2k, opaque=True)
     dec = bc67.decode_bc7(enc)
     torch.cuda.synchronize()
-    counts = {k: v for k, v in cuda_kernels.launch_counts().items()
-              if k in ("bc7_decode", "bc7_encode", "bc7_refine")}
-    check(all(v > 0 for v in counts.values()), f"launch counts {counts}")
+    counts = {k: v for k, v in cuda_kernels.launch_counts().items() if v}
+    # K3: the bucket pass, then one launch per mode of (1, 3, 5, 4)
+    check(counts == {"bc7_encode": 1, "bc7_mode_buckets": 1,
+                     "bc7_refine": 4, "bc7_decode": 1},
+          f"launch counts {counts}")
     check(tuple(dec.shape) == (size * size // 16, 16, 4)
           and bool(torch.isfinite(dec).all()), "2K output shape / finite")
     mse = float(((dec.to(torch.float64) - blocks2k.to(torch.float64)) ** 2)
@@ -488,15 +519,23 @@ def main() -> None:
     err_k, w_search = cuda_kernels.bc7_encode(px2k)
     w_final = cuda_kernels.bc7_refine(px2k, w_search, bc67.REFINE_MODES)
     enc_ms = float(np.median(event_ms(encode_path, 7)))
+    refine_mask = sum(1 << m for m in bc67.REFINE_MODES)
     k_ms = {
         "bc7_encode": float(np.median(event_ms(
             lambda: cuda_kernels.bc7_encode(px2k), 7))),
+        # the launcher's whole call: copy + bucket pass + per-mode launches
         "bc7_refine": float(np.median(event_ms(
             lambda: cuda_kernels.bc7_refine(px2k, w_search,
                                             bc67.REFINE_MODES), 7))),
         "bc7_decode": float(np.median(event_ms(
             lambda: cuda_kernels.bc7_decode(w_final), 7))),
+        "bc7_mode_buckets": float(np.median(event_ms(
+            lambda: cuda_kernels.bc7_mode_buckets(w_search, refine_mask),
+            7))),
     }
+    copy_ms = float(np.median(event_ms(lambda: w_search.clone(), 7)))
+    enc_aw2_ms = float(np.median(event_ms(
+        lambda: cuda_kernels.bc7_encode(px2k, bc67.SEARCH_MODES, 2.0), 7)))
     # one run of each plain twin on the same inputs, held against the kernel
     out = {}
     plain_ms = {}
@@ -507,7 +546,16 @@ def main() -> None:
             px2k, w_search, bc67.REFINE_MODES)))[0]
     plain_ms["bc7_decode"] = event_ms(
         lambda: out.update(decode=bc67._bc7_decode_plain(w_final)))[0]
-    n2k, _, _ = near_tie(w_search, out["search"][1], px2k, "K2 2048^2")
+    plain_ms["bc7_mode_buckets"] = event_ms(lambda: out.update(
+        buckets=bc67._mode_buckets_plain(w_search, refine_mask)))[0]
+    same(w_search, out["search"][1], "K2 words 2048^2")
+    same(err_k, out["search"][0], "K2 errors 2048^2")
+    err_k2, w_k2 = cuda_kernels.bc7_encode(px2k, bc67.SEARCH_MODES, 2.0)
+    err_p2, w_p2 = bc67._bc7_search_plain(px2k, bc67.SEARCH_MODES, 2.0)
+    same(w_k2, w_p2, "K2 words 2048^2 aw=2.0")
+    same(err_k2, err_p2, "K2 errors 2048^2 aw=2.0")
+    bucket_counts = buckets_equal(torch, w_search, bc67.REFINE_MODES,
+                                  "2048^2 default scope")
     check(torch.equal(out["refine"], w_final), "K3 2048^2 vs plain")
     k1_out = cuda_kernels.bc7_decode(w_final)
     check(torch.equal(out["decode"], k1_out), "K1 2048^2 vs plain")
@@ -516,21 +564,27 @@ def main() -> None:
         "bc7_refine": float((out["refine"].to(torch.int64)
                              - w_final.to(torch.int64)).abs().max()),
         "bc7_decode": float((out["decode"] - k1_out).abs().max()),
+        # counts and bucket sets held equal above
+        "bc7_mode_buckets": 0.0,
     }
     mtexels = size * size / (enc_ms * 1e-3) / 1e6
     emit({"phase": "timing2k", "card": smi, "encode_ms": enc_ms,
           "encode_mtexels_per_s": mtexels, "kernel_ms": k_ms,
-          "plain_ms": plain_ms, "search_words_differ_vs_plain": n2k,
+          "bc7_encode_aw2_ms": enc_aw2_ms, "words_copy_ms": copy_ms,
+          "bucket_counts": bucket_counts, "plain_ms": plain_ms,
+          "search_words_differ_vs_plain": 0,
           "earlier_ms": EARLIER_OPAQUE_MS})
 
     nb_of = {"bc7_decode": px2k.shape[1], "bc7_encode": px2k.shape[1],
-             "bc7_refine": px2k.shape[1]}
+             "bc7_refine": px2k.shape[1],
+             "bc7_mode_buckets": px2k.shape[1]}
     ops_of = {
         "bc7_decode": per_mode_ops(torch, bc67._mode_of(
             bc67._words_i64(w_final)), dict(enumerate(BC7_DECODE_OPS))),
         "bc7_encode": BC7_SEARCH_OPS * float(px2k.shape[1]),
         "bc7_refine": per_mode_ops(torch, bc67._mode_of(
             bc67._words_i64(w_search)), BC7_REFINE_OPS),
+        "bc7_mode_buckets": BC7_BUCKET_OPS * float(px2k.shape[1]),
     }
     launches = dict(counts)
 
@@ -956,8 +1010,8 @@ def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
     nb = px_a.shape[1]
     runs = {}
     for name, img, flags, kernels in (
-            ("alpha", img_a, 0, ("bc7_encode_alpha", "bc7_refine_alpha",
-                                 "bc7_decode")),
+            ("alpha", img_a, 0, ("bc7_encode_alpha", "bc7_mode_buckets",
+                                 "bc7_refine_alpha", "bc7_decode")),
             ("quick_alpha", img_a, bc67._BC7_QUICK,
              ("bc7_encode_quick", "bc7_decode")),
             ("quick_opaque", img_opaque, bc67._BC7_QUICK,
@@ -970,6 +1024,9 @@ def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
         counts = {k: v for k, v in cuda_kernels.launch_counts().items()
                   if v}
         check(sorted(counts) == sorted(kernels), f"{name} launches {counts}")
+        # K3: one launch per mode of (1, 3, 5, 7, 4)
+        check(name != "alpha" or counts["bc7_refine_alpha"] == 5,
+              f"{name} K3 launches {counts}")
         check(tuple(dec.shape) == (nb, 16, 4)
               and bool(torch.isfinite(dec).all()), f"{name} output")
         mse = float(((dec.to(torch.float64) - blocks.to(torch.float64))
@@ -1001,7 +1058,10 @@ def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
         fn()
         med[name] = float(np.median(event_ms(fn, 7)))
     texels = size * size
+    bucket_counts = buckets_equal(torch, w_search_a, ralpha,
+                                  f"alpha{size} alpha scope")
     emit({"phase": "alpha2k", "card": smi, "blocks": nb,
+          "bucket_counts": bucket_counts,
           "opaque_blocks": int((px_a.reshape(16, 4, -1)[:, 3, :] == 255)
                                .all(dim=0).sum()),
           "runs": runs, "ms": med,
@@ -1141,8 +1201,11 @@ def bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
         torch.cuda.synchronize()
         counts = {k: v for k, v in cuda_kernels.launch_counts().items()
                   if v}
-        want = {k2: 1, "bc7_refine_maxq": 1, "bc7_refine_ladder": 1,
-                "bc7_decode": 1}
+        # K3 twice: a bucket pass and one launch per mode of the search's
+        # modes (five, six with mode 7) for each ladder
+        n_modes = 6 if name == "alpha" else 5
+        want = {k2: 1, "bc7_mode_buckets": 2, "bc7_refine_maxq": n_modes,
+                "bc7_refine_ladder": n_modes, "bc7_decode": 1}
         check(counts == want, f"maxq {name} launches {counts}")
         check(tuple(dec.shape) == (nb, 16, 4)
               and bool(torch.isfinite(dec).all()), f"maxq {name} output")
@@ -1169,7 +1232,7 @@ def bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
         same(w_s, plain["search"][1], f"K2 maxq words {name} {size}^2")
         same(e_k, plain["search"][0], f"K2 maxq errors {name} {size}^2")
         max_err[k2] = float((e_k - plain["search"][0]).abs().max())
-        # both K3 launches of each path, held at that path's own shapes
+        # both K3 calls of each path, held at that path's own shapes
         for k3, key, fn in (
                 ("bc7_refine_maxq", "moment",
                  lambda: bc67._bc7_refine_plain(px, w_s, modes)),
@@ -1209,8 +1272,8 @@ def bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
             ("bc7_encode", lambda: cuda_kernels.bc7_encode(px_o)),
             ("bc7_refine", lambda: cuda_kernels.bc7_refine(
                 px_o, w_default, bc67.REFINE_MODES)),
-            # the default tier's moment instance (no mode-6 code) on the
-            # maxq search's words, beside bc7_refine_maxq on the same words
+            # the default scope (mode 6 not refined) on the maxq search's
+            # words, beside bc7_refine_maxq on the same words
             ("bc7_refine_on_maxq_words", lambda: cuda_kernels.bc7_refine(
                 px_o, ws_o, bc67.REFINE_MODES))):
         fn()
@@ -1335,10 +1398,11 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
                     (r_k != r_m).any(dim=0).sum())
             out["K3_3sub_moment_refined_blocks"] = int(
                 (r_m != w_k).any(dim=0).sum())
-            # two launches over the whole default scope = one plain refine
+            # the per-mode launches over the whole default scope = one
+            # plain refine
             same(cuda_kernels.bc7_refine(px, w_k, scope, aw),
                  bc67._bc7_refine_plain(px, w_k, scope, aw),
-                 f"K3 two launches {what}")
+                 f"K3 whole scope {what}")
             emit(out)
             if label == "sub3batch":
                 check(out["search_modes"][0] > 0
@@ -1388,15 +1452,17 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
     nb = px_o.shape[1]
     runs = {}
     for name, img, flags, k2, k3 in (
-            ("use3_opaque", img_opaque, USE3, "bc7_encode", ("bc7_refine",)),
+            ("use3_opaque", img_opaque, USE3, "bc7_encode",
+             {"bc7_refine": 4}),
             ("use3_alpha", img_alpha, USE3, "bc7_encode_alpha",
-             ("bc7_refine_alpha",)),
+             {"bc7_refine_alpha": 5}),
             ("use3_maxq_opaque", img_opaque, USE3 | MAXQ, "bc7_encode_maxq",
-             ("bc7_refine_maxq", "bc7_refine_ladder",
-              "bc7_refine_3sub_ladder")),
+             {"bc7_refine_maxq": 5, "bc7_refine_ladder": 5,
+              "bc7_refine_3sub_ladder": 2}),
             ("use3_maxq_alpha", img_alpha, USE3 | MAXQ,
-             "bc7_encode_maxq_alpha", ("bc7_refine_maxq", "bc7_refine_ladder",
-                                       "bc7_refine_3sub_ladder"))):
+             "bc7_encode_maxq_alpha", {"bc7_refine_maxq": 6,
+                                       "bc7_refine_ladder": 6,
+                                       "bc7_refine_3sub_ladder": 2})):
         torch.cuda.synchronize()
         cuda_kernels.reset_launch_counts()
         blocks = image_to_blocks(img)[0]
@@ -1405,9 +1471,13 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
         torch.cuda.synchronize()
         counts = {k: v for k, v in cuda_kernels.launch_counts().items()
                   if v}
+        # per K3 ladder a bucket pass, modes 0 and 2, and one launch per
+        # other mode of the scope
         want = {"bc7_partition_shapes": 2, "bc7_partition_mode": 2, k2: 1,
-                "bc7_refine_3sub": 1, "bc7_decode": 1}
-        want.update({k: 1 for k in k3})
+                "bc7_mode_buckets": 2 if flags & MAXQ else 1,
+                "bc7_refine_3sub": 2,
+                "bc7_decode": 1}
+        want.update(k3)
         check(counts == want, f"{name} launches {counts}")
         check(tuple(dec.shape) == (nb, 16, 4)
               and bool(torch.isfinite(dec).all()), f"{name} output")
@@ -1460,7 +1530,7 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
         f3=bc67._bc7_refine_plain(px_o, w_mq, (0, 2), 1.0, full)))[0]
     same(w_fq, plain["f3"], f"K3 3sub full {size}^2")
     same(w_m, bc67._bc7_refine_plain(px_o, w_s, bc67.REFINE_MODES_3),
-         f"K3 both launches {size}^2")
+         f"K3 whole scope {size}^2")
     e_p, w_p = bc67._bc7_search_plain(px_o, bc67.SEARCH_MODES_3, 1.0,
                                       bc67.TIER_MAXQ)
     same(w_sq, w_p, f"maxq search with modes 0/2 {size}^2")
@@ -1498,7 +1568,7 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
         same(w_k, w_p, f"{key} search with modes 0/2 alpha {size}^2")
         same(e_k, e_p, f"{key} search errors with modes 0/2 alpha {size}^2")
         # K3 MOMENT over (0, 2) alone, then the path's whole MOMENT scope
-        # (both launches) and, at maxq, FULL over (0, 2) on its output
+        # and, at maxq, FULL over (0, 2) on its output
         r_k = cuda_kernels.bc7_refine(px_a, w_k, (0, 2))
         r_p = bc67._bc7_refine_plain(px_a, w_k, (0, 2))
         same(r_k, r_p, f"K3 3sub moment {key} alpha {size}^2")
@@ -1508,7 +1578,7 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
                  else search_a)
         m_k = cuda_kernels.bc7_refine(px_a, w_k, scope)
         same(m_k, bc67._bc7_refine_plain(px_a, w_k, scope),
-             f"K3 both launches {key} alpha {size}^2")
+             f"K3 whole scope {key} alpha {size}^2")
         modes_a = bc67._mode_of(bc67._words_i64(w_k))
         alpha_cmp[key] = {"search_modes": hist(w_k),
                           "mode02_blocks": int(((modes_a == 0)

@@ -897,6 +897,40 @@ def _top_k_shapes(ests, k: int):
     return picks
 
 
+def _top4_merge_plain(ests, n_slices: int = 4):
+    """Plain twin of K2 opaque's slice-and-merge ranking: warp w of a CTA
+    ranks the shapes w, w + n_slices, ... and keeps its top 4 by
+    (estimate, shape); the four lists are merged by the same total order,
+    the lower shape first on an equal estimate. Returns what
+    _top_k_shapes(ests, 4) returns: 4 [NB] int64 shape indices in rank
+    order. ests [S, NB]."""
+    nb = ests.shape[1]
+    entries = []
+    for w in range(n_slices):
+        sub = ests[w::n_slices]
+        for p in _top_k_shapes(sub, 4):
+            entries.append((torch.gather(sub, 0, p[None])[0],
+                            p * n_slices + w))
+    bv = [torch.full((nb,), float("inf"), device=ests.device)] * 4
+    bi = [torch.full((nb,), ests.shape[0], dtype=torch.int64,
+                     device=ests.device)] * 4
+
+    def before(e1, s1, e2, s2):
+        return (e1 < e2) | ((e1 == e2) & (s1 < s2))
+
+    for e, s in entries:
+        ins = before(e, s, bv[3], bi[3])
+        bv[3] = torch.where(ins, e, bv[3])
+        bi[3] = torch.where(ins, s, bi[3])
+        for j in (2, 1, 0):
+            sw = before(bv[j + 1], bi[j + 1], bv[j], bi[j])
+            bv[j], bv[j + 1] = (torch.where(sw, bv[j + 1], bv[j]),
+                                torch.where(sw, bv[j], bv[j + 1]))
+            bi[j], bi[j + 1] = (torch.where(sw, bi[j + 1], bi[j]),
+                                torch.where(sw, bi[j], bi[j + 1]))
+    return bi
+
+
 def _eval_2sub_shared(px_i, px_f, mask_list, anchors, mode_ids,
                       aw: float = 1.0):
     """One shape candidate for the 2-subset family (bc67.py:1088): ONE
@@ -1793,6 +1827,22 @@ def _check_ladder(ladder):
                          "deltas)") from None
 
 
+def _mode_buckets_plain(words: torch.Tensor, mode_mask: int):
+    """Plain twin of K3's bucket pass: words [4, NB] int32 -> (counts [8]
+    int32, per mode the [counts[m]] int32 indices of its blocks in
+    ascending order). A mode outside mode_mask, and the reserved mode,
+    get no bucket."""
+    mode = _mode_of(_words_i64(words))
+    buckets = tuple(
+        torch.nonzero(mode == m).flatten().to(torch.int32)
+        if (mode_mask >> m) & 1
+        else torch.zeros(0, dtype=torch.int32, device=words.device)
+        for m in range(8))
+    counts = torch.tensor([len(b) for b in buckets], dtype=torch.int32,
+                          device=words.device)
+    return counts, buckets
+
+
 def _bc7_refine_plain(px: torch.Tensor, words_i32: torch.Tensor,
                       modes=REFINE_MODES, aw: float = 1.0,
                       ladder=LADDER_MOMENT) -> torch.Tensor:
@@ -1818,8 +1868,8 @@ def bc7_refine_words(px: torch.Tensor, words: torch.Tensor,
     """K3 wrapper: winner-refine with one ladder (LADDER_MOMENT or an
     exact (rounds, deltas) ladder) over `modes`, a subset of 0..7. px
     [64, NB] int32, words [4, NB] int32 -> words [4, NB] int32. A CUDA
-    tensor launches the kernel (a second instance for modes 0 and 2), a
-    CPU tensor runs the plain twin."""
+    tensor launches the kernels (the bucket pass, then one launch per mode
+    in scope), a CPU tensor runs the plain twin."""
     _check_words(words)
     _check_px(px, words.shape[1])
     modes = _check_refine_modes(modes)

@@ -13,12 +13,12 @@ live in bc67.py, and bc67's wrappers call these only for CUDA tensors.
        bc7_encode_quick.cu mode 6 alone, bc7_encode_maxq.cu and
        bc7_encode_maxq_alpha.cu the maxq tier without and with mode 7)
     K3 bc7_refine  csrc/bc7_refine.cuh replaces pallas_kernels.py:2667
-       (bc7_refine.cu LADDER_MOMENT, bc7_refine_ladder.cu the exact
-       ladders; launch counts kept apart for the default scope,
-       bc7_refine, the scope with mode 7, bc7_refine_alpha, the maxq
-       scope with mode 6, bc7_refine_maxq, and the exact ladders,
-       bc7_refine_ladder; modes 0 and 2 run in instances of their own,
-       bc7_refine_3sub.cu and bc7_refine_3sub_ladder.cu, counted as
+       (a bucket pass, bc7_mode_buckets in bc7_refine.cu, then one launch
+       per mode in scope of bc7_refine_mode_kernel, mode M's instances
+       built by bc7_refine_<M>.cu; the per-mode launches are counted by
+       scope: the default scope, bc7_refine, the scope with mode 7,
+       bc7_refine_alpha, the maxq scope with mode 6, bc7_refine_maxq, the
+       exact ladders, bc7_refine_ladder, and modes 0 and 2 in any scope,
        bc7_refine_3sub and bc7_refine_3sub_ladder)
     K4 bc6h_decode csrc/bc6h_decode.cu replaces pallas_kernels.py:2784
     K5 bc6h_encode csrc/bc6h_encode.cu replaces pallas_kernels.py:3744
@@ -60,15 +60,21 @@ class CudaKernel:
         self.launches = 0
 
     def launch(self, tensors, ints, device: torch.device) -> None:
-        lib = _build.library({k.symbol: (k.n_ptrs, k.n_ints)
-                              for k in KERNELS.values()})
-        stream = torch.cuda.current_stream(device).cuda_stream
-        with torch.cuda.device(device):
-            rc = getattr(lib, self.symbol)(
-                *(t.data_ptr() for t in tensors), *ints, stream)
-        if rc != 0:
-            raise RuntimeError(f"{self.symbol}: CUDA error {rc} at launch")
+        _call(self.symbol, tensors, ints, device)
         self.launches += 1
+
+
+def _call(symbol: str, tensors, ints, device: torch.device) -> None:
+    """Call a C entry point of the kernel library on the device's current
+    stream; raise if it reports a CUDA error."""
+    lib = _build.library({k.symbol: (k.n_ptrs, k.n_ints)
+                          for k in KERNELS.values()})
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = getattr(lib, symbol)(*(t.data_ptr() for t in tensors), *ints,
+                                  stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {rc} at launch")
 
 
 KERNELS = {
@@ -79,18 +85,18 @@ KERNELS = {
     "bc7_encode_maxq": CudaKernel("bc7_encode_maxq_launch", 3, 2),
     "bc7_encode_maxq_alpha": CudaKernel("bc7_encode_maxq_alpha_launch", 3,
                                         2),
-    "bc7_refine": CudaKernel("bc7_refine_launch", 3, 3),
-    "bc7_refine_alpha": CudaKernel("bc7_refine_launch", 3, 3),
-    "bc7_refine_maxq": CudaKernel("bc7_refine_launch", 3, 3),
-    "bc7_refine_ladder": CudaKernel("bc7_refine_ladder_launch", 3, 5),
+    "bc7_mode_buckets": CudaKernel("bc7_mode_buckets_launch", 4, 2),
+    "bc7_refine": CudaKernel("bc7_refine_launch", 5, 6),
+    "bc7_refine_alpha": CudaKernel("bc7_refine_launch", 5, 6),
+    "bc7_refine_maxq": CudaKernel("bc7_refine_launch", 5, 6),
+    "bc7_refine_ladder": CudaKernel("bc7_refine_launch", 5, 6),
     "bc6h_decode": CudaKernel("bc6h_decode_launch", 2, 2),
     "bc6h_encode": CudaKernel("bc6h_encode_launch", 3, 2),
     "bc6h_refine": CudaKernel("bc6h_refine_launch", 3, 8),
     "bc7_partition_shapes": CudaKernel("bc7_partition_shapes_launch", 2, 3),
     "bc7_partition_mode": CudaKernel("bc7_partition_mode_launch", 4, 4),
-    "bc7_refine_3sub": CudaKernel("bc7_refine_3sub_launch", 3, 3),
-    "bc7_refine_3sub_ladder": CudaKernel("bc7_refine_3sub_ladder_launch", 3,
-                                         5),
+    "bc7_refine_3sub": CudaKernel("bc7_refine_launch", 5, 6),
+    "bc7_refine_3sub_ladder": CudaKernel("bc7_refine_launch", 5, 6),
     "bc7_single_modes": CudaKernel("bc7_single_modes_launch", 3, 2),
     "bc6h_1region": CudaKernel("bc6h_1region_launch", 3, 2),
     "bc6h_shapes": CudaKernel("bc6h_shapes_launch", 2, 1),
@@ -189,16 +195,51 @@ def bc7_ladder_ints(ladder) -> tuple:
     return rounds, sum(d << (8 * j) for j, d in enumerate(deltas))
 
 
+def bc7_mode_buckets(words: torch.Tensor, mode_mask: int):
+    """K3's bucket pass: words [4, NB] int32 -> (a copy of the words,
+    lists [8, NB] int32, counts [8] int32): for each mode m in mode_mask,
+    counts[m] blocks of mode m, their indices in lists[m, :counts[m]] in
+    no fixed order (each warp's in lane order); the rest of lists is
+    unset."""
+    _check(words, "words", 4)
+    nb = words.shape[1]
+    if not 0 <= mode_mask < 256:
+        raise ValueError(f"mode_mask {mode_mask}: bits 0-7 are the modes")
+    out = torch.empty_like(words)
+    lists = torch.empty((8, nb), dtype=torch.int32, device=words.device)
+    if not nb:
+        return out, lists, torch.zeros(8, dtype=torch.int32,
+                                       device=words.device)
+    counts = torch.empty(8, dtype=torch.int32, device=words.device)
+    # the launcher zeroes the counts before the pass
+    KERNELS["bc7_mode_buckets"].launch((words, out, lists, counts),
+                                       (nb, mode_mask), words.device)
+    return out, lists, counts
+
+
+def _refine_count_names(modes: tuple, exact: bool) -> dict:
+    """The launch count of each mode's launch: modes 0 and 2 apart, the
+    others by their scope."""
+    rest = tuple(m for m in modes if m not in (0, 2))
+    name = ("bc7_refine_ladder" if exact else
+            "bc7_refine_maxq" if 6 in rest else
+            "bc7_refine_alpha" if 7 in rest else "bc7_refine")
+    sub3 = "bc7_refine_3sub_ladder" if exact else "bc7_refine_3sub"
+    return {m: sub3 if m in (0, 2) else name for m in modes}
+
+
 def bc7_refine(px: torch.Tensor, words: torch.Tensor, modes: tuple,
                aw: float = 1.0, ladder="moment") -> torch.Tensor:
     """K3: winner-refine of the blocks whose mode is in `modes` (a subset
     of 0..7) with one ladder: "moment" (LADDER_MOMENT) or an exact
     (rounds, deltas) ladder (0-15 rounds, 1-4 deltas in 1..127), the alpha
     channel's squared error weighted by aw. px [64, NB], words [4, NB]
-    int32 -> words [4, NB] int32. Modes 0 and 2 run in a second launch,
-    of the three-subset instance, after the one over the other modes: a
-    block is re-emitted only by its own mode's branch, so the two
-    launches over disjoint scopes give the words of one over both."""
+    int32 -> words [4, NB] int32. The bucket pass copies the words and
+    sorts the in-scope blocks into one list per mode; then one launch per
+    mode refines its list into the copy, all from one call into the
+    kernel library. Each block is read and written by its own mode's
+    launch only, so the words are those of one pass over the whole
+    scope. No host sync: the bucket sizes stay on the card."""
     _check(words, "words", 4)
     nb = words.shape[1]
     _check(px, "px", 64, nb)
@@ -207,26 +248,19 @@ def bc7_refine(px: torch.Tensor, words: torch.Tensor, modes: tuple,
     for m in modes:
         if m not in range(8):
             raise ValueError(f"K3 refines modes 0-7; got {m}")
-    rest = tuple(m for m in modes if m not in (0, 2))
-    sub3 = tuple(m for m in modes if m in (0, 2))
-    lad = () if ladder == "moment" else bc7_ladder_ints(ladder)
-    launches = []
-    if rest or not sub3:
-        launches.append((rest, "bc7_refine_ladder" if lad else
-                         "bc7_refine_maxq" if 6 in rest else
-                         "bc7_refine_alpha" if 7 in rest else "bc7_refine"))
-    if sub3:
-        launches.append((sub3, "bc7_refine_3sub_ladder" if lad
-                         else "bc7_refine_3sub"))
-    out = words
-    for scope, name in launches:
-        step = torch.empty_like(words)
-        if nb:
-            KERNELS[name].launch(
-                (px, out, step),
-                (nb, sum(1 << m for m in scope), _f32_bits(aw)) + lad,
-                px.device)
-        out = step
+    scope = tuple(sorted(set(modes)))
+    lad = (0, 0, 0) if ladder == "moment" else (1, *bc7_ladder_ints(ladder))
+    out = torch.empty_like(words)
+    if not nb:
+        return out
+    lists = torch.empty((8, nb), dtype=torch.int32, device=words.device)
+    counts = torch.empty(8, dtype=torch.int32, device=words.device)
+    _call("bc7_refine_launch", (px, words, out, lists, counts),
+          (nb, sum(1 << m for m in scope), _f32_bits(aw)) + lad, px.device)
+    # that call launched the bucket pass and one kernel per mode in scope
+    KERNELS["bc7_mode_buckets"].launches += 1
+    for name in _refine_count_names(scope, bool(lad[0])).values():
+        KERNELS[name].launches += 1
     return out
 
 

@@ -1,6 +1,7 @@
 // K2, variant kOpaque: the default tier's search on images without alpha,
-// modes (1, 3, 5, 6, 4). The kernel is bc7_encode.cuh's; this source
-// builds its instances.
+// modes (1, 3, 5, 6, 4), as a team of four warps per 32 blocks
+// (bc7_encode.cuh's bc7_encode_opaque_kernel); this source builds its
+// instances.
 #include "bc7_encode.cuh"
 
 extern "C" int bc7_encode_launch(const void* px, void* err, void* words,

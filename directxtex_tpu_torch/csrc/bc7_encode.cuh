@@ -1,4 +1,6 @@
-// K2 — the whole BC7 search of one tier, one thread per 4x4 block.
+// K2 — the whole BC7 search of one tier: the opaque variant as a team of
+// four warps per 32 blocks (below, bc7_encode_opaque_kernel), the others
+// one thread per 4x4 block.
 //
 // Replaces directxtex_tpu/bc/pallas_kernels.py:bc7_encode_pallas /
 // _bc7_all_kernel, in five variants, each a template instance built from
@@ -46,22 +48,26 @@
 //     its own running best over its candidates, so the fold runs in the
 //     twin's order whatever order the modes were evaluated in.
 // The TPU evaluated every lane through where-chains over [16, T] planes;
-// here each block is one thread's scalar program. The TPU kernel fixes the
-// mode-4/5 anchors once, on the fold winner (_k_mode45_finish); this
-// kernel fixes and emits every candidate as the jnp twin does. A fix moves
-// no error, so the winner and its words are the same.
+// here each block is one thread's scalar program (split over four warps'
+// phases in the opaque variant). The TPU kernel fixes the mode-4/5
+// anchors once, on the fold winner (_k_mode45_finish); this kernel fixes
+// and emits every candidate as the jnp twin does. A fix moves no error, so
+// the winner and its words are the same.
 //
 // Bound: compute. A block reads 64 bytes and writes 20, against roughly
 // 10^5 integer and f32 operations, so the kernel is limited by issue rate
-// and by registers: the per-thread state (16 packed pixels, 16 centred
-// pixel vectors during ranking, 16 indices, endpoints) spills past 255
-// registers into local memory, which the L1 cache serves. The design keeps
-// pixels packed as RGBA8 words (16 registers for the block), recomputes
-// cross moments instead of holding them, keeps the top-4 shapes in a
-// compare-swap chain, and loops over shapes, candidates and rotations
-// without unrolling to bound code size and build time. The maxq variants
-// run each mode's candidates as a loop of its own, after the others, so
-// that only one mode's fit state is live at a time.
+// and by registers. In the one-thread variants the per-thread state (16
+// packed pixels, 16 centred pixel vectors during ranking, 16 indices,
+// endpoints) spills past 255 registers into local memory, which the L1
+// cache serves. The design keeps pixels packed as RGBA8 words (16
+// registers for the block), recomputes cross moments instead of holding
+// them, keeps the top-4 shapes in a compare-swap chain, and loops over
+// shapes, candidates and rotations without unrolling to bound code size
+// and build time. The maxq variants run each mode's candidates as a loop
+// of its own, after the others, so that only one mode's fit state is live
+// at a time. The opaque team kernel stages pixels and centred pixels in
+// shared memory and gives each warp one phase's slice at a time, so that
+// its state fits 128 registers.
 //
 // Built with --fmad=false: every float step rounds as the plain twin's
 // separate torch ops do, so kernel and twin pick the same words.
@@ -265,17 +271,35 @@ __device__ __forceinline__ void quantize_endpoints(const float e0f[4],
   p1 = nvote ? (v1 > (nvote >> 1) ? 1 : 0) : 0;
 }
 
-// Off-axis ranking of the first S shapes with NS subsets
-// (_shape_estimates_table(off_axis=True) + _top_k_shapes, bc67.py:1243):
-// the 4 shapes of least (estimate, shape), in that order. K2 ranks the 64
-// two-subset shapes; K9 (bc7_shapes.cu) any of (2 or 3 subsets) x (16 or
-// 64 shapes). Each subset's 11 masked sums run over the 16 pixels in
-// pixel order, as the plain twin's masked sums do.
-template <int NS = 2, int S = 64>
-__device__ __forceinline__ void shape_top4(const uint32_t pix[16],
-                                           int cand[4]) {
-  static_assert(NS == 2 || NS == 3, "two or three subsets");
-  float mu[4], xc[16][4], q[16];
+// A block's 11 moment terms of pixel i, as the shape ranking sums them:
+// |xc|^2, xc (4 channels) and the RGB cross products xc_a * xc_b (a <= b),
+// xc the pixel less the block's mean. MomentsRegs computes them from a
+// thread's centred pixels; the opaque search's team reads them staged in
+// shared memory (MomentsShared below). fence() ends one shape's reads.
+struct MomentsRegs {
+  const float (*xc)[4];
+  const float* q;
+  __device__ __forceinline__ void fence() const {}
+  __device__ __forceinline__ void operator()(int i, float v[11]) const {
+    const float x0 = xc[i][0], x1 = xc[i][1], x2 = xc[i][2], x3 = xc[i][3];
+    v[0] = q[i];
+    v[1] = x0;
+    v[2] = x1;
+    v[3] = x2;
+    v[4] = x3;
+    v[5] = x0 * x0;
+    v[6] = x0 * x1;
+    v[7] = x0 * x2;
+    v[8] = x1 * x1;
+    v[9] = x1 * x2;
+    v[10] = x2 * x2;
+  }
+};
+
+// The block's mean per channel, summed in pixel order
+// (_shape_estimates_table's mu)
+__device__ __forceinline__ void block_mean(const uint32_t pix[16],
+                                           float mu[4]) {
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     float s = 0.0f;
@@ -283,6 +307,14 @@ __device__ __forceinline__ void shape_top4(const uint32_t pix[16],
     for (int i = 0; i < 16; ++i) s = s + (float)px_at(pix, i, c);
     mu[c] = s * (1.0f / 16.0f);
   }
+}
+
+// Centred pixels and their squared norms (_shape_estimates_table's xc
+// and q)
+__device__ __forceinline__ void shape_moments(const uint32_t pix[16],
+                                              float xc[16][4], float q[16]) {
+  float mu[4];
+  block_mean(pix, mu);
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
 #pragma unroll
@@ -292,11 +324,22 @@ __device__ __forceinline__ void shape_top4(const uint32_t pix[16],
     s = s + xc[i][2] * xc[i][2];
     q[i] = s + xc[i][3] * xc[i][3];
   }
+}
+
+// The off-axis estimate of the shapes first, first + STRIDE, ... below
+// last with NS subsets, folded into a running top 4 (bv, bi) by
+// (estimate, shape): a tie keeps the earlier shape first, as jnp.argmin
+// does. Each subset's 11 masked sums run over the 16 pixels in pixel
+// order, as the plain twin's masked sums do.
+template <int NS, int STRIDE, class Moments>
+__device__ __forceinline__ void rank_shapes(const Moments& mom, int first,
+                                            int last, float bv[4],
+                                            int bi[4]) {
+  static_assert(NS == 2 || NS == 3, "two or three subsets");
   const float on_axis = (float)(1.0 - 0.05);   // 1 - _ON_AXIS_W
-  float bv[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
-  int bi[4] = {0, 0, 0, 0};
 #pragma unroll 1
-  for (int s = 0; s < S; ++s) {
+  for (int s = first; s < last; s += STRIDE) {
+    mom.fence();
     const uint32_t pp = NS == 2 ? c_pp2[s] : c_pp3[s];
     // 11 masked 16-pixel sums per subset: |xc|^2, xc (4), RGB cross (6)
     float acc[NS][11];
@@ -307,10 +350,8 @@ __device__ __forceinline__ void shape_top4(const uint32_t pix[16],
     }
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
-      const float v[11] = {q[i], xc[i][0], xc[i][1], xc[i][2], xc[i][3],
-                           xc[i][0] * xc[i][0], xc[i][0] * xc[i][1],
-                           xc[i][0] * xc[i][2], xc[i][1] * xc[i][1],
-                           xc[i][1] * xc[i][2], xc[i][2] * xc[i][2]};
+      float v[11];
+      mom(i, v);
       // pp is the same in every thread: no divergence
       if constexpr (NS == 3) {
         const unsigned sub = (pp >> (2 * i)) & 3u;
@@ -392,6 +433,22 @@ __device__ __forceinline__ void shape_top4(const uint32_t pix[16],
       if (bv[1] < bv[0]) { const float t = bv[0]; bv[0] = bv[1]; bv[1] = t; swap_ints(bi[0], bi[1]); }
     }
   }
+}
+
+// Off-axis ranking of the first S shapes with NS subsets
+// (_shape_estimates_table(off_axis=True) + _top_k_shapes, bc67.py:1243):
+// the 4 shapes of least (estimate, shape), in that order. K9
+// (bc7_shapes.cu) ranks any of (2 or 3 subsets) x (16 or 64 shapes), the
+// one-thread K2 variants the 64 two-subset shapes; one thread ranks every
+// shape of its block.
+template <int NS = 2, int S = 64>
+__device__ __forceinline__ void shape_top4(const uint32_t pix[16],
+                                           int cand[4]) {
+  float xc[16][4], q[16];
+  shape_moments(pix, xc, q);
+  float bv[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
+  int bi[4] = {0, 0, 0, 0};
+  rank_shapes<NS, 1>(MomentsRegs{xc, q}, 0, S, bv, bi);
 #pragma unroll
   for (int k = 0; k < 4; ++k) cand[k] = bi[k];
 }
@@ -646,6 +703,37 @@ __device__ __forceinline__ void eval_45_own(const uint32_t prp[16], int rot,
   keep_if_better(best, err, emit_block<M>(0, rot, IM, q0, q1, p0, p1, w1, w2));
 }
 
+// Modes 1/3's shared float trajectory on one shape candidate
+// (_eval_2sub_shared, bc67.py:1128): per subset an axis fit, a K=8 float
+// assignment and an LS refit; m1 the pixel mask of subset 1
+__device__ __forceinline__ void trajectory_2sub(const uint32_t pix[16],
+                                                unsigned m1,
+                                                float se0[2][4],
+                                                float se1[2][4]) {
+#pragma unroll
+  for (int sub = 0; sub < 2; ++sub) {
+    const unsigned msk = sub ? m1 : (~m1 & 0xFFFFu);
+    float idxf[16];
+    minmax_axis<false>(pix, msk, se0[sub], se1[sub]);
+    float_assign<3, 0, 3>(pix, se0[sub], se1[sub], idxf);   // IPREC 3
+    ls_refit_f<3, 0, 3>(pix, idxf, msk, se0[sub], se1[sub]);
+  }
+}
+
+// Modes 4/5's shared float trajectory of one rotation at index mode 0
+// (_k_rot_data + _k_modes45_shared): the rotated pixels and the refitted
+// endpoints
+__device__ __forceinline__ void trajectory_45(const uint32_t pix[16],
+                                              int rot, uint32_t prp[16],
+                                              float e0[4], float e1[4]) {
+  float cidx[16], aidx[16];
+  rot_data(pix, rot, prp, e0, e1);
+  float_assign<2, 0, 3>(prp, e0, e1, cidx);
+  float_assign<3, 3, 4>(prp, e0, e1, aidx);
+  ls_refit_f<2, 0, 3>(prp, cidx, 0xFFFFu, e0, e1);
+  ls_refit_f<3, 3, 4>(prp, aidx, 0xFFFFu, e0, e1);
+}
+
 // The maxq tier's search (_bc7_all_kernel with share2sub=False,
 // share45=False, m4_ims=(0, 1)): each mode's candidates in a loop of its
 // own, then the fold in the order (1, 3, 5, 6, [7,] 4)
@@ -705,10 +793,12 @@ __device__ __forceinline__ Best search_maxq(const uint32_t pix[16],
   return fold;
 }
 
+// The alpha, quick, maxq and maxq-alpha variants: one thread per block
 template <int V, bool W>
 __global__ void __launch_bounds__(kThreads)
     bc7_encode_kernel(const int32_t* __restrict__ px, float* __restrict__ err,
                       uint32_t* __restrict__ words, int nb, float aw) {
+  static_assert(V != kOpaque, "the opaque search is the team kernel's");
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= nb) return;
   uint32_t pix[16];
@@ -728,12 +818,11 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
 
-  // mode 7 only where some texel's alpha is below 255
+  // kAlpha, the default tier with mode 7: mode 7 only where some texel's
+  // alpha is below 255
   bool has_alpha = false;
-  if (V == kAlpha) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) has_alpha |= (pix[i] >> 24) != 0xFFu;
-  }
+  for (int i = 0; i < 16; ++i) has_alpha |= (pix[i] >> 24) != 0xFFu;
 
   // modes 1 and 3: top-4 shapes, one shared float trajectory each
   int cand[4];
@@ -744,14 +833,7 @@ __global__ void __launch_bounds__(kThreads)
     const int shape = cand[k];
     const unsigned m1 = subset1_mask(shape);
     float se0[2][4], se1[2][4];
-#pragma unroll
-    for (int sub = 0; sub < 2; ++sub) {
-      const unsigned msk = sub ? m1 : (~m1 & 0xFFFFu);
-      float idxf[16];
-      minmax_axis<false>(pix, msk, se0[sub], se1[sub]);
-      float_assign<3, 0, 3>(pix, se0[sub], se1[sub], idxf);   // IPREC 3
-      ls_refit_f<3, 0, 3>(pix, idxf, msk, se0[sub], se1[sub]);
-    }
+    trajectory_2sub(pix, m1, se0, se1);
     eval_2sub_mode<1, W>(pix, shape, m1, se0, se1, aw, best1);
     eval_2sub_mode<3, W>(pix, shape, m1, se0, se1, aw, best3);
   }
@@ -763,12 +845,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 1
   for (int rot = 0; rot < 4; ++rot) {
     uint32_t prp[16];
-    float e0[4], e1[4], cidx[16], aidx[16];
-    rot_data(pix, rot, prp, e0, e1);
-    float_assign<2, 0, 3>(prp, e0, e1, cidx);
-    float_assign<3, 3, 4>(prp, e0, e1, aidx);
-    ls_refit_f<2, 0, 3>(prp, cidx, 0xFFFFu, e0, e1);
-    ls_refit_f<3, 3, 4>(prp, aidx, 0xFFFFu, e0, e1);
+    float e0[4], e1[4];
+    trajectory_45(pix, rot, prp, e0, e1);
     eval_45_mode<4, W>(prp, rot, e0, e1, aw, best4);
     eval_45_mode<5, W>(prp, rot, e0, e1, aw, best5);
   }
@@ -777,23 +855,301 @@ __global__ void __launch_bounds__(kThreads)
   // placed inside the shape loop above, where the shared trajectories'
   // state is live, it spilled more and ran markedly slower on the H100.
   Best best7{INFINITY, {0ull, 0ull}};
-  if (V == kAlpha && has_alpha) {
+  if (has_alpha) {
 #pragma unroll 1
     for (int k = 0; k < 4; ++k)
       eval_partition<7, W>(pix, cand[k], subset1_mask(cand[k]), aw,
                               best7);
   }
 
-  // cross-mode fold in the order (1, 3, 5, 6, [7,] 4), strict `<`
+  // cross-mode fold in the order (1, 3, 5, 6, 7, 4), strict `<`
   Best fold{INFINITY, {0ull, 0ull}};
   keep_if_better(fold, best1.err, best1.w);
   keep_if_better(fold, best3.err, best3.w);
   keep_if_better(fold, best5.err, best5.w);
   keep_if_better(fold, best6.err, best6.w);
-  if (V == kAlpha) keep_if_better(fold, best7.err, best7.w);
+  keep_if_better(fold, best7.err, best7.w);
   keep_if_better(fold, best4.err, best4.w);
   err[b] = fold.err;
   store_words(words, nb, b, fold.w);
+}
+
+// ---------------------------------------------------------------------------
+// The opaque search as a team: a CTA of four warps searches 32 blocks, one
+// per lane, and warp w runs slice w of each phase for all 32:
+//   1. the CTA stages the blocks' pixels in shared memory (packed RGBA8,
+//      64 bytes a block), then each pixel's 11 moment terms (warp w
+//      pixels 4w..4w+3 of every block);
+//   2. warp w ranks shapes w, w + 4, ..., w + 60 and keeps a local top 4
+//      by (estimate, shape);
+//   3. every warp merges the four local lists by the same total order
+//      (the lower shape first on an equal estimate: shape_top4's and
+//      _top_k_shapes's tie rule), which gives the one-thread ranking's
+//      cand[0..3] exactly; warp w runs candidate rank w (both subset
+//      trajectories, then modes 1 and 3) and rotation w (modes 4 and 5);
+//      the last warp also runs mode 6. Each result goes to shared memory,
+//      over the moment terms, which no warp reads after the ranking;
+//   4. warp 0 folds each block's results, lane by lane: per mode over the
+//      candidates and the rotations in rank order, then over the modes in
+//      the order (1, 3, 5, 6, 4), with keep_if_better's strict `<`.
+// At any step all 32 lanes of a warp are on the same shape, candidate rank
+// or rotation, so control flow stays uniform in the warp and c_pp2[s]
+// stays a broadcast. The per-shape arithmetic, the trajectories and the
+// per-mode evaluations are the one-thread search's, in the same operation
+// order, so the words and errors are the plain twin's.
+//
+// Registers: the kernel is held to 128 a thread, 16 warps an SM, where
+// the one-thread kernel held 8 at 255. The ranking reads its moment terms
+// from shared memory anew for each shape (MomentsShared's fence): hoisted
+// out of the shape loop, the loads held 80 registers and the ranking
+// spilled. Fenced, it needs 56. The evaluation phase needs more than 128
+// and spills (ptxas, PERF.md), which is what holds the kernel back.
+// ---------------------------------------------------------------------------
+constexpr int kTeamBlocks = 32;                 // blocks per CTA, one a lane
+constexpr int kTeamWarps = kThreads / 32;       // slices of each phase
+static_assert(kTeamWarps == 4, "four candidate ranks and four rotations");
+
+// result slots of a block: modes 1 and 3 per candidate rank, 5 and 4 per
+// rotation, mode 6
+enum TeamSlot { kSlot1 = 0, kSlot3 = 4, kSlot5 = 8, kSlot4 = 12,
+                kSlot6 = 16, kSlots = 17 };
+
+struct TeamSmem {
+  uint32_t pix[16][kTeamBlocks];                // packed RGBA8
+  float top_est[kTeamWarps][4][kTeamBlocks];    // each warp's local top 4
+  int top_shape[kTeamWarps][4][kTeamBlocks];
+  // the ranking's moment terms, then, after the ranking's barrier, the
+  // evaluations' results
+  union {
+    float4 mom[16][3][kTeamBlocks];             // 11 moment terms a pixel
+    struct {
+      float err[kSlots][kTeamBlocks];
+      uint32_t w[kSlots][4][kTeamBlocks];
+    } res;
+  };
+};
+
+// the staged moment terms of lane `lane`'s block, as rank_shapes reads
+// them. The fence (a compiler memory barrier) makes each shape load them
+// anew: hoisted out of the shape loop, they would hold 80 registers.
+struct MomentsShared {
+  const TeamSmem* sm;
+  int lane;
+  __device__ __forceinline__ void fence() const {
+    asm volatile("" ::: "memory");
+  }
+  __device__ __forceinline__ void operator()(int i, float v[11]) const {
+    const float4 a = sm->mom[i][0][lane], b = sm->mom[i][1][lane],
+                 c = sm->mom[i][2][lane];
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+    v[4] = b.x;
+    v[5] = b.y;
+    v[6] = b.z;
+    v[7] = b.w;
+    v[8] = c.x;
+    v[9] = c.y;
+    v[10] = c.z;
+  }
+};
+
+// Phase 1a: pixel j of block b0 + l into pix[j][l]; a lane past the last
+// block stages zeros (its results are never stored)
+__device__ __forceinline__ void team_stage_pixels(
+    TeamSmem& sm, const int32_t* __restrict__ px, int nb, int b0, int tid) {
+#pragma unroll
+  for (int r = 0; r < 16 * kTeamBlocks / kThreads; ++r) {
+    const int slot = r * kThreads + tid;
+    const int i = slot / kTeamBlocks, l = slot % kTeamBlocks;
+    const int b = b0 + l;
+    uint32_t v = 0;
+    if (b < nb) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        v |= ((uint32_t)px[(i * 4 + c) * nb + b] & 0xFFu) << (8 * c);
+    }
+    sm.pix[i][l] = v;
+  }
+}
+
+// Phase 1b: the moment terms of pixels 4w..4w+3 of lane `lane`'s block
+// (the mean over all 16, as shape_moments takes it)
+__device__ __forceinline__ void team_moments(TeamSmem& sm, int warp,
+                                             int lane) {
+  uint32_t pix[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) pix[i] = sm.pix[i][lane];
+  float mu[4];
+  block_mean(pix, mu);
+#pragma unroll
+  for (int j = 0; j < 16 / kTeamWarps; ++j) {
+    const int i = warp * (16 / kTeamWarps) + j;
+    float x[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x[c] = (float)px_at(pix, i, c) - mu[c];
+    float s = x[0] * x[0];
+    s = s + x[1] * x[1];
+    s = s + x[2] * x[2];
+    s = s + x[3] * x[3];
+    sm.mom[i][0][lane] = make_float4(s, x[0], x[1], x[2]);
+    sm.mom[i][1][lane] = make_float4(x[3], x[0] * x[0], x[0] * x[1],
+                                     x[0] * x[2]);
+    sm.mom[i][2][lane] = make_float4(x[1] * x[1], x[1] * x[2], x[2] * x[2],
+                                     0.0f);
+  }
+}
+
+// Phase 2: warp w's slice of the 64 two-subset shapes
+__device__ __forceinline__ void team_rank(TeamSmem& sm, int warp, int lane) {
+  float bv[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
+  int bi[4] = {0, 0, 0, 0};
+  rank_shapes<2, kTeamWarps>(MomentsShared{&sm, lane}, warp, 64, bv, bi);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    sm.top_est[warp][k][lane] = bv[k];
+    sm.top_shape[warp][k][lane] = bi[k];
+  }
+}
+
+// (e1, s1) before (e2, s2) in the ranking's total order
+__device__ __forceinline__ bool rank_before(float e1, int s1, float e2,
+                                            int s2) {
+  return e1 < e2 || (e1 == e2 && s1 < s2);
+}
+
+// The merged rank `k` shape of lane `lane`'s block
+__device__ __forceinline__ int team_candidate(const TeamSmem& sm, int k,
+                                              int lane) {
+  float bv[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
+  int bi[4] = {64, 64, 64, 64};
+#pragma unroll
+  for (int w = 0; w < kTeamWarps; ++w) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float e = sm.top_est[w][j][lane];
+      const int s = sm.top_shape[w][j][lane];
+      if (rank_before(e, s, bv[3], bi[3])) {
+        bv[3] = e;
+        bi[3] = s;
+#pragma unroll
+        for (int t = 2; t >= 0; --t) {
+          if (rank_before(bv[t + 1], bi[t + 1], bv[t], bi[t])) {
+            const float f = bv[t];
+            bv[t] = bv[t + 1];
+            bv[t + 1] = f;
+            swap_ints(bi[t], bi[t + 1]);
+          }
+        }
+      }
+    }
+  }
+  return k == 0 ? bi[0] : k == 1 ? bi[1] : k == 2 ? bi[2] : bi[3];
+}
+
+__device__ __forceinline__ void team_put(TeamSmem& sm, int slot, int lane,
+                                         const Best& r) {
+  sm.res.err[slot][lane] = r.err;
+  sm.res.w[slot][0][lane] = (uint32_t)r.w.lo;
+  sm.res.w[slot][1][lane] = (uint32_t)(r.w.lo >> 32);
+  sm.res.w[slot][2][lane] = (uint32_t)r.w.hi;
+  sm.res.w[slot][3][lane] = (uint32_t)(r.w.hi >> 32);
+}
+
+__device__ __forceinline__ Best team_get(const TeamSmem& sm, int slot,
+                                         int lane) {
+  Best r;
+  r.err = sm.res.err[slot][lane];
+  r.w.lo = (unsigned long long)sm.res.w[slot][0][lane]
+         | ((unsigned long long)sm.res.w[slot][1][lane] << 32);
+  r.w.hi = (unsigned long long)sm.res.w[slot][2][lane]
+         | ((unsigned long long)sm.res.w[slot][3][lane] << 32);
+  return r;
+}
+
+// Phase 3: candidate rank w (modes 1 and 3), rotation w (modes 4 and 5)
+// and, on the last warp, mode 6
+template <bool W>
+__device__ __forceinline__ void team_eval(TeamSmem& sm, int warp, int lane,
+                                          float aw) {
+  uint32_t pix[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) pix[i] = sm.pix[i][lane];
+  {
+    const int shape = team_candidate(sm, warp, lane);
+    const unsigned m1 = subset1_mask(shape);
+    float se0[2][4], se1[2][4];
+    trajectory_2sub(pix, m1, se0, se1);
+    Best r1{INFINITY, {0ull, 0ull}}, r3{INFINITY, {0ull, 0ull}};
+    eval_2sub_mode<1, W>(pix, shape, m1, se0, se1, aw, r1);
+    team_put(sm, kSlot1 + warp, lane, r1);
+    eval_2sub_mode<3, W>(pix, shape, m1, se0, se1, aw, r3);
+    team_put(sm, kSlot3 + warp, lane, r3);
+  }
+  {
+    const int rot = warp;
+    uint32_t prp[16];
+    float e0[4], e1[4];
+    trajectory_45(pix, rot, prp, e0, e1);
+    Best r4{INFINITY, {0ull, 0ull}}, r5{INFINITY, {0ull, 0ull}};
+    eval_45_mode<4, W>(prp, rot, e0, e1, aw, r4);
+    team_put(sm, kSlot4 + rot, lane, r4);
+    eval_45_mode<5, W>(prp, rot, e0, e1, aw, r5);
+    team_put(sm, kSlot5 + rot, lane, r5);
+  }
+  if (warp == kTeamWarps - 1) team_put(sm, kSlot6, lane, eval_mode6<W>(pix, aw));
+}
+
+// Phase 4: lane `lane`'s fold, stored for a block below nb
+__device__ __forceinline__ void team_fold(const TeamSmem& sm, int lane,
+                                          float* __restrict__ err,
+                                          uint32_t* __restrict__ words,
+                                          int nb, int b0) {
+  Best best1{INFINITY, {0ull, 0ull}}, best3{INFINITY, {0ull, 0ull}};
+  Best best4{INFINITY, {0ull, 0ull}}, best5{INFINITY, {0ull, 0ull}};
+#pragma unroll
+  for (int k = 0; k < kTeamWarps; ++k) {
+    Best r = team_get(sm, kSlot1 + k, lane);
+    keep_if_better(best1, r.err, r.w);
+    r = team_get(sm, kSlot3 + k, lane);
+    keep_if_better(best3, r.err, r.w);
+    r = team_get(sm, kSlot5 + k, lane);
+    keep_if_better(best5, r.err, r.w);
+    r = team_get(sm, kSlot4 + k, lane);
+    keep_if_better(best4, r.err, r.w);
+  }
+  const Best best6 = team_get(sm, kSlot6, lane);
+  Best fold{INFINITY, {0ull, 0ull}};
+  keep_if_better(fold, best1.err, best1.w);
+  keep_if_better(fold, best3.err, best3.w);
+  keep_if_better(fold, best5.err, best5.w);
+  keep_if_better(fold, best6.err, best6.w);
+  keep_if_better(fold, best4.err, best4.w);
+  const int b = b0 + lane;
+  if (b < nb) {
+    err[b] = fold.err;
+    store_words(words, nb, b, fold.w);
+  }
+}
+
+template <bool W>
+__global__ void __launch_bounds__(kThreads, 4)
+    bc7_encode_opaque_kernel(const int32_t* __restrict__ px,
+                             float* __restrict__ err,
+                             uint32_t* __restrict__ words, int nb, float aw) {
+  __shared__ TeamSmem sm;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b0 = blockIdx.x * kTeamBlocks;
+  team_stage_pixels(sm, px, nb, b0, tid);
+  __syncthreads();
+  team_moments(sm, warp, lane);
+  __syncthreads();
+  team_rank(sm, warp, lane);
+  __syncthreads();
+  team_eval<W>(sm, warp, lane, aw);
+  __syncthreads();
+  if (warp == 0) team_fold(sm, lane, err, words, nb, b0);
 }
 
 // Host launcher of variant V: alpha_weight arrives as its f32 bit pattern;
@@ -803,13 +1159,27 @@ int launch_encode(const void* px, void* err, void* words, int nb,
                   int aw_bits, void* stream) {
   float aw;
   std::memcpy(&aw, &aw_bits, sizeof aw);
-  const int grid = (nb + kThreads - 1) / kThreads;
-  if (aw != 1.0f)
-    bc7_encode_kernel<V, true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)px, (float*)err, (uint32_t*)words, nb, aw);
-  else
-    bc7_encode_kernel<V, false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)px, (float*)err, (uint32_t*)words, nb, aw);
+  if constexpr (V == kOpaque) {
+    const int grid = (nb + kTeamBlocks - 1) / kTeamBlocks;
+    if (aw != 1.0f)
+      bc7_encode_opaque_kernel<true>
+          <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+              (const int32_t*)px, (float*)err, (uint32_t*)words, nb, aw);
+    else
+      bc7_encode_opaque_kernel<false>
+          <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+              (const int32_t*)px, (float*)err, (uint32_t*)words, nb, aw);
+  } else {
+    const int grid = (nb + kThreads - 1) / kThreads;
+    if (aw != 1.0f)
+      bc7_encode_kernel<V, true>
+          <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+              (const int32_t*)px, (float*)err, (uint32_t*)words, nb, aw);
+    else
+      bc7_encode_kernel<V, false>
+          <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+              (const int32_t*)px, (float*)err, (uint32_t*)words, nb, aw);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
-// K3 — BC7 winner-refine, one thread per 4x4 block, with the analytic
-// moment ladder (LADDER_MOMENT) or an exact perturbation ladder
-// (LADDER_FULL, LADDER_LIGHT).
+// K3 — BC7 winner-refine with the analytic moment ladder (LADDER_MOMENT)
+// or an exact perturbation ladder (LADDER_FULL, LADDER_LIGHT), one launch
+// per mode in scope over that mode's blocks.
 //
 // Replaces directxtex_tpu/bc/pallas_kernels.py:bc7_refine_pallas /
 // _bc7_refine_kernel (its _k_refine_2sub and _k_refine_45uni passes, built
@@ -19,25 +19,28 @@
 //     deltas are launch arguments, so LADDER_FULL (2, (2, 1)) and
 //     LADDER_LIGHT (1, (1,)) share one instance. The re-assignment's
 //     indices stand only where they beat the ladder's own error.
-// The TPU ran both unified family passes on every lane; here a thread
-// branches to its own mode's pass only. The errors are integer sums of
-// squares in f32 (times alpha_weight), taken in pixel order, so the words
-// equal the plain twin's word for word. alpha_weight scales the alpha
-// channel's squared error (the rotated one under modes 4/5) in the
-// ladders, the acceptance bar and the re-assignment; the weighted
-// instance (W) runs where it is not 1.0. Sources: bc7_refine.cu builds the
-// moment instances (mode 6 only in the instance launched with mode-mask
-// bit 6, so the default tier's instance keeps its code), and
-// bc7_refine_ladder.cu the exact-ladder instance, and bc7_refine_3sub.cu /
-// bc7_refine_3sub_ladder.cu the instances of modes 0 and 2 alone
-// (bc7_refine_3sub_kernel, launched as a second K3 launch).
+// The errors are integer sums of squares in f32 (times alpha_weight),
+// taken in pixel order, so the words equal the plain twin's word for
+// word. alpha_weight scales the alpha channel's squared error (the rotated
+// one under modes 4/5) in the ladders, the acceptance bar and the
+// re-assignment; the weighted instance (W) runs where it is not 1.0.
+//
+// The launcher (bc7_refine.cu) runs a bucket pass, bc7_mode_buckets,
+// which copies the words to the output and appends each in-scope block's
+// index to its mode's list (one atomic per warp and mode), then launches
+// bc7_refine_mode_kernel<M, L, W> once per mode in scope, on its list.
+// Modes 0 and 2 are two more buckets. A block is read and written only by
+// its own mode's launch, so the order of the launches, and the order
+// inside a bucket, do not move a word. Sources: bc7_refine_<M>.cu builds
+// mode M's four instances (both ladders, both weights).
 //
 // Bound: compute. A block reads 80 bytes and writes 16, against a few
 // thousand integer and f32 operations for its one mode (tens of thousands
-// under LADDER_FULL: every probe is a 16-pixel palette error). The design
-// keeps pixels packed as RGBA8 words and leaves the block's words
-// untouched (one copy) where the mode is out of scope or the error does
-// not drop.
+// under LADDER_FULL: every probe is a 16-pixel palette error). A single
+// kernel with a branch per mode ran every branch of a warp's mixed modes
+// one after another and held the largest branch's registers (255, with
+// spills); bucketing gives each warp one mode and each instance its own
+// register count. Pixels stay packed as RGBA8 words.
 #pragma once
 
 #include <cstring>
@@ -450,117 +453,80 @@ __device__ __forceinline__ void refine_45(const uint32_t pix[16],
   out = emit_block<M>(0, rot, im, q0, q1, p0, p1, w1, w2);
 }
 
-// M6: mode 6 in scope (the maxq tier's refine); the exact-ladder instance
-// always has it
-template <int L, bool W, bool M6>
-__global__ void __launch_bounds__(kThreads)
-    bc7_refine_kernel(const int32_t* __restrict__ px,
-                      const uint32_t* __restrict__ words_in,
-                      uint32_t* __restrict__ words_out, int nb,
-                      int mode_mask, float aw, ExactLadder lad) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  const Bits128 w = load_words(words_in, nb, b);
-  Bits128 out = w;
-  const int mode = block_mode(w);
-  if (mode < 8 && ((mode_mask >> mode) & 1)) {
-    uint32_t pix[16];
-    load_pixels(px, nb, b, pix);
-    Bits128 nw = w;
-    float err_new = 0.0f, err_old = 0.0f;
-    switch (mode) {
-      case 1: refine_subsets<1, L, W>(pix, w, aw, lad, nw, err_new, err_old);
-              break;
-      case 3: refine_subsets<3, L, W>(pix, w, aw, lad, nw, err_new, err_old);
-              break;
-      case 4: refine_45<4, L, W>(pix, w, aw, lad, nw, err_new, err_old);
-              break;
-      case 5: refine_45<5, L, W>(pix, w, aw, lad, nw, err_new, err_old);
-              break;
-      case 6:
-        if constexpr (M6)
-          refine_subsets<6, L, W>(pix, w, aw, lad, nw, err_new, err_old);
-        break;
-      case 7: refine_subsets<7, L, W>(pix, w, aw, lad, nw, err_new, err_old);
-              break;
-      default: break;
-    }
-    if (err_new < err_old) out = nw;
-  }
-  store_words(words_out, nb, b, out);
-}
-
-// Host launcher: alpha_weight arrives as its f32 bit pattern; at 1.0 the
-// unweighted instance runs
-template <int L, bool M6>
-int launch_refine(const void* px, const void* words_in, void* words_out,
-                  int nb, int mode_mask, int aw_bits, ExactLadder lad,
-                  void* stream) {
+// A K3 launch's arguments: the winner words, their copy (words_out, the
+// launcher's output, already holding words_in), the mode buckets of the
+// bucket pass (lists [8, NB], counts [8]) and the ladder (exact: an exact
+// ladder, else LADDER_MOMENT)
+struct RefineArgs {
+  const int32_t* px;
+  const uint32_t* words_in;
+  uint32_t* words_out;
+  const int32_t* lists;
+  const int32_t* counts;
+  int nb;
   float aw;
-  std::memcpy(&aw, &aw_bits, sizeof aw);
-  const int grid = (nb + kThreads - 1) / kThreads;
-  if (aw != 1.0f)
-    bc7_refine_kernel<L, true, M6>
-        <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-            (const int32_t*)px, (const uint32_t*)words_in,
-            (uint32_t*)words_out, nb, mode_mask, aw, lad);
-  else
-    bc7_refine_kernel<L, false, M6>
-        <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-            (const int32_t*)px, (const uint32_t*)words_in,
-            (uint32_t*)words_out, nb, mode_mask, aw, lad);
-  return (int)cudaGetLastError();
-}
+  bool exact;
+  ExactLadder lad;
+  cudaStream_t stream;
+};
 
-// Modes 0 and 2 alone, the three-subset modes of USE_3SUBSETS: a kernel
-// of its own, so that the instances above keep their code. A block of
-// another mode passes through. Launched after the instance above with the
-// scope's other modes: a block is re-emitted only by the branch of its own
-// mode and only where its own error drops, so two launches over disjoint
-// scopes give the words of one launch over their union.
-template <int L, bool W>
+// Mode M's refine over its bucket: thread t takes the bucket's t-th block
+// (the bucket pass put its index there) and re-emits it where its error
+// drops. Every block of a warp has mode M, so the warp runs one mode's
+// code, and the instance holds only that mode's registers. The bucket's
+// size stays on the device: threads past it exit.
+template <int M, int L, bool W>
 __global__ void __launch_bounds__(kThreads)
-    bc7_refine_3sub_kernel(const int32_t* __restrict__ px,
+    bc7_refine_mode_kernel(const int32_t* __restrict__ px,
                            const uint32_t* __restrict__ words_in,
-                           uint32_t* __restrict__ words_out, int nb,
-                           int mode_mask, float aw, ExactLadder lad) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= nb) return;
+                           uint32_t* __restrict__ words_out,
+                           const int32_t* __restrict__ list,
+                           const int32_t* __restrict__ count, int nb,
+                           float aw, ExactLadder lad) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= *count) return;
+  const int b = list[t];
   const Bits128 w = load_words(words_in, nb, b);
-  Bits128 out = w;
-  const int mode = block_mode(w);
-  if ((mode == 0 || mode == 2) && ((mode_mask >> mode) & 1)) {
-    uint32_t pix[16];
-    load_pixels(px, nb, b, pix);
-    Bits128 nw = w;
-    float err_new = 0.0f, err_old = 0.0f;
-    if (mode == 0)
-      refine_subsets<0, L, W>(pix, w, aw, lad, nw, err_new, err_old);
-    else
-      refine_subsets<2, L, W>(pix, w, aw, lad, nw, err_new, err_old);
-    if (err_new < err_old) out = nw;
-  }
-  store_words(words_out, nb, b, out);
+  uint32_t pix[16];
+  load_pixels(px, nb, b, pix);
+  Bits128 nw = w;
+  float err_new = 0.0f, err_old = 0.0f;
+  if constexpr (M == 4 || M == 5)
+    refine_45<M, L, W>(pix, w, aw, lad, nw, err_new, err_old);
+  else
+    refine_subsets<M, L, W>(pix, w, aw, lad, nw, err_new, err_old);
+  if (err_new < err_old) store_words(words_out, nb, b, nw);
 }
 
-template <int L>
-int launch_refine_3sub(const void* px, const void* words_in, void* words_out,
-                       int nb, int mode_mask, int aw_bits, ExactLadder lad,
-                       void* stream) {
-  float aw;
-  std::memcpy(&aw, &aw_bits, sizeof aw);
-  const int grid = (nb + kThreads - 1) / kThreads;
-  if (aw != 1.0f)
-    bc7_refine_3sub_kernel<L, true>
-        <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-            (const int32_t*)px, (const uint32_t*)words_in,
-            (uint32_t*)words_out, nb, mode_mask, aw, lad);
-  else
-    bc7_refine_3sub_kernel<L, false>
-        <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-            (const int32_t*)px, (const uint32_t*)words_in,
-            (uint32_t*)words_out, nb, mode_mask, aw, lad);
+template <int M, int L, bool W>
+int launch_refine_instance(const RefineArgs& a) {
+  const int grid = (a.nb + kThreads - 1) / kThreads;
+  bc7_refine_mode_kernel<M, L, W><<<grid, kThreads, 0, a.stream>>>(
+      a.px, a.words_in, a.words_out, a.lists + (size_t)M * a.nb,
+      a.counts + M, a.nb, a.aw, a.lad);
   return (int)cudaGetLastError();
 }
+
+// Mode M's launcher: the ladder's instance, weighted where alpha_weight
+// is not 1.0
+template <int M>
+int launch_refine_mode(const RefineArgs& a) {
+  if (a.exact)
+    return a.aw != 1.0f ? launch_refine_instance<M, kExact, true>(a)
+                        : launch_refine_instance<M, kExact, false>(a);
+  return a.aw != 1.0f ? launch_refine_instance<M, kMoment, true>(a)
+                      : launch_refine_instance<M, kMoment, false>(a);
+}
+
+// The per-mode launchers, each built from a source of its own
+// (bc7_refine_<M>.cu) so that the instances compile in parallel
+int launch_refine_mode_0(const RefineArgs& a);
+int launch_refine_mode_1(const RefineArgs& a);
+int launch_refine_mode_2(const RefineArgs& a);
+int launch_refine_mode_3(const RefineArgs& a);
+int launch_refine_mode_4(const RefineArgs& a);
+int launch_refine_mode_5(const RefineArgs& a);
+int launch_refine_mode_6(const RefineArgs& a);
+int launch_refine_mode_7(const RefineArgs& a);
 
 }  // namespace bc7

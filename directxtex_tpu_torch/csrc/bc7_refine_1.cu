@@ -1,0 +1,8 @@
+// K3, mode 1: its instances of bc7_refine.cuh's bc7_refine_mode_kernel
+// (LADDER_MOMENT and the exact ladders, unweighted and weighted), launched
+// by bc7_refine.cu on the mode-1 bucket.
+#include "bc7_refine.cuh"
+
+int bc7::launch_refine_mode_1(const RefineArgs& a) {
+  return launch_refine_mode<1>(a);
+}

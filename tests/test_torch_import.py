@@ -33,7 +33,8 @@ def test_launchers_import_without_building():
     assert cuda_kernels.launch_counts() == {
         "bc7_decode": 0, "bc7_encode": 0, "bc7_encode_alpha": 0,
         "bc7_encode_quick": 0, "bc7_encode_maxq": 0,
-        "bc7_encode_maxq_alpha": 0, "bc7_refine": 0, "bc7_refine_alpha": 0,
+        "bc7_encode_maxq_alpha": 0, "bc7_mode_buckets": 0,
+        "bc7_refine": 0, "bc7_refine_alpha": 0,
         "bc7_refine_maxq": 0, "bc7_refine_ladder": 0,
         "bc6h_decode": 0, "bc6h_encode": 0, "bc6h_refine": 0,
         "bc7_partition_shapes": 0, "bc7_partition_mode": 0,
@@ -94,6 +95,8 @@ def test_cpu_tensors_take_the_bc6h_plain_twins(signed):
     ("bc7_refine", lambda: (torch.zeros((64, 8), dtype=torch.int32),
                             torch.zeros((4, 8), dtype=torch.int32),
                             (1, 3, 5, 4))),
+    ("bc7_mode_buckets", lambda: (torch.zeros((4, 8), dtype=torch.int32),
+                                  0b111010)),
     ("bc6h_decode", lambda: (torch.zeros((4, 8), dtype=torch.int32), False)),
     ("bc6h_encode", lambda: (torch.zeros((48, 8), dtype=torch.int32), True)),
     ("bc6h_refine", lambda: (torch.zeros((48, 8), dtype=torch.int32),
