@@ -6,15 +6,18 @@ every kernel against its plain PyTorch twin on the card:
 
 - the BC7 default tier (image_to_blocks -> encode_bc7 -> decode_bc7): K1
   decode, K2 search, K3 MOMENT refine (its bucket pass, then one launch
-  per mode in scope); on opaque images (K2's opaque variant, a team of
-  four warps per 32 blocks), on images with alpha (K2's alpha variant with mode 7, K3 with
-  mode 7 in scope), at alpha weights 1.0 and 2.0, and the QUICK tier (K2's
-  quick variant, mode 6 alone);
+  per mode in scope); on opaque images (K2's search, a team of four
+  warps per 32 blocks), on images with alpha (the same search, which
+  also writes the shapes it ranked, then mode 7's list pass and launch
+  on those shapes, folded in; K3 with mode 7 in scope), at alpha weights
+  1.0 and 2.0, and the QUICK tier (K2's quick variant, mode 6 alone);
 - the BC7 MAXQUALITY tier (encode_bc7(flags=0x200000)): K2's maxq
-  variants (every mode fitted on its own, with and without mode 7), K3
-  twice, MOMENT with mode 6 in scope, then the exact LADDER_FULL;
+  variant (every mode fitted on its own; with alpha followed by mode 7's
+  list pass and launch), K3 twice, MOMENT with mode 6 in scope, then the
+  exact LADDER_FULL;
 - BC6H (BASELINE config 4, hdr_cubemap_pipeline -> decode_bc6h, and the
-  mid / maxq tiers of encode_bc6h): K4 decode, K5 search, K6 refine;
+  mid / maxq tiers of encode_bc6h): K4 decode, K5 search, K6 refine (a
+  unit bucket pass, then a launch of lane jobs per unit);
 - USE_3SUBSETS (encode_bc7(flags=0x80000), with MAXQUALITY 0x280000):
   per mode 0 and 2, K9 ranks the three-subset shapes and K7 evaluates
   the top 4, K2 searches the other modes, and K3 refines modes 0 and 2 as
@@ -49,22 +52,28 @@ Phases:
      equal to the plain decode on 262,144 random words per mode;
   8. K5 and K6 (mid, maxq): kernel vs plain on the five HDR corpus
      contents and the 200-block random / bimodal set, unsigned and
-     signed: words equal, and K5's search errors equal;
+     signed: words equal, and K5's search errors equal; K6's unit
+     bucket pass vs its twin on each content's words;
   9. BC6H gates: the corpus PSNR floors and the frozen reference's
      bc6h_hdr_psnr through encode_bc6h -> decode_bc6h on the card;
  10. config 4 at face 512: the path with launch counts and CUDA-event
      times, each kernel's time at the path's shapes, one run of each plain
-     twin held against its kernel, and the mid / maxq tiers on the same
-     faces;
- 11. K2 alpha and K3 (mode 7 in scope) against their twins on alphagrad,
-     the 200-block mixed set (half opaque) and the 2048^2 image with
-     alpha, at alpha weights 1.0 and 2.0: words and search errors equal;
+     twin held against its kernel (K6 mid on every block, K6 maxq on the
+     first MAXQ_PLAIN_BLOCKS, the bucket pass), the unit counts, and the
+     mid / maxq tiers on the same faces with their launch counts (K5, the
+     bucket pass, two K6 unit launches);
+ 11. the search with mode 7 and K3 (mode 7 in scope) against their twins
+     on bench512, alphagrad, the 200-block mixed set (half opaque) and
+     the 2048^2 image with alpha, at alpha weights 1.0 and 2.0: words and
+     search errors equal, and each step alone (K2's search and its picks,
+     mode 7's list pass and its launch) equal to its twin;
  12. K2 quick against its twin on bench512.npz and both 2048^2 images;
  13. BC7 gates on the card: the alphagrad corpus floor and the frozen
      reference parity of albedo, tworegion, normal and alphagrad;
  14. the 2048^2 image with alpha through the default path and the QUICK
-     path (on both 2048^2 images), each with its launch counts, and
-     CUDA-event times of the paths and kernels beside the opaque path's;
+     path (on both 2048^2 images), each with its launch counts (with
+     alpha: K2, the list pass, mode 7, K3), and CUDA-event times of the
+     paths and kernels beside the opaque path's;
  15. K2 maxq (both variants) and K3 (MOMENT with mode 6 in scope, FULL,
      LIGHT, and mode 6 alone on QUICK's words) against their twins on
      bench512, the opaque corpus, alphagrad and the 200-block mixed set,
@@ -75,10 +84,11 @@ Phases:
      reference's, and a sample of the maxq words decoded by K1 equal to
      the plain decode;
  17. the maxq path at 2048^2 on the bench image and on the image with
-     alpha, each with its launch counts (one K2; per K3 ladder a bucket
-     pass and a launch per mode), CUDA-event times
-     of the paths and kernels beside the default tier's, and one run of
-     each plain twin at the path's shapes held against its kernel;
+     alpha, each with its launch counts (one K2, with alpha the list pass
+     and mode 7; per K3 ladder a bucket pass and a launch per mode),
+     CUDA-event times of the paths and kernels beside the default tier's,
+     and one run of each plain twin at the path's shapes held against its
+     kernel (the search with mode 7 at alpha weights 1.0 and 2.0);
  18. K9 (three subsets, 16 and 64 shapes; two subsets, 64), K7 (modes 0
      and 2 on the three-subset picks, 1, 3 and 7 on the two-subset
      picks), the search with modes 0 and 2 (K9, K7, K2 and the fold) and
@@ -149,16 +159,16 @@ SOURCES = {
                          "directxtex_tpu/bc/pallas_kernels.py:2667"),
     "bc7_refine": ("directxtex_tpu_torch/csrc/bc7_refine.cuh",
                    "directxtex_tpu/bc/pallas_kernels.py:2667"),
-    "bc7_encode_alpha": ("directxtex_tpu_torch/csrc/bc7_encode.cuh",
-                         "directxtex_tpu/bc/pallas_kernels.py:2020"),
+    "bc7_alpha_list": ("directxtex_tpu_torch/csrc/bc7_mode7.cu",
+                       "directxtex_tpu/bc/pallas_kernels.py:2020"),
+    "bc7_mode7": ("directxtex_tpu_torch/csrc/bc7_mode7.cu",
+                  "directxtex_tpu/bc/pallas_kernels.py:2020"),
     "bc7_encode_quick": ("directxtex_tpu_torch/csrc/bc7_encode.cuh",
                          "directxtex_tpu/bc/pallas_kernels.py:2020"),
     "bc7_refine_alpha": ("directxtex_tpu_torch/csrc/bc7_refine.cuh",
                          "directxtex_tpu/bc/pallas_kernels.py:2667"),
     "bc7_encode_maxq": ("directxtex_tpu_torch/csrc/bc7_encode.cuh",
                         "directxtex_tpu/bc/pallas_kernels.py:2020"),
-    "bc7_encode_maxq_alpha": ("directxtex_tpu_torch/csrc/bc7_encode.cuh",
-                              "directxtex_tpu/bc/pallas_kernels.py:2020"),
     "bc7_refine_maxq": ("directxtex_tpu_torch/csrc/bc7_refine.cuh",
                         "directxtex_tpu/bc/pallas_kernels.py:2667"),
     "bc7_refine_ladder": ("directxtex_tpu_torch/csrc/bc7_refine.cuh",
@@ -167,8 +177,12 @@ SOURCES = {
                     "directxtex_tpu/bc/pallas_kernels.py:2784"),
     "bc6h_encode": ("directxtex_tpu_torch/csrc/bc6h_encode.cu",
                     "directxtex_tpu/bc/pallas_kernels.py:3744"),
+    "bc6h_unit_buckets": ("directxtex_tpu_torch/csrc/bc6h_refine.cu",
+                          "directxtex_tpu/bc/pallas_kernels.py:3704"),
     "bc6h_refine": ("directxtex_tpu_torch/csrc/bc6h_refine.cu",
                     "directxtex_tpu/bc/pallas_kernels.py:3704"),
+    "bc6h_refine_cross2": ("directxtex_tpu_torch/csrc/bc6h_refine.cu",
+                           "directxtex_tpu/bc/pallas_kernels.py:3704"),
     "bc7_partition_shapes": ("directxtex_tpu_torch/csrc/bc7_shapes.cu",
                              "directxtex_tpu/bc/pallas_kernels.py:1850"),
     "bc7_partition_mode": ("directxtex_tpu_torch/csrc/bc7_partition.cuh",
@@ -194,18 +208,15 @@ SOURCES = {
 # refines do one mode's (one winner class's) work, weighed here by the
 # blocks of the run that have it.
 BC7_SEARCH_OPS = 89073
-# K2's alpha variant on a block with alpha (an opaque block skips mode 7
-# and costs BC7_SEARCH_OPS), and its quick variant
-BC7_SEARCH_ALPHA_OPS = 112739
+# K2's quick variant (mode 7's launch, on a block with alpha, costs
+# BC7_PARTITION_OPS[7])
 BC7_SEARCH_QUICK_OPS = 4641
 BC6H_SEARCH_OPS = 173630
 BC7_DECODE_OPS = (1461, 1337, 1557, 1295, 859, 816, 518, 1373)  # per mode
 BC7_REFINE_OPS = {1: 5612, 3: 5432, 5: 4869, 7: 6336,
                   4: 6908, 6: 3402, 0: 6264, 2: 6336}
-# K2's maxq variants: opaque blocks, and a block with alpha under the
-# alpha variant (an opaque block skips mode 7 and costs the first)
+# K2's maxq variant
 BC7_SEARCH_MAXQ_OPS = 144081
-BC7_SEARCH_MAXQ_ALPHA_OPS = 167747
 # K3 under LADDER_FULL and LADDER_LIGHT, per winner mode
 BC7_REFINE_FULL_OPS = {1: 12256, 3: 11692, 5: 13521, 6: 12134, 7: 15064,
                        4: 15624, 0: 13038, 2: 12822}
@@ -213,8 +224,10 @@ BC7_REFINE_LIGHT_OPS = {1: 6136, 3: 5908, 5: 6153, 6: 4822, 7: 6904,
                         4: 8200, 0: 6450, 2: 6486}
 BC6H_DECODE_OPS = (1436, 1442, 1432, 1440, 1436, 1436, 1432, 1444, 1444,
                    1410, 598, 668, 680, 644)      # per mode row, unsigned
-# the maxq refine of a one-region (rows 10-13) and a two-region winner
+# K6's maxq refine (cross2) and mid refine of a one-region (rows 10-13)
+# and a two-region winner
 BC6H_REFINE_OPS = {"one_region": 815084, "two_region": 1294096}
+BC6H_REFINE_MID_OPS = {"one_region": 143564, "two_region": 39517}
 # bytes each block must move, inputs read once and outputs written once at
 # the data's own width: u8 texels, f16 pixels and halves, 16-byte words
 BYTES_PER_BLOCK = {"bc7_decode": 16 + 64, "bc7_encode": 64 + 16,
@@ -223,10 +236,21 @@ BYTES_PER_BLOCK = {"bc7_decode": 16 + 64, "bc7_encode": 64 + 16,
                    "bc7_mode_buckets": 16 + 16 + 4,
                    "bc7_refine": 64 + 16 + 16, "bc6h_decode": 16 + 96,
                    "bc6h_encode": 96 + 16, "bc6h_refine": 96 + 16 + 16,
-                   "bc7_encode_alpha": 64 + 16, "bc7_encode_quick": 64 + 16,
+                   "bc6h_refine_cross2": 96 + 16 + 16,
+                   # K6's bucket pass: the words read, their copy and one
+                   # list entry written
+                   "bc6h_unit_buckets": 16 + 16 + 4,
+                   # mode 7's list pass reads a block's 16 alpha texels
+                   # and writes a list entry per block with alpha
+                   # (counted from the run); mode 7's launch, per block
+                   # with alpha, the texels, four picks, the list entry
+                   # and the search's err and words, and writes err and
+                   # words
+                   "bc7_alpha_list": 16,
+                   "bc7_mode7": 64 + 16 + 4 + 20 + 20,
+                   "bc7_encode_quick": 64 + 16,
                    "bc7_refine_alpha": 64 + 16 + 16,
                    "bc7_encode_maxq": 64 + 16,
-                   "bc7_encode_maxq_alpha": 64 + 16,
                    "bc7_refine_maxq": 64 + 16 + 16,
                    "bc7_refine_ladder": 64 + 16 + 16,
                    # USE_3SUBSETS: K9 and K7 launch twice a path (modes 0
@@ -362,22 +386,40 @@ def per_mode_ops(torch, modes, table: dict) -> float:
     return float(sum(n * table.get(m, 0) for m, n in enumerate(counts)))
 
 
-def buckets_equal(torch, words, modes, what: str) -> list:
-    """K3's bucket pass on words [4, NB] over `modes` held against its
-    plain twin: equal counts, and each bucket the same set of blocks, in
+def lists_equal(torch, words, got, want, what: str) -> list:
+    """A bucket pass's (copy of the words, lists, counts) held against its
+    plain twin's (counts, one ascending index list each): the copy equal
+    to the words, equal counts, and each list the same set of blocks, in
     whatever order the warps' atomics gave. Returns the counts."""
-    from directxtex_tpu_torch.bc import bc67, cuda_kernels
-
-    mask = sum(1 << m for m in modes)
-    copy, lists, counts = cuda_kernels.bc7_mode_buckets(words, mask)
-    counts_p, buckets_p = bc67._mode_buckets_plain(words, mask)
+    copy, lists, counts = got
+    counts_p, lists_p = want
     check(torch.equal(copy, words), f"bucket pass copy {what}")
     check(torch.equal(counts.cpu(), counts_p.cpu()),
           f"bucket counts {what}: {counts.tolist()} vs {counts_p.tolist()}")
-    for m in range(8):
-        got = torch.sort(lists[m, :int(counts_p[m])])[0]
-        check(torch.equal(got, buckets_p[m]), f"bucket {m} {what}")
+    for u, want_u in enumerate(lists_p):
+        got_u = torch.sort(lists[u, :len(want_u)])[0]
+        check(torch.equal(got_u, want_u), f"bucket {u} {what}")
     return counts.tolist()
+
+
+def buckets_equal(torch, words, modes, what: str) -> list:
+    """K3's bucket pass on BC7 words [4, NB] over `modes` against its
+    twin; returns the counts per mode 0-7."""
+    from directxtex_tpu_torch.bc import bc67, cuda_kernels
+
+    mask = sum(1 << m for m in modes)
+    return lists_equal(torch, words,
+                       cuda_kernels.bc7_mode_buckets(words, mask),
+                       bc67._mode_buckets_plain(words, mask), what)
+
+
+def units_equal(torch, words, what: str) -> list:
+    """K6's bucket pass on BC6H words [4, NB] against its twin; returns
+    the counts (one-region, two-region, reserved)."""
+    from directxtex_tpu_torch.bc import bc6h, cuda_kernels
+
+    return lists_equal(torch, words, cuda_kernels.bc6h_unit_buckets(words),
+                       bc6h._unit_buckets_plain(words), what)
 
 
 def main() -> None:
@@ -604,6 +646,7 @@ def main() -> None:
                    (plain_ms, "plain_ms"), (max_err, "max_err"),
                    (nb_of, "nb"), (plain_nb, "nb"), (ops_of, "ops")):
         d.update(r[key])
+    extra_bytes = dict(r["extra_bytes"])
 
     img_alpha = r["img_alpha"]
     r = bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_d,
@@ -619,7 +662,7 @@ def main() -> None:
                    (plain_ms, "plain_ms"), (max_err, "max_err"),
                    (nb_of, "nb"), (plain_nb, "nb"), (ops_of, "ops")):
         d.update(r[key])
-    extra_bytes = r["extra_bytes"]
+    extra_bytes.update(r["extra_bytes"])
 
     r = bc6h_unshared_phases(torch, to_dev, event_ms, smi)
     for d, key in ((launches, "launches"), (k_ms, "k_ms"),
@@ -777,6 +820,7 @@ def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
                 out[f"K6_{tier}_words_equal"] = True
                 out[f"K6_{tier}_refined_blocks"] = int(
                     (r_k != w_k).any(dim=0).sum())
+            out["K6_units"] = units_equal(torch, w_k, what)
             emit(out)
 
     # 9. BC6H quality gates (tests/test_golden.py:118-177, :314-329) ----
@@ -806,18 +850,23 @@ def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
     launches = {"bc6h_encode": counts["bc6h_encode"],
                 "bc6h_decode": counts["bc6h_decode"]}
 
-    # the mid and maxq tiers on the same faces: K5 then K6 per encode
-    cuda_kernels.reset_launch_counts()
-    enc_mid = bc6h.encode_bc6h(blocks4, False, bc6h._BC6H_MID)
-    enc_maxq = bc6h.encode_bc6h(blocks4, False, bc6h._BC7_MAXQUALITY)
-    torch.cuda.synchronize()
-    counts_t = cuda_kernels.launch_counts()
-    check(counts_t["bc6h_encode"] == 2 and counts_t["bc6h_refine"] == 2,
-          f"mid / maxq launch counts {counts_t}")
-    launches["bc6h_refine"] = counts_t["bc6h_refine"]
+    # the mid and maxq tiers on the same faces: K5, then K6 (its bucket
+    # pass and one launch per unit) per encode
+    encs = {}
+    for t, flag, k6 in (("mid", bc6h._BC6H_MID, "bc6h_refine"),
+                        ("maxq", bc6h._BC7_MAXQUALITY, "bc6h_refine_cross2")):
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        encs[t] = bc6h.encode_bc6h(blocks4, False, flag)
+        torch.cuda.synchronize()
+        counts_t = {k: v for k, v in cuda_kernels.launch_counts().items()
+                    if v}
+        check(counts_t == {"bc6h_encode": 1, "bc6h_unit_buckets": 1,
+                           k6: 2}, f"{t} launch counts {counts_t}")
+        launches[k6] = counts_t[k6]
+    launches["bc6h_unit_buckets"] = counts_t["bc6h_unit_buckets"]
     psnr_t = {t: log_psnr(bc6h.decode_bc6h(e, False).cpu().numpy(),
-                          blocks4.cpu().numpy())
-              for t, e in (("mid", enc_mid), ("maxq", enc_maxq))}
+                          blocks4.cpu().numpy()) for t, e in encs.items()}
 
     px4 = bc6h.px_of_blocks(blocks4, False)
     e5, w5 = cuda_kernels.bc6h_encode(px4, False)
@@ -835,16 +884,19 @@ def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
         lambda: pipelines.cube_faces(eq), 7)))
     prep_ms = float(np.median(event_ms(lambda: bc6h.px_of_blocks(torch.cat(
         [image_to_blocks(faces[i])[0] for i in range(6)]), False), 7)))
+    # K6 as its launcher's whole call: copy + bucket pass + unit launches
     k_ms = {
         "bc6h_encode": float(np.median(event_ms(
             lambda: cuda_kernels.bc6h_encode(px4, False), 7))),
         "bc6h_decode": float(np.median(event_ms(
             lambda: cuda_kernels.bc6h_decode(w5, False), 7))),
-        "bc6h_refine": float(np.median(event_ms(
+        "bc6h_refine_cross2": float(np.median(event_ms(
             lambda: cuda_kernels.bc6h_refine(px4, w5, *maxq_args), 7))),
+        "bc6h_refine": float(np.median(event_ms(
+            lambda: cuda_kernels.bc6h_refine(px4, w5, *mid_args), 7))),
+        "bc6h_unit_buckets": float(np.median(event_ms(
+            lambda: cuda_kernels.bc6h_unit_buckets(w5), 7))),
     }
-    mid_ms = float(np.median(event_ms(
-        lambda: cuda_kernels.bc6h_refine(px4, w5, *mid_args), 7)))
     tier_ms = {t: float(np.median(event_ms(
         lambda: bc6h.encode_bc6h(blocks4, False, f), 7)))
         for t, f in (("mid", bc6h._BC6H_MID),
@@ -858,24 +910,31 @@ def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
     plain_ms["bc6h_decode"] = event_ms(
         lambda: out.update(decode=bc6h._bc6h_decode_plain(w5, False)))[0]
     px_q, w5_q = px4[:, :MAXQ_PLAIN_BLOCKS], w5[:, :MAXQ_PLAIN_BLOCKS]
-    plain_ms["bc6h_refine"] = event_ms(
+    plain_ms["bc6h_refine_cross2"] = event_ms(
         lambda: out.update(maxq=bc6h._bc6h_refine_plain(
             px_q, w5_q, bc6h.BC6H_LADDER_MAXQ, False, True, True)))[0]
-    mid_plain_ms = event_ms(lambda: out.update(mid=bc6h._bc6h_refine_plain(
-        px4, w5, bc6h.BC6H_LADDER_MID, False, True, False)))[0]
+    plain_ms["bc6h_refine"] = event_ms(
+        lambda: out.update(mid=bc6h._bc6h_refine_plain(
+            px4, w5, bc6h.BC6H_LADDER_MID, False, True, False)))[0]
+    plain_ms["bc6h_unit_buckets"] = event_ms(
+        lambda: out.update(units=bc6h._unit_buckets_plain(w5)))[0]
     same(w5, out["search"][1], "K5 words face 512")
     same(e5, out["search"][0], "K5 errors face 512")
     same(out["decode"], cuda_kernels.bc6h_decode(w5, False), "K4 face 512")
     same(w_mid, out["mid"], "K6 mid face 512")
     same(w_maxq[:, :MAXQ_PLAIN_BLOCKS], out["maxq"], "K6 maxq face 512")
+    units = units_equal(torch, w5, f"face {FACE}")
     fin = torch.isfinite(e5)
     max_err = {
         "bc6h_encode": float((e5 - out["search"][0])[fin].abs().max())
         if bool(fin.any()) else 0.0,
         "bc6h_decode": word_diff(out["decode"],
                                  cuda_kernels.bc6h_decode(w5, False)),
-        "bc6h_refine": word_diff(out["maxq"],
-                                 w_maxq[:, :MAXQ_PLAIN_BLOCKS]),
+        "bc6h_refine_cross2": word_diff(out["maxq"],
+                                        w_maxq[:, :MAXQ_PLAIN_BLOCKS]),
+        "bc6h_refine": word_diff(out["mid"], w_mid),
+        # counts and unit sets held equal above
+        "bc6h_unit_buckets": 0.0,
     }
     texels = 6 * FACE * FACE
     emit({"phase": "config4", "card": smi, "face": FACE, "blocks": nb4,
@@ -885,21 +944,29 @@ def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
           "path_mtexels_per_s": texels / (path_ms * 1e-3) / 1e6,
           "cube_faces_ms": faces_ms, "blocks_to_px_ms": prep_ms,
           "encode_mid_ms": tier_ms["mid"], "encode_maxq_ms": tier_ms["maxq"],
-          "kernel_ms": k_ms, "kernel_mid_refine_ms": mid_ms,
-          "plain_ms": plain_ms, "plain_mid_refine_ms": mid_plain_ms,
+          "kernel_ms": k_ms, "plain_ms": plain_ms,
+          "units": dict(zip(("one_region", "two_region", "reserved"),
+                            units)),
           "maxq_plain_blocks": MAXQ_PLAIN_BLOCKS,
           "words_equal_plain": ["bc6h_encode", "bc6h_decode", "mid",
                                 "maxq"]})
-    nb = {"bc6h_encode": nb4, "bc6h_decode": nb4, "bc6h_refine": nb4}
-    plain_nb = dict(nb, bc6h_refine=px_q.shape[1])
+    nb = {k: nb4 for k in ("bc6h_encode", "bc6h_decode", "bc6h_refine",
+                           "bc6h_refine_cross2", "bc6h_unit_buckets")}
+    plain_nb = dict(nb, bc6h_refine_cross2=px_q.shape[1])
     rows = bc6h._mode_rows(bc6h._words_i64(w5))
     # reserved blocks pass through the refine
     ops = {"bc6h_decode": per_mode_ops(torch, rows, dict(enumerate(
                BC6H_DECODE_OPS))),
            "bc6h_encode": BC6H_SEARCH_OPS * float(nb4),
-           "bc6h_refine": per_mode_ops(torch, rows, {
+           "bc6h_refine_cross2": per_mode_ops(torch, rows, {
                r: BC6H_REFINE_OPS["one_region" if r >= 10 else "two_region"]
-               for r in range(14)})}
+               for r in range(14)}),
+           "bc6h_refine": per_mode_ops(torch, rows, {
+               r: BC6H_REFINE_MID_OPS["one_region" if r >= 10
+                                      else "two_region"]
+               for r in range(14)}),
+           # the bucket pass does a few integer operations a block
+           "bc6h_unit_buckets": 0.0}
     return {"launches": launches, "k_ms": k_ms, "plain_ms": plain_ms,
             "max_err": max_err, "nb": nb, "plain_nb": plain_nb, "ops": ops}
 
@@ -909,7 +976,8 @@ def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
                      opaque_ms) -> dict:
     """Phases 11-14. Returns the launches (from the paths' runs), times,
     plain times, errors against the twins, block counts and operations of
-    K2's alpha and quick variants and of K3 with mode 7 in scope."""
+    mode 7's list pass and launch, K2's quick variant and K3 with mode 7
+    in scope."""
     from directxtex_tpu_torch.bc import bc67, cuda_kernels
     from directxtex_tpu_torch.bc.common import image_to_blocks
 
@@ -929,16 +997,41 @@ def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
     px_a = px_of(image_to_blocks(img_a)[0])
     px_o = px_of(image_to_blocks(img_opaque)[0])
 
-    # 11. K2 alpha and K3 with mode 7 against their twins ------------------
+    # 11. the search with mode 7 (K2's search, which also writes its
+    # picks, mode 7's list pass and launch) and K3 with mode 7 against
+    # their twins, each step on its own too ---------------------------------
     rng = np.random.default_rng(11)
     mixed = rng.random((200, 16, 4)).astype(np.float32)
     mixed[:100, :, 3] = 1.0
-    contents = [("alphagrad", px_of(image_to_blocks(
-        to_dev(corpus["alphagrad"]))[0])), ("mixed200", px_of(to_dev(mixed))),
-        (f"alpha{size}", px_a)]
+    contents = [("bench512", px_of(image_to_blocks(to_dev(b512["img"]))[0])),
+                ("alphagrad", px_of(image_to_blocks(
+                    to_dev(corpus["alphagrad"]))[0])),
+                ("mixed200", px_of(to_dev(mixed))), (f"alpha{size}", px_a)]
     plain = {}
     for label, px in contents:
+        blocks_k, count_k = cuda_kernels.bc7_alpha_list(px)
+        t_l = event_ms(lambda: plain.update(
+            listed=bc67._alpha_list_plain(px)))[0]
+        n_alpha = int(count_k)
+        same(torch.sort(blocks_k[:n_alpha])[0], plain["listed"],
+             f"alpha list {label}")
         for aw in ALPHA_WEIGHTS:
+            what = f"{label} aw={aw}"
+            # the split's steps on their own
+            e_f, w_f, picks = cuda_kernels.bc7_search_picks(px, aw)
+            e_o, w_o = bc67._bc7_search_plain(px, bc67.SEARCH_MODES, aw)
+            same(w_f, w_o, f"K2 (1, 3, 5, 6, 4) words {what}")
+            same(e_f, e_o, f"K2 (1, 3, 5, 6, 4) errors {what}")
+            same(picks, bc67._partition_shapes_plain(px, 1, 64, 4),
+                 f"K2 picks {what}")
+            e_7, w_7 = e_f.clone(), w_f.clone()
+            cuda_kernels.bc7_mode7(px, picks, blocks_k, count_k, e_7, w_7,
+                                   aw)
+            t_7 = event_ms(lambda: plain.update(mode7=bc67._mode7_fold_plain(
+                px, picks, e_f, w_f, aw)))[0]
+            same(w_7, plain["mode7"][1], f"mode 7 words {what}")
+            same(e_7, plain["mode7"][0], f"mode 7 errors {what}")
+            # the whole search with mode 7, and K3 after it
             e_k, w_k = cuda_kernels.bc7_encode(px, alpha, aw)
             r_k = cuda_kernels.bc7_refine(px, w_k, ralpha, aw)
             t_s = event_ms(lambda: plain.update(
@@ -946,29 +1039,38 @@ def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
             t_r = event_ms(lambda: plain.update(
                 refine=bc67._bc7_refine_plain(px, w_k, ralpha, aw)))[0]
             e_p, w_p = plain["search"]
-            what = f"{label} aw={aw}"
             same(w_k, w_p, f"K2 alpha words {what}")
             same(e_k, e_p, f"K2 alpha errors {what}")
             same(r_k, plain["refine"], f"K3 alpha {what}")
             modes = torch.bincount(bc67._mode_of(bc67._words_i64(w_k)),
                                    minlength=9).tolist()
             emit({"phase": "K2_alpha", "content": label, "aw": aw,
-                  "blocks": px.shape[1], "words_equal": True,
-                  "errors_equal": True, "K3_words_equal": True,
+                  "blocks": px.shape[1], "alpha_blocks": n_alpha,
+                  "words_equal": True, "errors_equal": True,
+                  "steps_equal": ["search (1, 3, 5, 6, 4)", "picks",
+                                  "alpha list", "mode 7"],
+                  "K3_words_equal": True,
                   "refined_blocks": int((r_k != w_k).any(dim=0).sum()),
                   "search_modes": modes})
             # mode 7 wins blocks of alphagrad and of the mixed set
-            # (tests/test_torch_bc7_alpha.py); the 2048^2 image reports
-            check(modes[7] > 0 or label == f"alpha{size}",
+            # (tests/test_torch_bc7_alpha.py), none of opaque bench512;
+            # the 2048^2 image reports
+            check(modes[7] > 0 or label in ("bench512", f"alpha{size}"),
                   f"no mode-7 winner on {what}")
+            check(modes[7] == 0 or label != "bench512",
+                  f"mode 7 on opaque {what}")
             if label == f"alpha{size}" and aw == 1.0:
                 # the twins' one run at the main path's size
-                w_search_a, plain_ms = w_k, {"bc7_encode_alpha": t_s,
-                                             "bc7_refine_alpha": t_r}
-                max_err = {"bc7_encode_alpha": float(
-                    (e_k - e_p).abs().max()), "bc7_refine_alpha": float(
-                    (r_k.to(torch.int64) - plain["refine"].to(torch.int64))
-                    .abs().max())}
+                w_search_a = w_k
+                plain_ms = {"bc7_alpha_list": t_l, "bc7_mode7": t_7,
+                            "bc7_refine_alpha": t_r, "search_alpha": t_s}
+                max_err = {
+                    "bc7_alpha_list": 0.0,   # the listed set held equal
+                    "bc7_mode7": float((e_7 - plain["mode7"][0]).abs()
+                                       .max()),
+                    "bc7_refine_alpha": float(
+                        (r_k.to(torch.int64)
+                         - plain["refine"].to(torch.int64)).abs().max())}
 
     # 12. K2 quick against its twin ----------------------------------------
     for label, px in (("bench512", px_of(image_to_blocks(
@@ -1010,8 +1112,9 @@ def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
     nb = px_a.shape[1]
     runs = {}
     for name, img, flags, kernels in (
-            ("alpha", img_a, 0, ("bc7_encode_alpha", "bc7_mode_buckets",
-                                 "bc7_refine_alpha", "bc7_decode")),
+            ("alpha", img_a, 0, ("bc7_encode", "bc7_alpha_list", "bc7_mode7",
+                                 "bc7_mode_buckets", "bc7_refine_alpha",
+                                 "bc7_decode")),
             ("quick_alpha", img_a, bc67._BC7_QUICK,
              ("bc7_encode_quick", "bc7_decode")),
             ("quick_opaque", img_opaque, bc67._BC7_QUICK,
@@ -1033,16 +1136,28 @@ def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
                      ** 2).mean())
         runs[name] = {"launches": counts,
                       "psnr": 10 * np.log10(1.0 / max(mse, 1e-30))}
-    launches = {"bc7_encode_alpha": runs["alpha"]["launches"][
-        "bc7_encode_alpha"], "bc7_refine_alpha": runs["alpha"]["launches"][
-        "bc7_refine_alpha"], "bc7_encode_quick": runs["quick_alpha"][
-        "launches"]["bc7_encode_quick"]}
+    launches = {k: runs["alpha"]["launches"][k] for k in (
+        "bc7_alpha_list", "bc7_mode7", "bc7_refine_alpha")}
+    launches["bc7_encode_quick"] = runs["quick_alpha"]["launches"][
+        "bc7_encode_quick"]
 
     med = {}
+    e_f, w_f, picks = cuda_kernels.bc7_search_picks(px_a)
+    blocks_k, count_k = cuda_kernels.bc7_alpha_list(px_a)
     for name, fn in (
             ("alpha_path", lambda: path(img_a)),
-            ("bc7_encode_alpha", lambda: cuda_kernels.bc7_encode(
-                px_a, alpha)),
+            # the search with mode 7, and its three launches alone
+            ("search_alpha", lambda: cuda_kernels.bc7_encode(px_a, alpha)),
+            ("bc7_search_picks", lambda: cuda_kernels.bc7_search_picks(
+                px_a)),
+            ("bc7_alpha_list", lambda: cuda_kernels.bc7_alpha_list(px_a)),
+            # in place: a second fold over the folded result keeps it
+            ("bc7_mode7", lambda: cuda_kernels.bc7_mode7(
+                px_a, picks, blocks_k, count_k, e_f, w_f)),
+            # K7's mode 7 over every block on the same picks (no path
+            # launches it)
+            ("bc7_partition_mode_7", lambda: cuda_kernels.bc7_partition_mode(
+                px_a, picks, 7)),
             ("bc7_refine_alpha", lambda: cuda_kernels.bc7_refine(
                 px_a, w_search_a, ralpha)),
             ("quick_path_alpha", lambda: path(img_a, bc67._BC7_QUICK)),
@@ -1050,7 +1165,7 @@ def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
                                                bc67._BC7_QUICK)),
             ("bc7_encode_quick", lambda: cuda_kernels.bc7_encode(
                 px_a, quick)),
-            ("bc7_encode_alpha_aw2", lambda: cuda_kernels.bc7_encode(
+            ("search_alpha_aw2", lambda: cuda_kernels.bc7_encode(
                 px_a, alpha, 2.0)),
             ("opaque_path", lambda: bc67.encode_bc7(
                 image_to_blocks(img_opaque)[0], opaque=True)),
@@ -1060,8 +1175,13 @@ def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
     texels = size * size
     bucket_counts = buckets_equal(torch, w_search_a, ralpha,
                                   f"alpha{size} alpha scope")
+    # one of K7's two launches a USE_3SUBSETS path
+    k7_bytes = float(nb) * BYTES_PER_BLOCK["bc7_partition_mode"] / 2
+    k7_bound_ms = max(k7_bytes / HBM_BYTES_PER_S,
+                      float(nb) * BC7_PARTITION_OPS[7] / OPS_PER_S) * 1e3
     emit({"phase": "alpha2k", "card": smi, "blocks": nb,
           "bucket_counts": bucket_counts,
+          "k7_mode7_bound_ms": k7_bound_ms,
           "opaque_blocks": int((px_a.reshape(16, 4, -1)[:, 3, :] == 255)
                                .all(dim=0).sum()),
           "runs": runs, "ms": med,
@@ -1072,17 +1192,18 @@ def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
           "opaque_path_ms_earlier_run": opaque_ms,
           "earlier_opaque_ms": EARLIER_OPAQUE_MS})
 
-    has_alpha = (px_a.reshape(16, 4, -1)[:, 3, :] != 255).any(dim=0)
-    n_alpha = float(has_alpha.sum())
-    ops = {"bc7_encode_alpha": n_alpha * BC7_SEARCH_ALPHA_OPS
-           + (nb - n_alpha) * BC7_SEARCH_OPS,
+    n_alpha = int(count_k)
+    ops = {"bc7_alpha_list": 0.0,    # a compare a texel: bytes bound it
+           "bc7_mode7": n_alpha * float(BC7_PARTITION_OPS[7]),
            "bc7_encode_quick": float(nb) * BC7_SEARCH_QUICK_OPS,
            "bc7_refine_alpha": per_mode_ops(torch, bc67._mode_of(
                bc67._words_i64(w_search_a)), BC7_REFINE_OPS)}
     k_ms = {k: med[k] for k in ops}
+    # mode 7's launch moves the bytes of the blocks with alpha only
+    nbs = dict({k: nb for k in ops}, bc7_mode7=n_alpha)
     return {"launches": launches, "k_ms": k_ms, "plain_ms": plain_ms,
-            "max_err": max_err, "nb": {k: nb for k in ops}, "ops": ops,
-            "img_alpha": img_a}
+            "max_err": max_err, "nb": nbs, "ops": ops, "img_alpha": img_a,
+            "extra_bytes": {"bc7_alpha_list": 4.0 * n_alpha}}
 
 
 def bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
@@ -1192,8 +1313,7 @@ def bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
     px_a = px_of(image_to_blocks(img_alpha)[0])
     nb = px_o.shape[1]
     runs = {}
-    for name, img, k2 in (("opaque", img_opaque, "bc7_encode_maxq"),
-                          ("alpha", img_alpha, "bc7_encode_maxq_alpha")):
+    for name, img in (("opaque", img_opaque), ("alpha", img_alpha)):
         torch.cuda.synchronize()
         cuda_kernels.reset_launch_counts()
         blocks = image_to_blocks(img)[0]
@@ -1201,11 +1321,15 @@ def bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
         torch.cuda.synchronize()
         counts = {k: v for k, v in cuda_kernels.launch_counts().items()
                   if v}
-        # K3 twice: a bucket pass and one launch per mode of the search's
+        # K2 maxq (with alpha also mode 7's list pass and launch), then K3
+        # twice: a bucket pass and one launch per mode of the search's
         # modes (five, six with mode 7) for each ladder
         n_modes = 6 if name == "alpha" else 5
-        want = {k2: 1, "bc7_mode_buckets": 2, "bc7_refine_maxq": n_modes,
-                "bc7_refine_ladder": n_modes, "bc7_decode": 1}
+        want = {"bc7_encode_maxq": 1, "bc7_mode_buckets": 2,
+                "bc7_refine_maxq": n_modes, "bc7_refine_ladder": n_modes,
+                "bc7_decode": 1}
+        if name == "alpha":
+            want.update(bc7_alpha_list=1, bc7_mode7=1)
         check(counts == want, f"maxq {name} launches {counts}")
         check(tuple(dec.shape) == (nb, 16, 4)
               and bool(torch.isfinite(dec).all()), f"maxq {name} output")
@@ -1215,14 +1339,11 @@ def bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
                       "psnr": 10 * np.log10(1.0 / max(mse, 1e-30))}
     launches = {k: runs["opaque"]["launches"][k] for k in (
         "bc7_encode_maxq", "bc7_refine_maxq", "bc7_refine_ladder")}
-    launches["bc7_encode_maxq_alpha"] = runs["alpha"]["launches"][
-        "bc7_encode_maxq_alpha"]
 
     # the kernels' inputs at the paths' shapes, held against the twins once
     plain, plain_ms, max_err, states = {}, {}, {}, {}
     for name, px, modes, k2 in (("opaque", px_o, opaque, "bc7_encode_maxq"),
-                                ("alpha", px_a, alpha,
-                                 "bc7_encode_maxq_alpha")):
+                                ("alpha", px_a, alpha, "search_maxq_alpha")):
         e_k, w_s = cuda_kernels.bc7_encode(px, modes, 1.0, tier)
         w_m = cuda_kernels.bc7_refine(px, w_s, modes)
         w_f = cuda_kernels.bc7_refine(px, w_m, modes, 1.0, full)
@@ -1232,6 +1353,11 @@ def bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
         same(w_s, plain["search"][1], f"K2 maxq words {name} {size}^2")
         same(e_k, plain["search"][0], f"K2 maxq errors {name} {size}^2")
         max_err[k2] = float((e_k - plain["search"][0]).abs().max())
+        if name == "alpha":
+            e_2, w_2 = cuda_kernels.bc7_encode(px, modes, 2.0, tier)
+            e_p2, w_p2 = bc67._bc7_search_plain(px, modes, 2.0, tier)
+            same(w_2, w_p2, f"K2 maxq words {name} {size}^2 aw=2.0")
+            same(e_2, e_p2, f"K2 maxq errors {name} {size}^2 aw=2.0")
         # both K3 calls of each path, held at that path's own shapes
         for k3, key, fn in (
                 ("bc7_refine_maxq", "moment",
@@ -1248,14 +1374,20 @@ def bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
     med = {}
     (px_o, _, ws_o, wm_o), (px_a, _, ws_a, wm_a) = (states["opaque"],
                                                     states["alpha"])
+    e_m, w_m, picks_m = cuda_kernels.bc7_search_picks(px_a, 1.0, tier)
+    blocks_m, count_m = cuda_kernels.bc7_alpha_list(px_a)
     w_default = cuda_kernels.bc7_encode(px_o)[1]
     for name, fn in (
             ("maxq_path_opaque", lambda: path(img_opaque, MAXQ)),
             ("maxq_path_alpha", lambda: path(img_alpha, MAXQ)),
             ("bc7_encode_maxq", lambda: cuda_kernels.bc7_encode(
                 px_o, opaque, 1.0, tier)),
-            ("bc7_encode_maxq_alpha", lambda: cuda_kernels.bc7_encode(
+            ("search_maxq_alpha", lambda: cuda_kernels.bc7_encode(
                 px_a, alpha, 1.0, tier)),
+            ("bc7_search_picks_maxq", lambda: cuda_kernels.bc7_search_picks(
+                px_a, 1.0, tier)),
+            ("bc7_mode7_maxq", lambda: cuda_kernels.bc7_mode7(
+                px_a, picks_m, blocks_m, count_m, e_m, w_m)),
             ("bc7_refine_maxq", lambda: cuda_kernels.bc7_refine(
                 px_o, ws_o, opaque)),
             ("bc7_refine_ladder", lambda: cuda_kernels.bc7_refine(
@@ -1292,11 +1424,7 @@ def bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
           "plain_ms": plain_ms, "words_equal_plain": True,
           "earlier_opaque_ms": EARLIER_OPAQUE_MS})
 
-    has_alpha = (px_a.reshape(16, 4, -1)[:, 3, :] != 255).any(dim=0)
-    n_alpha = float(has_alpha.sum())
     ops = {"bc7_encode_maxq": float(nb) * BC7_SEARCH_MAXQ_OPS,
-           "bc7_encode_maxq_alpha": n_alpha * BC7_SEARCH_MAXQ_ALPHA_OPS
-           + (nb - n_alpha) * BC7_SEARCH_MAXQ_OPS,
            "bc7_refine_maxq": per_mode_ops(torch, bc67._mode_of(
                bc67._words_i64(ws_o)), BC7_REFINE_OPS),
            "bc7_refine_ladder": per_mode_ops(torch, modes_m,
@@ -1451,18 +1579,22 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
     px_o = px_of(image_to_blocks(img_opaque)[0])
     nb = px_o.shape[1]
     runs = {}
+    # K2's launches: its search, and with alpha mode 7's list pass and
+    # launch
+    mode7 = {"bc7_alpha_list": 1, "bc7_mode7": 1}
     for name, img, flags, k2, k3 in (
-            ("use3_opaque", img_opaque, USE3, "bc7_encode",
+            ("use3_opaque", img_opaque, USE3, {"bc7_encode": 1},
              {"bc7_refine": 4}),
-            ("use3_alpha", img_alpha, USE3, "bc7_encode_alpha",
+            ("use3_alpha", img_alpha, USE3, dict(mode7, bc7_encode=1),
              {"bc7_refine_alpha": 5}),
-            ("use3_maxq_opaque", img_opaque, USE3 | MAXQ, "bc7_encode_maxq",
+            ("use3_maxq_opaque", img_opaque, USE3 | MAXQ,
+             {"bc7_encode_maxq": 1},
              {"bc7_refine_maxq": 5, "bc7_refine_ladder": 5,
               "bc7_refine_3sub_ladder": 2}),
             ("use3_maxq_alpha", img_alpha, USE3 | MAXQ,
-             "bc7_encode_maxq_alpha", {"bc7_refine_maxq": 6,
-                                       "bc7_refine_ladder": 6,
-                                       "bc7_refine_3sub_ladder": 2})):
+             dict(mode7, bc7_encode_maxq=1),
+             {"bc7_refine_maxq": 6, "bc7_refine_ladder": 6,
+              "bc7_refine_3sub_ladder": 2})):
         torch.cuda.synchronize()
         cuda_kernels.reset_launch_counts()
         blocks = image_to_blocks(img)[0]
@@ -1473,7 +1605,7 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
                   if v}
         # per K3 ladder a bucket pass, modes 0 and 2, and one launch per
         # other mode of the scope
-        want = {"bc7_partition_shapes": 2, "bc7_partition_mode": 2, k2: 1,
+        want = {"bc7_partition_shapes": 2, "bc7_partition_mode": 2, **k2,
                 "bc7_mode_buckets": 2 if flags & MAXQ else 1,
                 "bc7_refine_3sub": 2,
                 "bc7_decode": 1}
@@ -1793,7 +1925,8 @@ def bc6h_unshared_phases(torch, to_dev, event_ms, smi) -> dict:
                     if v}
         check(counts_t == {"bc6h_1region": 2, "bc6h_shapes": 2,
                            "bc6h_2region": 2 * len(groups),
-                           "bc6h_refine": 2},
+                           "bc6h_unit_buckets": 2, "bc6h_refine": 2,
+                           "bc6h_refine_cross2": 2},
               f"unshared mid / maxq launch counts {counts_t}")
         for t, e in encs.items():
             psnr[t] = log_psnr(bc6h.decode_bc6h(e, False).cpu().numpy(),

@@ -1401,6 +1401,45 @@ def _bc7_search_plain(px: torch.Tensor, modes=SEARCH_MODES,
     return torch.cat(errs), torch.cat(words, dim=1)
 
 
+def _has_alpha(px: torch.Tensor) -> torch.Tensor:
+    """[NB] bool: the blocks of px [64, NB] with some alpha below 255."""
+    return (px.reshape(16, 4, -1)[:, 3, :] != 255).any(dim=0)
+
+
+def _alpha_list_plain(px: torch.Tensor) -> torch.Tensor:
+    """Plain twin of mode 7's list pass: px [64, NB] int32 -> the [n]
+    int32 indices of the blocks with some alpha below 255, ascending."""
+    return torch.nonzero(_has_alpha(px)).flatten().to(torch.int32)
+
+
+def _take7(err_f: torch.Tensor, words_f: torch.Tensor,
+           err7: torch.Tensor) -> torch.Tensor:
+    """[NB] bool: where mode 7 (err7) takes a block from the fold F of
+    (1, 3, 5, 6, 4) (err_f, words_f [4, NB] int32) in the fold order
+    (1, 3, 5, 6, 7, 4): below F's error, or equal to it where F is mode 4
+    (mode 4 comes after 7, so it beat the modes before 7 but not 7)."""
+    after4 = _mode_of(_words_i64(words_f)) == 4
+    return torch.where(after4, err7 <= err_f, err7 < err_f)
+
+
+def _mode7_fold_plain(px: torch.Tensor, picks: torch.Tensor,
+                      err: torch.Tensor, words: torch.Tensor,
+                      aw: float = 1.0):
+    """Plain twin of the mode-7 launch: mode 7 (K7's twin) on picks [4, NB]
+    of the blocks with alpha, folded into a (1, 3, 5, 6, 4) search's err
+    [NB] and words [4, NB] int32 by _take7. Returns (err, words)."""
+    blocks = _alpha_list_plain(px).to(torch.int64)
+    err, words = err.clone(), words.clone()
+    if not len(blocks):
+        return err, words
+    err7, words7 = _partition_mode_plain(px[:, blocks], picks[:, blocks], 7,
+                                         aw)
+    take = _take7(err[blocks], words[:, blocks], err7)
+    err[blocks] = torch.where(take, err7, err[blocks])
+    words[:, blocks] = torch.where(take[None, :], words7, words[:, blocks])
+    return err, words
+
+
 def bc7_search_words(px: torch.Tensor, modes=SEARCH_MODES,
                      aw: float = 1.0, tier: str = TIER_DEFAULT):
     """The whole search of one tier. px [64, NB] int32 (texels 0..255,
@@ -1409,7 +1448,8 @@ def bc7_search_words(px: torch.Tensor, modes=SEARCH_MODES,
     SEARCH_MODES_QUICK, or SEARCH_MODES_3 / SEARCH_MODES_3_ALPHA
     (USE_3SUBSETS), `tier` TIER_DEFAULT or TIER_MAXQ. A CUDA tensor
     launches the kernels (K2; with modes 0 and 2 first K9 and K7 for each
-    of them), a CPU tensor runs the plain twin."""
+    of them; with mode 7 K2's search without it, then mode 7's list pass
+    and launch), a CPU tensor runs the plain twin."""
     _check_px(px)
     modes = _check_search(modes, tier)
     if not _on_cuda(px):

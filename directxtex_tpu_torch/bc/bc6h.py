@@ -1236,6 +1236,20 @@ def _check_ladder(ladder):
     return int(rounds), deltas
 
 
+def _unit_buckets_plain(words: torch.Tensor):
+    """Plain twin of K6's bucket pass: words [4, NB] int32 -> (counts [3]
+    int32, per unit the [counts[u]] int32 indices of its blocks in
+    ascending order): unit 0 the one-region winners (rows 10-13), 1 the
+    two-region winners (rows 0-9), 2 the reserved modes."""
+    rows = _mode_rows(_words_i64(words))
+    units = (rows >= 10, (rows >= 0) & (rows < 10), rows < 0)
+    buckets = tuple(torch.nonzero(u).flatten().to(torch.int32)
+                    for u in units)
+    counts = torch.tensor([len(b) for b in buckets], dtype=torch.int32,
+                          device=words.device)
+    return counts, buckets
+
+
 def _bc6h_refine_plain(px: torch.Tensor, words_i32: torch.Tensor, ladder,
                        signed: bool, remap: bool = False,
                        cross2: bool = False, ladder2=None) -> torch.Tensor:

@@ -9,9 +9,10 @@ live in bc67.py, and bc67's wrappers call these only for CUDA tensors.
 
     K1 bc7_decode  csrc/bc7_decode.cu  replaces pallas_kernels.py:2735
     K2 bc7_encode  csrc/bc7_encode.cuh replaces pallas_kernels.py:2020
-       (variants: bc7_encode.cu opaque, bc7_encode_alpha.cu with mode 7,
-       bc7_encode_quick.cu mode 6 alone, bc7_encode_maxq.cu and
-       bc7_encode_maxq_alpha.cu the maxq tier without and with mode 7)
+       (variants: bc7_encode.cu the default tier, bc7_encode_quick.cu
+       mode 6 alone, bc7_encode_maxq.cu the maxq tier; with mode 7 the
+       search of the tier, then bc7_alpha_list and bc7_mode7, both in
+       csrc/bc7_mode7.cu)
     K3 bc7_refine  csrc/bc7_refine.cuh replaces pallas_kernels.py:2667
        (a bucket pass, bc7_mode_buckets in bc7_refine.cu, then one launch
        per mode in scope of bc7_refine_mode_kernel, mode M's instances
@@ -23,6 +24,9 @@ live in bc67.py, and bc67's wrappers call these only for CUDA tensors.
     K4 bc6h_decode csrc/bc6h_decode.cu replaces pallas_kernels.py:2784
     K5 bc6h_encode csrc/bc6h_encode.cu replaces pallas_kernels.py:3744
     K6 bc6h_refine csrc/bc6h_refine.cu replaces pallas_kernels.py:3704
+       (a unit bucket pass, bc6h_unit_buckets, then one launch of lane
+       jobs per unit; counted as bc6h_refine, or bc6h_refine_cross2 with
+       cross2)
     K7 bc7_partition_mode csrc/bc7_partition.cuh replaces
        pallas_kernels.py:1414 (modes 1, 3, 7 built in bc7_partition.cu,
        modes 0 and 2 in bc7_partition_0.cu and bc7_partition_2.cu)
@@ -66,25 +70,26 @@ class CudaKernel:
 
 def _call(symbol: str, tensors, ints, device: torch.device) -> None:
     """Call a C entry point of the kernel library on the device's current
-    stream; raise if it reports a CUDA error."""
+    stream (a tensor given as None passes a null pointer); raise if it
+    reports a CUDA error."""
     lib = _build.library({k.symbol: (k.n_ptrs, k.n_ints)
                           for k in KERNELS.values()})
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        rc = getattr(lib, symbol)(*(t.data_ptr() for t in tensors), *ints,
-                                  stream)
+        rc = getattr(lib, symbol)(
+            *(None if t is None else t.data_ptr() for t in tensors), *ints,
+            stream)
     if rc != 0:
         raise RuntimeError(f"{symbol}: CUDA error {rc} at launch")
 
 
 KERNELS = {
     "bc7_decode": CudaKernel("bc7_decode_launch", 2, 1),
-    "bc7_encode": CudaKernel("bc7_encode_launch", 3, 2),
-    "bc7_encode_alpha": CudaKernel("bc7_encode_alpha_launch", 3, 2),
-    "bc7_encode_quick": CudaKernel("bc7_encode_quick_launch", 3, 2),
-    "bc7_encode_maxq": CudaKernel("bc7_encode_maxq_launch", 3, 2),
-    "bc7_encode_maxq_alpha": CudaKernel("bc7_encode_maxq_alpha_launch", 3,
-                                        2),
+    "bc7_encode": CudaKernel("bc7_encode_launch", 4, 2),
+    "bc7_encode_quick": CudaKernel("bc7_encode_quick_launch", 4, 2),
+    "bc7_encode_maxq": CudaKernel("bc7_encode_maxq_launch", 4, 2),
+    "bc7_alpha_list": CudaKernel("bc7_alpha_list_launch", 3, 1),
+    "bc7_mode7": CudaKernel("bc7_mode7_launch", 6, 2),
     "bc7_mode_buckets": CudaKernel("bc7_mode_buckets_launch", 4, 2),
     "bc7_refine": CudaKernel("bc7_refine_launch", 5, 6),
     "bc7_refine_alpha": CudaKernel("bc7_refine_launch", 5, 6),
@@ -92,7 +97,9 @@ KERNELS = {
     "bc7_refine_ladder": CudaKernel("bc7_refine_launch", 5, 6),
     "bc6h_decode": CudaKernel("bc6h_decode_launch", 2, 2),
     "bc6h_encode": CudaKernel("bc6h_encode_launch", 3, 2),
-    "bc6h_refine": CudaKernel("bc6h_refine_launch", 3, 8),
+    "bc6h_unit_buckets": CudaKernel("bc6h_unit_buckets_launch", 4, 1),
+    "bc6h_refine": CudaKernel("bc6h_refine_launch", 5, 8),
+    "bc6h_refine_cross2": CudaKernel("bc6h_refine_launch", 5, 8),
     "bc7_partition_shapes": CudaKernel("bc7_partition_shapes_launch", 2, 3),
     "bc7_partition_mode": CudaKernel("bc7_partition_mode_launch", 4, 4),
     "bc7_refine_3sub": CudaKernel("bc7_refine_launch", 5, 6),
@@ -149,32 +156,106 @@ TIER_MAXQ = "maxq"
 # the same search in both tiers
 _BC7_ENCODE_VARIANTS = {
     (TIER_DEFAULT, (1, 3, 5, 6, 4)): "bc7_encode",
-    (TIER_DEFAULT, (1, 3, 5, 6, 7, 4)): "bc7_encode_alpha",
     (TIER_DEFAULT, (6,)): "bc7_encode_quick",
     (TIER_MAXQ, (1, 3, 5, 6, 4)): "bc7_encode_maxq",
-    (TIER_MAXQ, (1, 3, 5, 6, 7, 4)): "bc7_encode_maxq_alpha",
     (TIER_MAXQ, (6,)): "bc7_encode_quick"}
+# the searches with mode 7: the tier's search without it, then mode 7's
+# launches (bc7_alpha_list, bc7_mode7)
+_BC7_MODES = (1, 3, 5, 6, 4)
+_BC7_MODES_ALPHA = (1, 3, 5, 6, 7, 4)
 
 
-def bc7_encode(px: torch.Tensor, modes: tuple = (1, 3, 5, 6, 4),
+def bc7_encode(px: torch.Tensor, modes: tuple = _BC7_MODES,
                aw: float = 1.0, tier: str = TIER_DEFAULT):
     """K2: px [64, NB] int32 (0..255) -> (err [NB] f32, words [4, NB]
-    int32), the search over `modes`: (1, 3, 5, 6, 4) (opaque),
-    (1, 3, 5, 6, 7, 4) (with mode 7) or (6,) (QUICK), of TIER_DEFAULT
-    (shared fits) or TIER_MAXQ (every mode fitted on its own), with the
-    alpha channel's squared error weighted by aw."""
+    int32), the search over `modes`: (1, 3, 5, 6, 4), (1, 3, 5, 6, 7, 4)
+    or (6,) (QUICK), of TIER_DEFAULT (shared fits) or TIER_MAXQ (every
+    mode fitted on its own), with the alpha channel's squared error
+    weighted by aw. With mode 7: the search without it (bc7_search_picks),
+    then bc7_alpha_list and bc7_mode7, which folds mode 7 into its result
+    in the order (1, 3, 5, 6, 7, 4)."""
     _check(px, "px", 64)
-    variant = _BC7_ENCODE_VARIANTS.get((tier, tuple(modes)))
+    modes = tuple(modes)
+    if modes == _BC7_MODES_ALPHA:
+        err, words, picks = bc7_search_picks(px, aw, tier)
+        blocks, count = bc7_alpha_list(px)
+        bc7_mode7(px, picks, blocks, count, err, words, aw)
+        return err, words
+    variant = _BC7_ENCODE_VARIANTS.get((tier, modes))
     if variant is None:
-        raise ValueError(f"K2 searches {tuple(_BC7_ENCODE_VARIANTS)}; got "
-                         f"{(tier, tuple(modes))}")
+        raise ValueError(f"K2 searches {tuple(_BC7_ENCODE_VARIANTS)} and "
+                         f"{_BC7_MODES_ALPHA} in either tier; got "
+                         f"{(tier, modes)}")
+    return _encode(px, variant, aw, None)
+
+
+def _encode(px, variant: str, aw: float, picks):
     nb = px.shape[1]
     err = torch.empty(nb, dtype=torch.float32, device=px.device)
     words = torch.empty((4, nb), dtype=torch.int32, device=px.device)
     if nb:
-        KERNELS[variant].launch((px, err, words), (nb, _f32_bits(aw)),
-                                px.device)
+        KERNELS[variant].launch((px, err, words, picks),
+                                (nb, _f32_bits(aw)), px.device)
     return err, words
+
+
+def bc7_search_picks(px: torch.Tensor, aw: float = 1.0,
+                     tier: str = TIER_DEFAULT):
+    """K2's (1, 3, 5, 6, 4) search of `tier` that also writes the shapes it
+    ranked: px [64, NB] int32 -> (err [NB] f32, words [4, NB] int32,
+    picks [4, NB] int32, the top 4 of the 64 two-subset shapes in rank
+    order, K9's (1, 64) picks)."""
+    _check(px, "px", 64)
+    variant = _BC7_ENCODE_VARIANTS.get((tier, _BC7_MODES))
+    if variant is None:
+        raise ValueError(f"tier {tier!r}: {TIER_DEFAULT!r} or {TIER_MAXQ!r}")
+    picks = torch.empty((4, px.shape[1]), dtype=torch.int32,
+                        device=px.device)
+    err, words = _encode(px, variant, aw, picks)
+    return err, words, picks
+
+
+def bc7_alpha_list(px: torch.Tensor):
+    """Mode 7's list pass: px [64, NB] int32 -> (blocks [NB] int32, count
+    [1] int32): the count[0] blocks with some alpha below 255 in
+    blocks[:count[0]], in no fixed order (each warp's in lane order); the
+    rest unset. The count stays on the card."""
+    _check(px, "px", 64)
+    nb = px.shape[1]
+    blocks = torch.empty(nb, dtype=torch.int32, device=px.device)
+    if not nb:
+        return blocks, torch.zeros(1, dtype=torch.int32, device=px.device)
+    count = torch.empty(1, dtype=torch.int32, device=px.device)
+    # the launcher zeroes the count before the pass
+    KERNELS["bc7_alpha_list"].launch((px, blocks, count), (nb,), px.device)
+    return blocks, count
+
+
+def bc7_mode7(px: torch.Tensor, picks: torch.Tensor, blocks: torch.Tensor,
+              count: torch.Tensor, err: torch.Tensor, words: torch.Tensor,
+              aw: float = 1.0) -> None:
+    """Mode 7 of the listed blocks (bc7_alpha_list's blocks and count) on
+    their four shapes (picks [4, NB] int32), each fitted on its own, folded
+    in place into a (1, 3, 5, 6, 4) search's err [NB] f32 and words
+    [4, NB] int32 as the fold over (1, 3, 5, 6, 7, 4) would: mode 7 takes
+    a block where its error is below the search's, or equal to it where
+    the search's words are mode 4's."""
+    _check(px, "px", 64)
+    nb = px.shape[1]
+    _check(picks, "picks", 4, nb)
+    _check(words, "words", 4, nb)
+    for t, name, shape, dtype in ((blocks, "blocks", (nb,), torch.int32),
+                                  (count, "count", (1,), torch.int32),
+                                  (err, "err", (nb,), torch.float32)):
+        if t.device != px.device or tuple(t.shape) != shape \
+                or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
+                             f"tensor on {px.device}")
+    if picks.device != px.device or words.device != px.device:
+        raise ValueError("px, picks and words must be on one device")
+    if nb:
+        KERNELS["bc7_mode7"].launch((px, picks, blocks, count, err, words),
+                                    (nb, _f32_bits(aw)), px.device)
 
 
 def bc7_ladder_ints(ladder) -> tuple:
@@ -416,11 +497,37 @@ def _ladder_ints(ladder) -> tuple:
     return (int(rounds), _i32(packed & 0xFFFFFFFF), _i32(packed >> 32))
 
 
+def bc6h_unit_buckets(words: torch.Tensor):
+    """K6's bucket pass: words [4, NB] int32 -> (a copy of the words,
+    lists [3, NB] int32, counts [3] int32): counts[u] blocks of unit u (0:
+    one-region winners, rows 10-13; 1: two-region winners, rows 0-9; 2:
+    reserved modes), their indices in lists[u, :counts[u]] in no fixed
+    order (each warp's in lane order); the rest of lists is unset."""
+    _check(words, "words", 4)
+    nb = words.shape[1]
+    out = torch.empty_like(words)
+    lists = torch.empty((3, nb), dtype=torch.int32, device=words.device)
+    if not nb:
+        return out, lists, torch.zeros(3, dtype=torch.int32,
+                                       device=words.device)
+    counts = torch.empty(3, dtype=torch.int32, device=words.device)
+    # the launcher zeroes the counts before the pass
+    KERNELS["bc6h_unit_buckets"].launch((words, out, lists, counts), (nb,),
+                                        words.device)
+    return out, lists, counts
+
+
 def bc6h_refine(px: torch.Tensor, words: torch.Tensor, ladder, ladder2,
                 signed: bool, remap: bool, cross2: bool) -> torch.Tensor:
     """K6: the winner-refine ladder. px [48, NB], words [4, NB] int32 ->
     words [4, NB] int32. ladder / ladder2: (rounds, deltas) of the
-    one-region and two-region units."""
+    one-region and two-region units. The bucket pass copies the words and
+    lists each unit's blocks; then one launch per unit runs its blocks'
+    ladders as lane jobs (one-region: one per precision; two-region: one
+    per subset, and with cross2 per precision group and subset) and folds
+    each block, all from one call into the kernel library. No host sync:
+    the bucket sizes stay on the card. Counted as the bucket pass and two
+    launches of bc6h_refine_cross2 (cross2) or bc6h_refine."""
     _check(words, "words", 4)
     nb = words.shape[1]
     _check(px, "px", 48, nb)
@@ -428,9 +535,14 @@ def bc6h_refine(px: torch.Tensor, words: torch.Tensor, ladder, ladder2,
         raise ValueError(f"px on {px.device}, words on {words.device}")
     flags = int(bool(signed)) | int(bool(remap)) << 1 | int(bool(cross2)) << 2
     out = torch.empty_like(words)
-    if nb:
-        KERNELS["bc6h_refine"].launch(
-            (px, words, out),
-            (nb, *_ladder_ints(ladder), *_ladder_ints(ladder2), flags),
-            px.device)
+    if not nb:
+        return out
+    lists = torch.empty((3, nb), dtype=torch.int32, device=words.device)
+    counts = torch.empty(3, dtype=torch.int32, device=words.device)
+    _call("bc6h_refine_launch", (px, words, out, lists, counts),
+          (nb, *_ladder_ints(ladder), *_ladder_ints(ladder2), flags),
+          px.device)
+    # that call launched the bucket pass and one kernel per unit
+    KERNELS["bc6h_unit_buckets"].launches += 1
+    KERNELS["bc6h_refine_cross2" if cross2 else "bc6h_refine"].launches += 2
     return out

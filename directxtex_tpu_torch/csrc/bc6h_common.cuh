@@ -179,15 +179,18 @@ __device__ __forceinline__ bool nbits_fit(int v, int prec, bool sgn) {
 // ---------------------------------------------------------------------------
 // pixels staged in shared memory
 // ---------------------------------------------------------------------------
-struct Px {
-  const int16_t* p;   // this thread's column: p[row * kThreads]
+// a block's column of an int16 [48][STRIDE] array: p[row * STRIDE]
+template <int STRIDE>
+struct PxT {
+  const int16_t* p;
   __device__ __forceinline__ int operator()(int c, int i) const {
-    return p[(c * 16 + i) * kThreads];
+    return p[(c * 16 + i) * STRIDE];
   }
   __device__ __forceinline__ float f(int c, int i) const {
-    return (float)p[(c * 16 + i) * kThreads];
+    return (float)p[(c * 16 + i) * STRIDE];
   }
 };
+using Px = PxT<kThreads>;   // one column per thread of the CTA
 
 // stage column b of px [48, NB] into this thread's shared column
 __device__ __forceinline__ Px stage_pixels(const int32_t* __restrict__ px,
@@ -212,8 +215,8 @@ __device__ __forceinline__ void idx_set(unsigned long long& v, int i, int k) {
 // idx) and the masked squared error against the finished palette, summed
 // in pixel order.
 // ---------------------------------------------------------------------------
-template <int K>
-__device__ __forceinline__ float palette_err(const Px& px, unsigned msk,
+template <int K, class P>
+__device__ __forceinline__ float palette_err(const P& px, unsigned msk,
                                              const int u0[3], const int u1[3],
                                              bool sgn,
                                              unsigned long long& idx) {
@@ -257,8 +260,8 @@ __device__ __forceinline__ float palette_err(const Px& px, unsigned msk,
 }
 
 // the same on quantized endpoints at precision prec (per block or static)
-template <int K>
-__device__ __forceinline__ float palette_err_q(const Px& px, unsigned msk,
+template <int K, class P>
+__device__ __forceinline__ float palette_err_q(const P& px, unsigned msk,
                                                const int q0[3],
                                                const int q1[3], int prec,
                                                bool sgn,

@@ -3,19 +3,18 @@
 // one thread per 4x4 block.
 //
 // Replaces directxtex_tpu/bc/pallas_kernels.py:bc7_encode_pallas /
-// _bc7_all_kernel, in five variants, each a template instance built from
+// _bc7_all_kernel, in three variants, each a template instance built from
 // its own source:
 //   kOpaque (bc7_encode.cu)       modes (1, 3, 5, 6, 4), the default tier
-//                                 on images without alpha (share2sub,
-//                                 share45, m4_ims=(0,));
-//   kAlpha  (bc7_encode_alpha.cu) modes (1, 3, 5, 6, 7, 4), the default
-//                                 tier on images with alpha;
+//                                 (share2sub, share45, m4_ims=(0,));
 //   kQuick  (bc7_encode_quick.cu) mode 6 alone (the QUICK tier);
 //   kMaxq   (bc7_encode_maxq.cu)  modes (1, 3, 5, 6, 4), the maxq tier
 //                                 (share2sub=False, share45=False,
-//                                 m4_ims=(0, 1));
-//   kMaxqAlpha (bc7_encode_maxq_alpha.cu) modes (1, 3, 5, 6, 7, 4), the
-//                                 maxq tier on images with alpha.
+//                                 m4_ims=(0, 1)).
+// The searches with mode 7, (1, 3, 5, 6, 7, 4) in either tier, are the
+// kOpaque or kMaxq search, which also writes the top-4 two-subset shapes
+// it ranked, then mode 7 on those shapes over the blocks with alpha and a
+// fold (bc7_mode7.cu).
 // Each variant has a weighted instance (W) that scales the alpha
 // channel's squared error by alpha_weight in scoring and index
 // assignment; the unweighted one is launched at alpha_weight 1.0 and does
@@ -40,10 +39,6 @@
 //     each candidate fitted on its own (quantize, assign colour and alpha
 //     at the index mode's precisions, one LS refit per group,
 //     re-evaluate, keep the better) — _k_rot_data / _k_mode45;
-//   - kAlpha, kMaxqAlpha: mode 7 on modes 1/3's top-4 shapes, each
-//     candidate fitted on its own — _k_partition_fold(7); a block whose
-//     alpha is 255 everywhere skips it, as its error would be masked to
-//     inf (pallas_kernels.py:1952-1956);
 //   - the cross-mode fold in list order with a strict `<`. Each mode keeps
 //     its own running best over its candidates, so the fold runs in the
 //     twin's order whatever order the modes were evaluated in.
@@ -79,8 +74,7 @@
 
 namespace bc7 {
 
-enum Variant { kOpaque = 0, kAlpha = 1, kQuick = 2, kMaxq = 3,
-               kMaxqAlpha = 4 };
+enum Variant { kOpaque, kQuick, kMaxq };
 
 // Initial endpoints: masked min/max box + best-diagonal axis pick
 // (_minmax_axis_endpoints_t, bc67.py:553)
@@ -736,17 +730,19 @@ __device__ __forceinline__ void trajectory_45(const uint32_t pix[16],
 
 // The maxq tier's search (_bc7_all_kernel with share2sub=False,
 // share45=False, m4_ims=(0, 1)): each mode's candidates in a loop of its
-// own, then the fold in the order (1, 3, 5, 6, [7,] 4)
-template <bool ALPHA, bool W>
+// own, then the fold in the order (1, 3, 5, 6, 4); the top-4 shapes into
+// picks[k * nb + b] where picks is not null
+template <bool W>
 __device__ __forceinline__ Best search_maxq(const uint32_t pix[16],
-                                            float aw) {
-  bool has_alpha = false;
-  if (ALPHA) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) has_alpha |= (pix[i] >> 24) != 0xFFu;
-  }
+                                            float aw,
+                                            int32_t* __restrict__ picks,
+                                            int nb, int b) {
   int cand[4];
   shape_top4(pix, cand);
+  if (picks) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) picks[(size_t)k * nb + b] = cand[k];
+  }
   Best best1{INFINITY, {0ull, 0ull}};
 #pragma unroll 1
   for (int k = 0; k < 4; ++k)
@@ -776,102 +772,32 @@ __device__ __forceinline__ Best search_maxq(const uint32_t pix[16],
     eval_45_own<4, 1, W>(prp, rot, e0, e1, aw, best4);
   }
 
-  Best best7{INFINITY, {0ull, 0ull}};
-  if (ALPHA && has_alpha) {
-#pragma unroll 1
-    for (int k = 0; k < 4; ++k)
-      eval_partition<7, W>(pix, cand[k], subset1_mask(cand[k]), aw, best7);
-  }
-
   Best fold{INFINITY, {0ull, 0ull}};
   keep_if_better(fold, best1.err, best1.w);
   keep_if_better(fold, best3.err, best3.w);
   keep_if_better(fold, best5.err, best5.w);
   keep_if_better(fold, best6.err, best6.w);
-  if (ALPHA) keep_if_better(fold, best7.err, best7.w);
   keep_if_better(fold, best4.err, best4.w);
   return fold;
 }
 
-// The alpha, quick, maxq and maxq-alpha variants: one thread per block
+// The quick and maxq variants: one thread per block. picks (maxq, where
+// not null): the top-4 two-subset shapes, [4, NB] in rank order.
 template <int V, bool W>
 __global__ void __launch_bounds__(kThreads)
     bc7_encode_kernel(const int32_t* __restrict__ px, float* __restrict__ err,
-                      uint32_t* __restrict__ words, int nb, float aw) {
-  static_assert(V != kOpaque, "the opaque search is the team kernel's");
+                      uint32_t* __restrict__ words,
+                      int32_t* __restrict__ picks, int nb, float aw) {
+  static_assert(V == kQuick || V == kMaxq,
+                "the opaque search is the team kernel's");
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= nb) return;
   uint32_t pix[16];
   load_pixels(px, nb, b, pix);
-
-  if (V == kQuick) {
-    const Best best6 = eval_mode6<W>(pix, aw);
-    err[b] = best6.err;
-    store_words(words, nb, b, best6.w);
-    return;
-  }
-
-  if (V == kMaxq || V == kMaxqAlpha) {
-    const Best best = search_maxq<V == kMaxqAlpha, W>(pix, aw);
-    err[b] = best.err;
-    store_words(words, nb, b, best.w);
-    return;
-  }
-
-  // kAlpha, the default tier with mode 7: mode 7 only where some texel's
-  // alpha is below 255
-  bool has_alpha = false;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) has_alpha |= (pix[i] >> 24) != 0xFFu;
-
-  // modes 1 and 3: top-4 shapes, one shared float trajectory each
-  int cand[4];
-  shape_top4(pix, cand);
-  Best best1{INFINITY, {0ull, 0ull}}, best3{INFINITY, {0ull, 0ull}};
-#pragma unroll 1
-  for (int k = 0; k < 4; ++k) {
-    const int shape = cand[k];
-    const unsigned m1 = subset1_mask(shape);
-    float se0[2][4], se1[2][4];
-    trajectory_2sub(pix, m1, se0, se1);
-    eval_2sub_mode<1, W>(pix, shape, m1, se0, se1, aw, best1);
-    eval_2sub_mode<3, W>(pix, shape, m1, se0, se1, aw, best3);
-  }
-
-  const Best best6 = eval_mode6<W>(pix, aw);
-
-  // modes 4 and 5: four rotations, one shared float trajectory each
-  Best best4{INFINITY, {0ull, 0ull}}, best5{INFINITY, {0ull, 0ull}};
-#pragma unroll 1
-  for (int rot = 0; rot < 4; ++rot) {
-    uint32_t prp[16];
-    float e0[4], e1[4];
-    trajectory_45(pix, rot, prp, e0, e1);
-    eval_45_mode<4, W>(prp, rot, e0, e1, aw, best4);
-    eval_45_mode<5, W>(prp, rot, e0, e1, aw, best5);
-  }
-
-  // mode 7 on modes 1/3's shapes, each fitted on its own. It runs last:
-  // placed inside the shape loop above, where the shared trajectories'
-  // state is live, it spilled more and ran markedly slower on the H100.
-  Best best7{INFINITY, {0ull, 0ull}};
-  if (has_alpha) {
-#pragma unroll 1
-    for (int k = 0; k < 4; ++k)
-      eval_partition<7, W>(pix, cand[k], subset1_mask(cand[k]), aw,
-                              best7);
-  }
-
-  // cross-mode fold in the order (1, 3, 5, 6, 7, 4), strict `<`
-  Best fold{INFINITY, {0ull, 0ull}};
-  keep_if_better(fold, best1.err, best1.w);
-  keep_if_better(fold, best3.err, best3.w);
-  keep_if_better(fold, best5.err, best5.w);
-  keep_if_better(fold, best6.err, best6.w);
-  keep_if_better(fold, best7.err, best7.w);
-  keep_if_better(fold, best4.err, best4.w);
-  err[b] = fold.err;
-  store_words(words, nb, b, fold.w);
+  const Best best = V == kQuick ? eval_mode6<W>(pix, aw)
+                                 : search_maxq<W>(pix, aw, picks, nb, b);
+  err[b] = best.err;
+  store_words(words, nb, b, best.w);
 }
 
 // ---------------------------------------------------------------------------
@@ -885,7 +811,8 @@ __global__ void __launch_bounds__(kThreads)
 //   3. every warp merges the four local lists by the same total order
 //      (the lower shape first on an equal estimate: shape_top4's and
 //      _top_k_shapes's tie rule), which gives the one-thread ranking's
-//      cand[0..3] exactly; warp w runs candidate rank w (both subset
+//      cand[0..3] exactly (written to picks[w] where picks is not null,
+//      for mode 7's launch); warp w runs candidate rank w (both subset
 //      trajectories, then modes 1 and 3) and rotation w (modes 4 and 5);
 //      the last warp also runs mode 6. Each result goes to shared memory,
 //      over the moment terms, which no warp reads after the ranking;
@@ -1069,15 +996,20 @@ __device__ __forceinline__ Best team_get(const TeamSmem& sm, int slot,
 }
 
 // Phase 3: candidate rank w (modes 1 and 3), rotation w (modes 4 and 5)
-// and, on the last warp, mode 6
+// and, on the last warp, mode 6; rank w's shape into picks[w] where picks
+// is not null
 template <bool W>
 __device__ __forceinline__ void team_eval(TeamSmem& sm, int warp, int lane,
-                                          float aw) {
+                                          float aw,
+                                          int32_t* __restrict__ picks,
+                                          int nb, int b0) {
   uint32_t pix[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) pix[i] = sm.pix[i][lane];
   {
     const int shape = team_candidate(sm, warp, lane);
+    if (picks && b0 + lane < nb)
+      picks[(size_t)warp * nb + b0 + lane] = shape;
     const unsigned m1 = subset1_mask(shape);
     float se0[2][4], se1[2][4];
     trajectory_2sub(pix, m1, se0, se1);
@@ -1137,7 +1069,8 @@ template <bool W>
 __global__ void __launch_bounds__(kThreads, 4)
     bc7_encode_opaque_kernel(const int32_t* __restrict__ px,
                              float* __restrict__ err,
-                             uint32_t* __restrict__ words, int nb, float aw) {
+                             uint32_t* __restrict__ words,
+                             int32_t* __restrict__ picks, int nb, float aw) {
   __shared__ TeamSmem sm;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int b0 = blockIdx.x * kTeamBlocks;
@@ -1147,38 +1080,40 @@ __global__ void __launch_bounds__(kThreads, 4)
   __syncthreads();
   team_rank(sm, warp, lane);
   __syncthreads();
-  team_eval<W>(sm, warp, lane, aw);
+  team_eval<W>(sm, warp, lane, aw, picks, nb, b0);
   __syncthreads();
   if (warp == 0) team_fold(sm, lane, err, words, nb, b0);
 }
 
 // Host launcher of variant V: alpha_weight arrives as its f32 bit pattern;
-// at 1.0 the unweighted instance runs.
+// at 1.0 the unweighted instance runs. picks: [4, NB] int32 or null (the
+// opaque and maxq variants write their top-4 shapes there).
 template <int V>
-int launch_encode(const void* px, void* err, void* words, int nb,
-                  int aw_bits, void* stream) {
+int launch_encode(const void* px, void* err, void* words, void* picks,
+                  int nb, int aw_bits, void* stream) {
   float aw;
   std::memcpy(&aw, &aw_bits, sizeof aw);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int32_t* p = (const int32_t*)px;
+  float* e = (float*)err;
+  uint32_t* w = (uint32_t*)words;
+  int32_t* k = (int32_t*)picks;
   if constexpr (V == kOpaque) {
     const int grid = (nb + kTeamBlocks - 1) / kTeamBlocks;
     if (aw != 1.0f)
-      bc7_encode_opaque_kernel<true>
-          <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-              (const int32_t*)px, (float*)err, (uint32_t*)words, nb, aw);
+      bc7_encode_opaque_kernel<true><<<grid, kThreads, 0, s>>>(p, e, w, k,
+                                                               nb, aw);
     else
-      bc7_encode_opaque_kernel<false>
-          <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-              (const int32_t*)px, (float*)err, (uint32_t*)words, nb, aw);
+      bc7_encode_opaque_kernel<false><<<grid, kThreads, 0, s>>>(p, e, w, k,
+                                                                nb, aw);
   } else {
     const int grid = (nb + kThreads - 1) / kThreads;
     if (aw != 1.0f)
-      bc7_encode_kernel<V, true>
-          <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-              (const int32_t*)px, (float*)err, (uint32_t*)words, nb, aw);
+      bc7_encode_kernel<V, true><<<grid, kThreads, 0, s>>>(p, e, w, k, nb,
+                                                           aw);
     else
-      bc7_encode_kernel<V, false>
-          <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-              (const int32_t*)px, (float*)err, (uint32_t*)words, nb, aw);
+      bc7_encode_kernel<V, false><<<grid, kThreads, 0, s>>>(p, e, w, k, nb,
+                                                            aw);
   }
   return (int)cudaGetLastError();
 }

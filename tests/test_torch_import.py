@@ -30,13 +30,17 @@ def test_package_imports_no_jax():
 def test_launchers_import_without_building():
     # importing and resetting touches no compiler and no device
     cuda_kernels.reset_launch_counts()
+    # K2's instances: the default tier's team kernel, quick and maxq; the
+    # searches with mode 7 add the list pass and mode 7's launch. K6: the
+    # unit bucket pass and the per-unit launches, without and with cross2.
     assert cuda_kernels.launch_counts() == {
-        "bc7_decode": 0, "bc7_encode": 0, "bc7_encode_alpha": 0,
-        "bc7_encode_quick": 0, "bc7_encode_maxq": 0,
-        "bc7_encode_maxq_alpha": 0, "bc7_mode_buckets": 0,
+        "bc7_decode": 0, "bc7_encode": 0, "bc7_encode_quick": 0,
+        "bc7_encode_maxq": 0, "bc7_alpha_list": 0, "bc7_mode7": 0,
+        "bc7_mode_buckets": 0,
         "bc7_refine": 0, "bc7_refine_alpha": 0,
         "bc7_refine_maxq": 0, "bc7_refine_ladder": 0,
-        "bc6h_decode": 0, "bc6h_encode": 0, "bc6h_refine": 0,
+        "bc6h_decode": 0, "bc6h_encode": 0, "bc6h_unit_buckets": 0,
+        "bc6h_refine": 0, "bc6h_refine_cross2": 0,
         "bc7_partition_shapes": 0, "bc7_partition_mode": 0,
         "bc7_refine_3sub": 0, "bc7_refine_3sub_ladder": 0,
         "bc7_single_modes": 0, "bc6h_1region": 0, "bc6h_shapes": 0,
@@ -102,6 +106,15 @@ def test_cpu_tensors_take_the_bc6h_plain_twins(signed):
     ("bc6h_refine", lambda: (torch.zeros((48, 8), dtype=torch.int32),
                              torch.zeros((4, 8), dtype=torch.int32),
                              (1, (4, 1)), (1, (4, 1)), False, True, False)),
+    ("bc6h_unit_buckets", lambda: (torch.zeros((4, 8), dtype=torch.int32),)),
+    ("bc7_search_picks", lambda: (torch.zeros((64, 8), dtype=torch.int32),)),
+    ("bc7_alpha_list", lambda: (torch.zeros((64, 8), dtype=torch.int32),)),
+    ("bc7_mode7", lambda: (torch.zeros((64, 8), dtype=torch.int32),
+                           torch.zeros((4, 8), dtype=torch.int32),
+                           torch.zeros(8, dtype=torch.int32),
+                           torch.zeros(1, dtype=torch.int32),
+                           torch.zeros(8), torch.zeros((4, 8),
+                                                       dtype=torch.int32))),
     ("bc7_partition_shapes", lambda: (torch.zeros((64, 8), dtype=torch.int32),
                                       2, 64)),
     ("bc7_partition_mode", lambda: (torch.zeros((64, 8), dtype=torch.int32),

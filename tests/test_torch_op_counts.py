@@ -300,11 +300,10 @@ def _assign3(p, n, u0, u1, prec, mask, *a, **kw):
 
 
 # -- inputs ------------------------------------------------------------------
-def _ldr_blocks(nb, opaque=True):
+def _ldr_blocks(nb):
     rng = np.random.default_rng(0)
     b = rng.random((nb, 16, 4)).astype(np.float32)
-    if opaque:
-        b[..., 3] = 1.0
+    b[..., 3] = 1.0
     return jnp.asarray(b)
 
 
@@ -326,17 +325,16 @@ def _quantize(x):
 
 def bc7_search_ops(variant: str = "opaque") -> float:
     """K2: a tier's search, from the [64, NB] texels (the LDR quantization
-    is the wrapper's, outside the kernel). "opaque": the default tier on
-    opaque blocks; "alpha": the default tier with mode 7, on a block with
-    alpha (the kernel skips mode 7 on an opaque block, which then costs
-    what "opaque" does); "quick": mode 6 alone; "maxq" and "maxq_alpha":
-    the maxq tier's search (every mode fitted on its own), the same way."""
-    maxq = jbc67._BC7_MAXQUALITY
-    b = _ldr_blocks(NB, opaque=variant not in ("alpha", "maxq_alpha"))
-    kwargs = {"opaque": {"opaque": True}, "alpha": {"opaque": False},
+    is the wrapper's, outside the kernel). "opaque": the default tier's
+    (1, 3, 5, 6, 4) search; "quick": mode 6 alone; "maxq": the maxq
+    tier's (1, 3, 5, 6, 4) search (every mode fitted on its own). With
+    mode 7 either search is followed by mode 7's launch, which costs
+    BC7_PARTITION_OPS[7] a block with alpha."""
+    b = _ldr_blocks(NB)
+    kwargs = {"opaque": {"opaque": True},
               "quick": {"flags": jbc67._BC7_QUICK},
-              "maxq": {"flags": maxq, "opaque": True},
-              "maxq_alpha": {"flags": maxq, "opaque": False}}[variant]
+              "maxq": {"flags": jbc67._BC7_MAXQUALITY, "opaque": True}}[
+                  variant]
     with _patched(refine_bc7_words=lambda p, w, ladder, **kw: w,
                   _eval_2sub_shared=_eval_2sub8,
                   _eval_subset_candidate=_eval_subset8):
@@ -569,11 +567,12 @@ def _refine_one_region(px_int, words_t, row, signed, ladder):
     return out
 
 
-def _refine_two_region(px_int, words_t, row, signed, ladder):
-    """A two-region winner (row 0-9) through the cross2 refine: its own
-    row's unpack and index read, the stored-index bar, the remap ladder
-    per subset at all six precision groups (each subset over its own
-    pixels), anchor swaps, delta fit, emit and fold per row."""
+def _refine_two_region(px_int, words_t, row, signed, ladder, cross2=True):
+    """A two-region winner (row 0-9) through the refine: its own row's
+    unpack and index read, the stored-index bar, the remap ladder per
+    subset (each over its own pixels) at all six precision groups with
+    cross2, else at its own row's precision only, anchor swaps, delta fit,
+    emit and fold per row."""
     nb = words_t.shape[1]
     b5 = (words_t[0] & 0x1F).astype(jnp.int32)
     mode_val = jnp.where((b5 & 3) < 2, b5 & 3, b5)
@@ -600,7 +599,8 @@ def _refine_two_region(px_int, words_t, row, signed, ladder):
     ef2 = {k: [_fin(_unq(q[c], precw, signed), signed) for c in range(3)]
            for k, q in qm.items()}
     out = words_t
-    for g in jbc67._bc6h_row_groups():
+    groups = jbc67._bc6h_row_groups() if cross2 else [(row,)]
+    for g in groups:
         prec = BC6H_MODE_INFO[g[0]][4][0]
         q2, idx_s, err = {}, [], 0.0
         for s in (0, 1):
@@ -645,20 +645,33 @@ def bc6h_maxq_refine_ops(signed: bool = False) -> dict:
             p, w, 0, signed, lad), px, _words(NB)) / NB}
 
 
+def bc6h_mid_refine_ops(signed: bool = False) -> dict:
+    """K6 at the mid tier (BC6H_LADDER_MID, remap, no cross2): a
+    one-region winner (row 10) at the four one-region precisions, and a
+    two-region winner (row 0) at its own precision."""
+    rng = np.random.default_rng(0)
+    px = jnp.asarray(rng.integers(0, 0x7BFF, (16, 3, NB)).astype(np.int32))
+    lad = jbc67.BC6H_LADDER_MID
+    return {
+        "one_region": needed_ops(lambda p, w: _refine_one_region(
+            p, w, 10, signed, lad), px, _words(NB)) / NB,
+        "two_region": needed_ops(lambda p, w: _refine_two_region(
+            p, w, 0, signed, lad, cross2=False), px, _words(NB)) / NB}
+
+
 def main() -> None:
     counts = {
         "BC7_DECODE_OPS": bc7_decode_ops(),
         "BC7_SEARCH_OPS": bc7_search_ops(),
-        "BC7_SEARCH_ALPHA_OPS": bc7_search_ops("alpha"),
         "BC7_SEARCH_QUICK_OPS": bc7_search_ops("quick"),
         "BC7_REFINE_OPS": bc7_refine_ops(),
         "BC7_SEARCH_MAXQ_OPS": bc7_search_ops("maxq"),
-        "BC7_SEARCH_MAXQ_ALPHA_OPS": bc7_search_ops("maxq_alpha"),
         "BC7_REFINE_FULL_OPS": bc7_refine_ops(jbc67.LADDER_FULL),
         "BC7_REFINE_LIGHT_OPS": bc7_refine_ops(jbc67.LADDER_LIGHT),
         "BC6H_DECODE_OPS": bc6h_decode_ops(),
         "BC6H_SEARCH_OPS": bc6h_search_ops(),
         "BC6H_REFINE_OPS": bc6h_maxq_refine_ops(),
+        "BC6H_REFINE_MID_OPS": bc6h_mid_refine_ops(),
         "BC7_SHAPES_OPS": {n: bc7_shapes_ops(n) for n in (16, 64)},
         "BC7_PARTITION_OPS": bc7_partition_ops(),
         "BC7_SINGLE_MODES_OPS": bc7_single_modes_ops(),
