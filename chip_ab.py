@@ -3,15 +3,18 @@
 GPU.
 
 Runs, at the shapes of chip_smoke.py's bench images: K2's opaque search
-(alpha weights 1.0 and 2.0); its searches with mode 7 (both tiers) on
+and its maxq search (alpha weights 1.0 and 2.0); its searches with mode 7
+(both tiers) on
 the image with alpha, and their pieces there (each tier's (1, 3, 5, 6,
 4) search, K9's two-subset ranking, K7's mode 7 over every block and
 over the blocks with alpha); each K3 call of the BC7 paths as its
 launcher's whole call (the default, alpha and maxq MOMENT scopes,
 LADDER_FULL and LADDER_LIGHT, modes 0 and 2 under MOMENT and FULL); the
 2048^2 paths (default and maxq, opaque and with alpha, USE_3SUBSETS);
-and K6's mid and maxq calls and encodes on BASELINE config 4's faces
-(face 512). It prints one JSON line of median CUDA-event times in ms of
+and on BASELINE config 4's faces (face 512) K5 (unsigned and signed),
+K6's mid and maxq calls, the mid and maxq encodes and the whole config-4
+path (hdr_cubemap_pipeline). It prints one JSON line of median CUDA-event
+times in ms of
 the checkout at ROOT, with the card's name and power limit and sums of
 the words, so that two checkouts can be seen to agree. To compare two
 checkouts on one card, run it from both on that card, in turns (A, B, B,
@@ -103,13 +106,19 @@ def main() -> None:
     faces = pipelines.cube_faces(eq)
     blocks4 = torch.cat([image_to_blocks(faces[i])[0] for i in range(6)])
     px4 = bc6h.px_of_blocks(blocks4, False)
+    px4s = bc6h.px_of_blocks(blocks4, True)
     w5 = ck.bc6h_encode(px4, False)[1]
+    pipe = pipelines.hdr_cubemap_pipeline()
     mid = (bc6h.BC6H_LADDER_MID, bc6h.BC6H_LADDER_MID, False, True, False)
     mxq = (bc6h.BC6H_LADDER_MAXQ, bc6h.BC6H_LADDER_MAXQ, False, True, True)
 
     ms = {
         "k2_opaque": med(lambda: ck.bc7_encode(px_o)),
         "k2_opaque_aw2": med(lambda: ck.bc7_encode(px_o, opaque, 2.0)),
+        "k2_maxq_search": med(lambda: ck.bc7_encode(px_o, opaque, 1.0,
+                                                    maxq)),
+        "k2_maxq_search_aw2": med(lambda: ck.bc7_encode(px_o, opaque, 2.0,
+                                                        maxq)),
         "k3_default": med(lambda: ck.bc7_refine(px_o, w_d,
                                                 bc67.REFINE_MODES)),
         "k3_alpha": med(lambda: ck.bc7_refine(px_a, w_a,
@@ -139,6 +148,9 @@ def main() -> None:
         "k7_mode7_alpha_blocks": med(lambda: ck.bc7_partition_mode(
             px_alpha, s2_alpha, 7)),
         "path_maxq_alpha": med(path(img_a, 0x200000)),
+        "k5_search": med(lambda: ck.bc6h_encode(px4, False)),
+        "k5_search_signed": med(lambda: ck.bc6h_encode(px4s, True)),
+        "path_config4": med(lambda: pipe(eq)),
         "k6_mid": med(lambda: ck.bc6h_refine(px4, w5, *mid)),
         "k6_maxq": med(lambda: ck.bc6h_refine(px4, w5, *mxq)),
         "encode_bc6h_mid": med(lambda: bc6h.encode_bc6h(
@@ -154,6 +166,11 @@ def main() -> None:
                             .sum()),
         "maxq_alpha_search": int(ck.bc7_encode(px_a, alpha, 1.0, maxq)[1]
                                  .to(torch.int64).sum()),
+        "maxq_search_aw2": int(ck.bc7_encode(px_o, opaque, 2.0, maxq)[1]
+                               .to(torch.int64).sum()),
+        "k5_search": int(w5.to(torch.int64).sum()),
+        "k5_search_signed": int(ck.bc6h_encode(px4s, True)[1]
+                                .to(torch.int64).sum()),
         "k6_mid": int(ck.bc6h_refine(px4, w5, *mid).to(torch.int64).sum()),
         "k6_maxq": int(ck.bc6h_refine(px4, w5, *mxq).to(torch.int64).sum())}
     smi = subprocess.run(

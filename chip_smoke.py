@@ -12,12 +12,16 @@ every kernel against its plain PyTorch twin on the card:
   on those shapes, folded in; K3 with mode 7 in scope), at alpha weights
   1.0 and 2.0, and the QUICK tier (K2's quick variant, mode 6 alone);
 - the BC7 MAXQUALITY tier (encode_bc7(flags=0x200000)): K2's maxq
-  variant (every mode fitted on its own; with alpha followed by mode 7's
-  list pass and launch), K3 twice, MOMENT with mode 6 in scope, then the
-  exact LADDER_FULL;
+  search (every mode fitted on its own; a team of four warps per 32
+  blocks running a block's 21 evaluations as jobs, both subsets of a
+  two-subset fit in one pass; with alpha followed by mode 7's list pass
+  and launch), K3 twice, MOMENT with mode 6 in scope, then the exact
+  LADDER_FULL;
 - BC6H (BASELINE config 4, hdr_cubemap_pipeline -> decode_bc6h, and the
-  mid / maxq tiers of encode_bc6h): K4 decode, K5 search, K6 refine (a
-  unit bucket pass, then a launch of lane jobs per unit);
+  mid / maxq tiers of encode_bc6h): K4 decode, K5 search (lane jobs: a
+  CTA of four warps per 32 blocks, the one-region job and one job per
+  shape candidate a block), K6 refine (a unit bucket pass, then a launch
+  of lane jobs per unit);
 - USE_3SUBSETS (encode_bc7(flags=0x80000), with MAXQUALITY 0x280000):
   per mode 0 and 2, K9 ranks the three-subset shapes and K7 evaluates
   the top 4, K2 searches the other modes, and K3 refines modes 0 and 2 as
@@ -32,7 +36,8 @@ Phases:
 
   0. device: the card's name and power limit, torch, CUDA and nvcc;
   1. build: nvcc builds the kernels from directxtex_tpu_torch/csrc; ptxas
-     registers, stack and spills per kernel instance;
+     registers, stack and spills per kernel instance, and those of the
+     kernels that keep their recorded build (PTXAS_RECORDED) held to it;
   2. K1: bit-exact on tests/golden/decode_vectors.npz and equal to the
      plain decode on 262,144 random mixed-mode words;
   3. K2: kernel search vs plain search on bench512.npz and the opaque
@@ -52,8 +57,9 @@ Phases:
      equal to the plain decode on 262,144 random words per mode;
   8. K5 and K6 (mid, maxq): kernel vs plain on the five HDR corpus
      contents and the 200-block random / bimodal set, unsigned and
-     signed: words equal, and K5's search errors equal; K6's unit
-     bucket pass vs its twin on each content's words;
+     signed: words equal, and K5's search errors equal (on the random
+     sets also K5's lane jobs in plain form, folded); K6's unit bucket
+     pass vs its twin on each content's words;
   9. BC6H gates: the corpus PSNR floors and the frozen reference's
      bc6h_hdr_psnr through encode_bc6h -> decode_bc6h on the card;
  10. config 4 at face 512: the path with launch counts and CUDA-event
@@ -77,7 +83,9 @@ Phases:
  15. K2 maxq (both variants) and K3 (MOMENT with mode 6 in scope, FULL,
      LIGHT, and mode 6 alone on QUICK's words) against their twins on
      bench512, the opaque corpus, alphagrad and the 200-block mixed set,
-     at alpha weights 1.0 and 2.0: words and search errors equal;
+     at alpha weights 1.0 and 2.0: words and search errors equal (on
+     alphagrad and the mixed set also the search with picks against the
+     maxq team's jobs in plain form, folded);
  16. maxq gates on the card: PSNR no worse than the default tier's less
      0.001 dB on bench512 and every BC7 corpus content
      (tests/test_bc7.py:200-214), bench512 at least the frozen
@@ -88,7 +96,9 @@ Phases:
      and mode 7; per K3 ladder a bucket pass and a launch per mode),
      CUDA-event times of the paths and kernels beside the default tier's,
      and one run of each plain twin at the path's shapes held against its
-     kernel (the search with mode 7 at alpha weights 1.0 and 2.0);
+     kernel (the search on both images at alpha weights 1.0 and 2.0,
+     with mode 7 on the image with alpha, with its picks on the bench
+     image);
  18. K9 (three subsets, 16 and 64 shapes; two subsets, 64), K7 (modes 0
      and 2 on the three-subset picks, 1, 3 and 7 on the two-subset
      picks), the search with modes 0 and 2 (K9, K7, K2 and the fold) and
@@ -318,6 +328,27 @@ BC6H_2REGION_OPS = (28530, 28530, 38074, 28482, 38074, 28446)
 # K8 per block: modes 4, 5 and 6 over their candidates
 BC7_SINGLE_MODES_OPS = 51970
 UNSHARED_PLAIN_BLOCKS = 16384  # face-512 blocks of the K10 / K11 twins
+# (registers, spill stores, spill loads in bytes) of the kernel instances
+# whose code the redesign of K2's maxq search and K5 moved or templated
+# but did not change (NVIDIA H100 80GB HBM3 build; PERF.md section 6),
+# by a piece of each instance's mangled name
+PTXAS_RECORDED = {
+    "bc7_partition_kernelILi0ELb0": (255, 68, 52),
+    "bc7_partition_kernelILi1ELb0": (255, 28, 24),
+    "bc7_partition_kernelILi2ELb0": (255, 72, 56),
+    "bc7_partition_kernelILi3ELb0": (255, 28, 24),
+    "bc7_partition_kernelILi7ELb0": (255, 16, 16),
+    "bc7_single_modes_kernelILb0": (255, 0, 0),
+    "bc7_mode7_kernelILb0": (255, 24, 12),
+    "bc7_shapes_kernelILi2ELi64": (223, 0, 0),
+    "bc7_shapes_kernelILi3ELi64": (233, 0, 0),
+    "bc6h_refine_unit_kernelILi0ELb0": (72, 0, 0),
+    "bc6h_refine_unit_kernelILi1ELb0": (80, 224, 248),
+    "bc6h_refine_unit_kernelILi1ELb1": (80, 304, 320),
+    "bc6h_1region_kernel": (62, 0, 0),
+    "bc6h_2region_kernel": (80, 0, 0),
+    "bc6h_shapes_kernel": (53, 0, 0),
+}
 
 
 def emit(obj) -> None:
@@ -340,6 +371,18 @@ def ptxas_summary(log: str) -> dict:
         elif entry and ("registers" in ln or "spill" in ln):
             parts[entry].append(ln.split(":")[-1].strip())
     return {k: "; ".join(v) for k, v in parts.items()}
+
+
+def ptxas_numbers(summary: str) -> tuple:
+    """(registers, spill stores, spill loads) of one ptxas_summary entry."""
+    import re
+
+    def num(pattern):
+        m = re.search(pattern, summary)
+        return int(m.group(1)) if m else 0
+
+    return (num(r"Used (\d+) registers"), num(r"(\d+) bytes spill stores"),
+            num(r"(\d+) bytes spill loads"))
 
 
 def bench_image(size: int = SLICE_SIZE, alpha: bool = False) -> np.ndarray:
@@ -448,8 +491,16 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
-    emit({"phase": "build", "seconds": build_s,
-          "ptxas": ptxas_summary(_build.build_info["log"])})
+    ptxas = ptxas_summary(_build.build_info["log"])
+    # a library built earlier from the same sources (directxtex_tpu_torch/
+    # _build/) loads without nvcc's log; a checkout builds its own
+    recorded = {}
+    for piece, want in PTXAS_RECORDED.items() if ptxas else ():
+        got = [ptxas_numbers(v) for k, v in ptxas.items() if piece in k]
+        check(got == [want], f"ptxas {piece}: {got} vs recorded {want}")
+        recorded[piece] = list(want)
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
+          "ptxas_as_recorded": recorded or "not checked: cached build"})
 
     def to_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -811,6 +862,13 @@ def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
                    "blocks": px.shape[1], "words_equal": True,
                    "errors_equal": True,
                    "no_row_fits": int((~torch.isfinite(e_k)).sum())}
+            if label == "random":
+                # K5's lane jobs in plain form, folded by (error, position)
+                e_j, w_j = bc6h._bc6h_jobs_fold_plain(
+                    bc6h._bc6h_search_jobs_plain(px, signed))
+                same(w_k, w_j, f"K5 words vs its jobs' twin {what}")
+                same(e_k, e_j, f"K5 errors vs its jobs' twin {what}")
+                out["jobs_twin_equal"] = True
             for tier, lad, cross2 in tiers:
                 r_k = cuda_kernels.bc6h_refine(px, w_k, lad, lad, signed,
                                                True, cross2)
@@ -1255,6 +1313,16 @@ def bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
                    "errors_equal": True, "search_modes": torch.bincount(
                        bc67._mode_of(bc67._words_i64(w_k)),
                        minlength=9).tolist()}
+            if label in ("alphagrad", "mixed200"):
+                # the search with picks against the maxq team's 21
+                # evaluations a block in plain form, folded
+                e_s, w_s, p_s = cuda_kernels.bc7_search_picks(px, aw, tier)
+                picks_j, jobs = bc67._maxq_jobs_plain(px, aw)
+                e_j, w_j = bc67._maxq_fold_plain(jobs)
+                same(w_s, w_j, f"K2 maxq words vs its jobs' twin {what}")
+                same(e_s, e_j, f"K2 maxq errors vs its jobs' twin {what}")
+                same(p_s, picks_j, f"K2 maxq picks vs its jobs' twin {what}")
+                out["jobs_twin_equal"] = True
             r_m = cuda_kernels.bc7_refine(px, w_k, modes, aw)
             same(r_m, bc67._bc7_refine_plain(px, w_k, modes, aw),
                  f"K3 moment {what}")
@@ -1353,11 +1421,17 @@ def bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
         same(w_s, plain["search"][1], f"K2 maxq words {name} {size}^2")
         same(e_k, plain["search"][0], f"K2 maxq errors {name} {size}^2")
         max_err[k2] = float((e_k - plain["search"][0]).abs().max())
-        if name == "alpha":
-            e_2, w_2 = cuda_kernels.bc7_encode(px, modes, 2.0, tier)
-            e_p2, w_p2 = bc67._bc7_search_plain(px, modes, 2.0, tier)
-            same(w_2, w_p2, f"K2 maxq words {name} {size}^2 aw=2.0")
-            same(e_2, e_p2, f"K2 maxq errors {name} {size}^2 aw=2.0")
+        e_2, w_2 = cuda_kernels.bc7_encode(px, modes, 2.0, tier)
+        e_p2, w_p2 = bc67._bc7_search_plain(px, modes, 2.0, tier)
+        same(w_2, w_p2, f"K2 maxq words {name} {size}^2 aw=2.0")
+        same(e_2, e_p2, f"K2 maxq errors {name} {size}^2 aw=2.0")
+        if name == "opaque":
+            # with picks: the same words, and the twin's ranking
+            e_pk, w_pk, p_pk = cuda_kernels.bc7_search_picks(px, 1.0, tier)
+            same(w_pk, plain["search"][1], f"K2 maxq words {name} picks")
+            same(e_pk, plain["search"][0], f"K2 maxq errors {name} picks")
+            same(p_pk, bc67._partition_shapes_plain(px, 1, 64, 4),
+                 f"K2 maxq picks {name} {size}^2")
         # both K3 calls of each path, held at that path's own shapes
         for k3, key, fn in (
                 ("bc7_refine_maxq", "moment",

@@ -1000,39 +1000,58 @@ def _try_2sub_modes_shared(px_i, px_f, ests, aw: float = 1.0):
     return best
 
 
+def _shared_p(m: _BC7Mode) -> bool:
+    """One p bit per subset, shared by both endpoints (mode 1)."""
+    return m.p_bits == (m.partitions + 1) and m.p_bits > 0
+
+
+def _fit_subset_plain(px_i, px_f, mask, mode_id: int, aw: float = 1.0):
+    """One subset of a mode fitted on its own (_eval_subset_candidate's
+    per-subset part, bc67.py:908): axis fit, quantize and assign, one LS
+    refit and re-assign, keep the better. Returns (err [NB], q0, q1 [4, NB],
+    p0, p1 [NB], idx [16, NB] of all 16 pixels; the caller keeps those in
+    `mask`)."""
+    m = _BC7_MODES[mode_id]
+    shared_p = _shared_p(m)
+    prec = m.index_prec
+
+    def qpal(e0f_, e1f_):
+        q0, q1, p0, p1 = _quantize_endpoints_t(e0f_, e1f_, m)
+        u0, u1 = _unquantize_with_p_t(q0, q1, p0, p1, m, shared_p)
+        idx, err = _assign_indices_t(px_i, u0, u1, prec, mask, aw=aw)
+        return q0, q1, p0, p1, idx, err
+
+    e0f, e1f = _minmax_axis_endpoints_t(px_f, mask,
+                                        with_alpha=m.rgba_prec[3] > 0)
+    q0a, q1a, p0a, p1a, idx_a, err_a = qpal(e0f, e1f)
+    e0c, e1c = _ls_refit_t(px_f, idx_a, mask, prec, e0f, e1f)
+    q0b, q1b, p0b, p1b, idx_r, err_r = qpal(e0c, e1c)
+    better = err_r < err_a
+    return (torch.where(better, err_r, err_a),
+            torch.where(better[None, :], q0b, q0a),
+            torch.where(better[None, :], q1b, q1a),
+            torch.where(better, p0b, p0a), torch.where(better, p1b, p1a),
+            torch.where(better[None, :], idx_r, idx_a))
+
+
 def _eval_subset_candidate(px_i, px_f, mask_list, anchors, mode_id: int,
                            aw: float = 1.0):
-    """One (mode, shape) candidate (bc67.py:908): axis fit, quantize and
-    assign, one LS refit and re-assign, keep the better, anchor swaps.
-    Returns (err [NB], q0s, q1s, p0s, p1s [lists], idx [16, NB])."""
-    m = _BC7_MODES[mode_id]
-    shared_p = m.p_bits == (m.partitions + 1) and m.p_bits > 0
-    prec = m.index_prec
+    """One (mode, shape) candidate (bc67.py:908): each subset fitted on its
+    own (_fit_subset_plain), then anchor swaps. Returns (err [NB], q0s,
+    q1s, p0s, p1s [lists], idx [16, NB])."""
+    prec = _BC7_MODES[mode_id].index_prec
     total_err = torch.zeros_like(px_f[0, 0])
     q0s, q1s, p0s, p1s = [], [], [], []
     idx_full = torch.zeros_like(px_i[:, 0, :])
-
     for mask in mask_list:
-        def qpal(e0f_, e1f_):
-            q0, q1, p0, p1 = _quantize_endpoints_t(e0f_, e1f_, m)
-            u0, u1 = _unquantize_with_p_t(q0, q1, p0, p1, m, shared_p)
-            idx, err = _assign_indices_t(px_i, u0, u1, prec, mask, aw=aw)
-            return q0, q1, p0, p1, idx, err
-
-        e0f, e1f = _minmax_axis_endpoints_t(px_f, mask,
-                                            with_alpha=m.rgba_prec[3] > 0)
-        q0a, q1a, p0a, p1a, idx_a, err_a = qpal(e0f, e1f)
-        e0c, e1c = _ls_refit_t(px_f, idx_a, mask, prec, e0f, e1f)
-        q0b, q1b, p0b, p1b, idx_r, err_r = qpal(e0c, e1c)
-        better = err_r < err_a
-        q0s.append(torch.where(better[None, :], q0b, q0a))
-        q1s.append(torch.where(better[None, :], q1b, q1a))
-        p0s.append(torch.where(better, p0b, p0a))
-        p1s.append(torch.where(better, p1b, p1a))
-        total_err = total_err + torch.where(better, err_r, err_a)
-        idx_full = torch.where(mask,
-                               torch.where(better[None, :], idx_r, idx_a),
-                               idx_full)
+        err, q0, q1, p0, p1, idx = _fit_subset_plain(px_i, px_f, mask,
+                                                     mode_id, aw)
+        q0s.append(q0)
+        q1s.append(q1)
+        p0s.append(p0)
+        p1s.append(p1)
+        total_err = total_err + err
+        idx_full = torch.where(mask, idx, idx_full)
     idx_full = _anchor_swaps(idx_full, mask_list, anchors, prec,
                              q0s, q1s, p0s, p1s)
     return total_err, q0s, q1s, p0s, p1s, idx_full
@@ -1278,28 +1297,38 @@ def _try_single_mode45(px_i, px_f, mode_id: int, aw: float = 1.0,
     m = _BC7_MODES[mode_id]
     nb = px_i.shape[2]
     ims = tuple(m4_ims) if m.index_mode_bits else (0,)
-    zero = torch.zeros(nb, dtype=torch.int32, device=px_i.device)
     best_err = torch.full((nb,), float("inf"), device=px_i.device)
     best_words = torch.zeros((4, nb), dtype=torch.int64, device=px_i.device)
     for rot in _MODE45_ROTS:
-        pr_i, pr_f = _rotate(px_i, rot), _rotate(px_f, rot)
-        alpha_ch = 3 if rot == 0 else rot - 1
         for im in ims:
-            q0, q1, cidx, aidx, err = _dual_eval_t(pr_i, pr_f, mode_id, im,
-                                                   aw, alpha_ch)
-            w1, w2 = (cidx, aidx) if im == 0 else (aidx, cidx)
-            w1, w2, swap1, swap2 = _dual_anchor_fix(w1, w2, m.index_prec,
-                                                    m.index_prec2)
-            swap_rgb, swap_a = (swap1, swap2) if im == 0 else (swap2, swap1)
-            do_swap = torch.stack([swap_rgb, swap_rgb, swap_rgb, swap_a])
-            words = _emit_bc7(mode_id, 0, rot, im,
-                              [torch.where(do_swap, q1, q0)],
-                              [torch.where(do_swap, q0, q1)], [zero], [zero],
-                              w1, w2, nb, px_i.device)
+            err, words = _mode45_candidate(px_i, px_f, mode_id, rot, im, aw)
             better = err < best_err
             best_err = torch.minimum(err, best_err)
             best_words = torch.where(better[None, :], words, best_words)
     return best_err, best_words
+
+
+def _mode45_candidate(px_i, px_f, mode_id: int, rot: int, im: int,
+                      aw: float = 1.0):
+    """One (rotation, index mode) candidate of mode 4 or 5 fitted on its
+    own, anchor-fixed and emitted (_try_single_mode45's loop body).
+    Returns (err [NB], words [4, NB] int64)."""
+    m = _BC7_MODES[mode_id]
+    nb = px_i.shape[2]
+    zero = torch.zeros(nb, dtype=torch.int32, device=px_i.device)
+    pr_i, pr_f = _rotate(px_i, rot), _rotate(px_f, rot)
+    alpha_ch = 3 if rot == 0 else rot - 1
+    q0, q1, cidx, aidx, err = _dual_eval_t(pr_i, pr_f, mode_id, im, aw,
+                                           alpha_ch)
+    w1, w2 = (cidx, aidx) if im == 0 else (aidx, cidx)
+    w1, w2, swap1, swap2 = _dual_anchor_fix(w1, w2, m.index_prec,
+                                            m.index_prec2)
+    swap_rgb, swap_a = (swap1, swap2) if im == 0 else (swap2, swap1)
+    do_swap = torch.stack([swap_rgb, swap_rgb, swap_rgb, swap_a])
+    return err, _emit_bc7(mode_id, 0, rot, im,
+                          [torch.where(do_swap, q1, q0)],
+                          [torch.where(do_swap, q0, q1)], [zero], [zero],
+                          w1, w2, nb, px_i.device)
 
 
 def _single_modes_plain(px: torch.Tensor, aw: float = 1.0) -> dict:
@@ -1438,6 +1467,258 @@ def _mode7_fold_plain(px: torch.Tensor, picks: torch.Tensor,
     err[blocks] = torch.where(take, err7, err[blocks])
     words[:, blocks] = torch.where(take[None, :], words7, words[:, blocks])
     return err, words
+
+
+# ---------------------------------------------------------------------------
+# K2's maxq team in plain form: the paired two-subset fit, the 21
+# evaluations of a block and their fold (used by the tests and
+# chip_smoke.py; the search itself is _bc7_search_plain)
+# ---------------------------------------------------------------------------
+
+def _pick_pix(s1, a1, a0):
+    """Per pixel its own subset's value: a1 [C, NB] where s1 [16, NB] is
+    set, else a0. Returns [16, C, NB]."""
+    return torch.where(s1[:, None, :], a1[None], a0[None])
+
+
+def _own_sums(s1, terms):
+    """Each subset's sum of its own pixels' terms [16, NB] in pixel order,
+    skipping the other subset's pixels (a running sum from 0.0, as K2's
+    paired fit adds). Returns [sum over subset 0, sum over subset 1]."""
+    acc0 = torch.zeros_like(terms[0])
+    acc1 = torch.zeros_like(terms[0])
+    for i in range(terms.shape[0]):
+        acc0 = torch.where(s1[i], acc0, acc0 + terms[i])
+        acc1 = torch.where(s1[i], acc1 + terms[i], acc1)
+    return [acc0, acc1]
+
+
+def _minmax_axis_pair_t(px_f, s1, with_alpha: bool):
+    """_minmax_axis_endpoints_t of both subsets in one pass over the
+    pixels: each pixel projected on its own subset's box and scored into
+    its own subset's sums. s1 [16, NB] bool: subset 1's pixels. Returns
+    ([e0 of subset 0, of subset 1], [e1, e1]) [4, NB] each."""
+    boxes, mids, dirvs = [], [], []
+    nch = 4 if with_alpha else 3
+    for sub in (0, 1):
+        m = (s1 if sub else ~s1)[:, None, :]
+        mi = torch.where(m, px_f, 1e9).amin(dim=0)
+        ma = torch.where(m, px_f, -1e9).amax(dim=0)
+        ab = ma - mi
+        fab = _sum0(ab[:nch] * ab[:nch])
+        boxes.append((mi, ma))
+        mids.append((mi + ma) * 0.5)
+        dirvs.append(ab / torch.where(fab > 0, fab, 1.0)[None, :])
+    pt = (px_f - _pick_pix(s1, mids[1], mids[0])) \
+        * _pick_pix(s1, dirvs[1], dirvs[0])
+    signs = [(sg, sb, sa)
+             for sg in (1.0, -1.0) for sb in (1.0, -1.0)
+             for sa in ((1.0, -1.0) if with_alpha else (1.0,))]
+    best = [[torch.full_like(boxes[0][0][0], -1.0)] + [
+        torch.ones_like(boxes[0][0][0]) for _ in range(3)] for _ in (0, 1)]
+    for sg, sb, sa in signs:
+        f = pt[:, 0, :] + sg * pt[:, 1, :] + sb * pt[:, 2, :]
+        if with_alpha:
+            f = f + sa * pt[:, 3, :]
+        for sub, score in enumerate(_own_sums(s1, f * f)):
+            b = best[sub]
+            better = score > b[0]
+            best[sub] = [torch.where(better, score, b[0]),
+                         torch.where(better, sg, b[1]),
+                         torch.where(better, sb, b[2]),
+                         torch.where(better, sa, b[3])]
+    e0s, e1s = [], []
+    for sub in (0, 1):
+        mi, ma = boxes[sub]
+        _, bsg, bsb, bsa = best[sub]
+
+        def flip(lo, hi, sgn):
+            return torch.where(sgn < 0, hi, lo), torch.where(sgn < 0, lo, hi)
+
+        g0, g1 = flip(mi[1], ma[1], bsg)
+        b0, b1 = flip(mi[2], ma[2], bsb)
+        a0, a1 = flip(mi[3], ma[3], bsa) if with_alpha else (mi[3], ma[3])
+        e0s.append(torch.stack([mi[0], g0, b0, a0]))
+        e1s.append(torch.stack([ma[0], g1, b1, a1]))
+    return e0s, e1s
+
+
+def _assign_pair_t(px_i, u0s, u1s, s1, prec: int, aw: float = 1.0):
+    """_assign_indices_t over channels 0-3 of both subsets in one pass:
+    each pixel projected on, and scored against, its own subset's
+    endpoints (u0s / u1s: [subset 0's, subset 1's] [4, NB]). Returns (idx
+    [16, NB] of every pixel, [err of subset 0, of subset 1])."""
+    K = 1 << prec
+    e_sub = [[u1s[s][c] - u0s[s][c] for c in range(4)] for s in (0, 1)]
+    s64 = []
+    for s in (0, 1):
+        span = torch.zeros_like(e_sub[s][0])
+        for ee in e_sub[s]:
+            span = span + ee * ee
+        span = span.to(torch.float32)
+        s64.append(_div(64.0, torch.where(span > 0, span, 1.0)))
+    u0 = _pick_pix(s1, u0s[1], u0s[0])
+    e = _pick_pix(s1, torch.stack(e_sub[1]), torch.stack(e_sub[0]))
+    d0 = [px_i[:, c, :] - u0[:, c, :] for c in range(4)]
+    dot = torch.zeros_like(d0[0])
+    for c in range(4):
+        dot = dot + d0[c] * e[:, c, :]
+    p64 = (dot.to(torch.float32) * torch.where(s1, s64[1][None, :],
+                                                s64[0][None, :])) \
+        .clamp(0.0, 64.0)
+    kf = torch.round(p64 * ((K - 1) / 64.0)).to(torch.int32).clamp(0, K - 1)
+    wk = _pal_weight(kf, K)
+    wkp = _pal_weight((kf + 1).clamp(max=K - 1), K)
+    wkm = _pal_weight((kf - 1).clamp(min=0), K)
+    up = (kf < K - 1) & (2.0 * p64 > (wk + wkp).to(torch.float32))
+    dn = (kf > 0) & (2.0 * p64 < (wk + wkm).to(torch.float32))
+    idx = torch.where(up, kf + 1, torch.where(dn, kf - 1, kf))
+    wk = _pal_weight(idx, K)
+    dist = torch.zeros_like(p64)
+    for c in range(4):
+        r = (d0[c] - ((wk * e[:, c, :] + 32) >> 6)).to(torch.float32)
+        dist = dist + _weighted_sq(r, c, aw, 3, None)
+    return idx, _own_sums(s1, dist)
+
+
+def _ls_refit_pair_t(px_f, idx, s1, prec: int, e0s, e1s):
+    """_ls_refit_t over channels 0-3 of both subsets in one pass, each
+    pixel weighed into its own subset's sums. Returns (e0s, e1s)."""
+    x = _pal_weight(idx, 1 << prec).to(torch.float32) * (1 / 64)
+    a, b = 1.0 - x, x
+    A, B, C = _own_sums(s1, a * a), _own_sums(s1, a * b), \
+        _own_sums(s1, b * b)
+    r0 = [_own_sums(s1, a * px_f[:, c, :]) for c in range(4)]
+    r1 = [_own_sums(s1, b * px_f[:, c, :]) for c in range(4)]
+    out0, out1 = [], []
+    for s in (0, 1):
+        det = A[s] * C[s] - B[s] * B[s]
+        ok = torch.abs(det) > 1e-6
+        inv = _div(1.0, torch.where(ok, det, 1.0))
+        rows0, rows1 = [], []
+        for c in range(4):
+            n0 = ((C[s] * r0[c][s] - B[s] * r1[c][s]) * inv).clamp(0.0, 255.0)
+            n1 = ((A[s] * r1[c][s] - B[s] * r0[c][s]) * inv).clamp(0.0, 255.0)
+            rows0.append(torch.where(ok, n0, e0s[s][c]))
+            rows1.append(torch.where(ok, n1, e1s[s][c]))
+        out0.append(torch.stack(rows0))
+        out1.append(torch.stack(rows1))
+    return out0, out1
+
+
+def _fit_pair_plain(px_i, px_f, s1, mode_id: int, aw: float = 1.0):
+    """Plain twin of K2's paired fit (fit_ns<M, 2, W>, bc7_encode.cuh):
+    both subsets of two-subset mode mode_id (1, 3 or 7) fitted in one pass
+    per step, each pixel on its own subset's state (s1 [16, NB] bool:
+    subset 1's pixels), each subset keeping its better fit by its own
+    strict `<`. Returns ([err [NB]] x 2, [q0] x 2, [q1] x 2, [p0] x 2,
+    [p1] x 2, idx [16, NB]): what _fit_subset_plain gives for each subset,
+    the index plane of each pixel from its own subset's fit."""
+    m = _BC7_MODES[mode_id]
+    shared_p = _shared_p(m)
+    prec = m.index_prec
+
+    def qpal(e0s_, e1s_):
+        qs = [_quantize_endpoints_t(e0s_[s], e1s_[s], m) for s in (0, 1)]
+        us = [_unquantize_with_p_t(*qs[s], m, shared_p) for s in (0, 1)]
+        idx, errs = _assign_pair_t(px_i, [us[0][0], us[1][0]],
+                                   [us[0][1], us[1][1]], s1, prec, aw)
+        return qs, idx, errs
+
+    e0s, e1s = _minmax_axis_pair_t(px_f, s1, m.rgba_prec[3] > 0)
+    qa, idx_a, err_a = qpal(e0s, e1s)
+    e0c, e1c = _ls_refit_pair_t(px_f, idx_a, s1, prec, e0s, e1s)
+    qb, idx_b, err_b = qpal(e0c, e1c)
+    errs, q0s, q1s, p0s, p1s = [], [], [], [], []
+    idx = idx_a
+    for s in (0, 1):
+        better = err_b[s] < err_a[s]
+        errs.append(torch.where(better, err_b[s], err_a[s]))
+        q0s.append(torch.where(better[None, :], qb[s][0], qa[s][0]))
+        q1s.append(torch.where(better[None, :], qb[s][1], qa[s][1]))
+        p0s.append(torch.where(better, qb[s][2], qa[s][2]))
+        p1s.append(torch.where(better, qb[s][3], qa[s][3]))
+        own = s1 if s else ~s1
+        idx = torch.where(own & better[None, :], idx_b, idx)
+    return errs, q0s, q1s, p0s, p1s, idx
+
+
+def _eval_partition_pair_plain(px_i, px_f, s_blk, mode_id: int,
+                               aw: float = 1.0):
+    """Two-subset mode mode_id (1, 3, 7) on the shapes s_blk [NB] by the
+    paired fit, anchor swaps, emit (K2's eval_partition_pair). Returns
+    (err [NB], words [4, NB] int64)."""
+    tabs = _tables(px_i.device)
+    s_blk = s_blk.to(torch.int64)
+    s1 = tabs["parts1"][s_blk].t() == 1                  # [16, NB]
+    errs, q0s, q1s, p0s, p1s, idx = _fit_pair_plain(px_i, px_f, s1,
+                                                    mode_id, aw)
+    total = torch.zeros_like(px_f[0, 0])
+    total = total + errs[0]
+    total = total + errs[1]
+    idx = _anchor_swaps(idx, [~s1, s1], [0, tabs["fix1"][s_blk, 1]],
+                        _BC7_MODES[mode_id].index_prec, q0s, q1s, p0s, p1s)
+    return total, _emit_bc7(mode_id, s_blk, 0, 0, q0s, q1s, p0s, p1s, idx,
+                            None, px_i.shape[2], px_i.device)
+
+
+# K2's maxq team's 21 evaluations of a block, in the order of their result
+# slots (bc7_encode.cuh's MaxqSlot): (mode, candidate rank or rotation,
+# index mode). The kernel runs them as 13 jobs: one per candidate and
+# mode 1 or 3, one per rotation (its modes 5, 4 at index mode 0 and 4 at
+# index mode 1 in turn), and mode 6.
+MAXQ_JOBS = (tuple((1, k, 0) for k in range(4))
+             + tuple((3, k, 0) for k in range(4))
+             + tuple((5, r, 0) for r in range(4))
+             + tuple((4, r, im) for r in range(4) for im in (0, 1))
+             + ((6, 0, 0),))
+
+
+def _maxq_jobs_plain(px: torch.Tensor, aw: float = 1.0):
+    """Plain twin of K2's maxq team's evaluations: px [64, NB] int32 (0..255) ->
+    (picks [4, NB] int32, the top 4 of the 64 two-subset shapes; [(err
+    [NB] f32, words [4, NB] int32)] in MAXQ_JOBS order): modes 1 and 3 on
+    each candidate by the paired fit, mode 5 and mode 4 at each index mode
+    per rotation, mode 6, each fitted on its own."""
+    picks, jobs = [], [([], []) for _ in MAXQ_JOBS]
+    for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE):
+        px_i = px[:, s:s + _PLAIN_SEARCH_SLICE].reshape(16, 4, -1)
+        px_f = px_i.to(torch.float32)
+        cands = _top_k_shapes(_shape_estimates_table(px_f),
+                              BC7_SHAPE_CANDIDATES)
+        picks.append(torch.stack(cands).to(torch.int32))
+        for j, (mode_id, a, im) in enumerate(MAXQ_JOBS):
+            if mode_id in (1, 3):
+                err, w = _eval_partition_pair_plain(px_i, px_f, cands[a],
+                                                    mode_id, aw)
+            elif mode_id in (4, 5):
+                err, w = _mode45_candidate(px_i, px_f, mode_id, a, im, aw)
+            else:
+                err, w = _try_mode6(px_i, px_f, aw)
+            jobs[j][0].append(err)
+            jobs[j][1].append(_words_i32(w))
+    return torch.cat(picks, dim=1), [(torch.cat(e), torch.cat(w, dim=1))
+                                     for e, w in jobs]
+
+
+def _maxq_fold_plain(jobs):
+    """Plain twin of the maxq team's fold: results in MAXQ_JOBS order ->
+    (err [NB], words [4, NB] int32): each mode's best over its jobs in
+    slot order (candidates in rank order; mode 4 rotation-major, index
+    mode 0 before 1), then the modes in the order (1, 3, 5, 6, 4), each a
+    strict `<`."""
+    def fold(pairs):
+        best_err = torch.full_like(pairs[0][0], float("inf"))
+        best_words = torch.zeros_like(pairs[0][1])
+        for err, words in pairs:
+            better = err < best_err
+            best_err = torch.where(better, err, best_err)
+            best_words = torch.where(better[None, :], words, best_words)
+        return best_err, best_words
+
+    per_mode = {m: fold([jobs[j] for j, job in enumerate(MAXQ_JOBS)
+                         if job[0] == m]) for m in (1, 3, 5, 6, 4)}
+    return fold([per_mode[m] for m in (1, 3, 5, 6, 4)])
 
 
 def bc7_search_words(px: torch.Tensor, modes=SEARCH_MODES,

@@ -676,6 +676,94 @@ def _bc6h_search_plain(px: torch.Tensor, signed: bool):
     return _plain_slices(px, lambda p: _search_slice(p, signed))
 
 
+# K5's lane jobs in plain form (used by the tests and chip_smoke.py; the
+# search itself is _bc6h_search_plain): the one-region job (rows 10-13,
+# positions 0-3 of the twin's fold order) and candidate job k (rows 0-9
+# on shape candidate rank k, position 4 + 4 * row + k), each keeping its
+# best by (error, position), then a fold of the jobs by the same order
+
+def _beats(best, err, order):
+    """Where (err, order) [NB] beats best = (err, order, words): a lower
+    error, or an equal one at an earlier position (K5's `beats`)."""
+    return (err < best[0]) | ((err == best[0]) & (order < best[1]))
+
+
+def _keep_beating(best, err, order, words):
+    """best updated to (err, order, words) where they beat it."""
+    win = _beats(best, err, order)
+    return (torch.where(win, err, best[0]), torch.where(win, order, best[1]),
+            torch.where(win[None, :], words, best[2]))
+
+
+def _search_jobs_slice(px_int, signed: bool):
+    nb = px_int.shape[2]
+    dev = px_int.device
+    px_f = px_int.to(torch.float32)
+    ones = torch.ones((16, nb), dtype=torch.bool, device=dev)
+
+    def none():
+        return (torch.full((nb,), float("inf"), device=dev),
+                torch.full((nb,), -1, dtype=torch.int64, device=dev),
+                torch.zeros((4, nb), dtype=torch.int64, device=dev))
+
+    def at(order):
+        return torch.full((nb,), order, dtype=torch.int64, device=dev)
+
+    one = none()
+    shared1 = _bc6h_shared_fit(px_f, [ones], BC6H_MODE_INFO[10][3], signed)
+    for row in range(10, 14):
+        terr, q_pairs, idx = _bc6h_group_rescore(px_int, [ones], [0],
+                                                 shared1, row, signed)
+        err, pairs = _bc6h_transform_fit_t(q_pairs, terr, row, signed)
+        one = _keep_beating(one, err, at(row - 10),
+                            _bc6h_emit(row, 0, pairs, idx, nb, dev))
+    jobs = [one]
+    tabs = _tables(dev)
+    px4 = torch.cat([px_f, torch.zeros_like(px_f[:, :1, :])], dim=1)
+    ests = _shape_estimates_table(px4, n_shapes=32, axis_w=0.0)
+    for k, s_blk in enumerate(_top_k_shapes(ests, BC7_SHAPE_CANDIDATES)):
+        pmask = tabs["parts1"][s_blk].t()
+        mask_list = [pmask == 0, pmask == 1]
+        anchors = [0, tabs["fix1"][s_blk, 1]]
+        shared = _bc6h_shared_fit(px_f, mask_list, BC6H_MODE_INFO[0][3],
+                                  signed)
+        best = none()
+        for rows in _bc6h_row_groups():
+            terr, q_pairs, idx = _bc6h_group_rescore(
+                px_int, mask_list, anchors, shared, rows[0], signed)
+            for row in rows:
+                err, pairs = _bc6h_transform_fit_t(q_pairs, terr, row, signed)
+                best = _keep_beating(best, err, at(4 + 4 * row + k),
+                                     _bc6h_emit(row, s_blk, pairs, idx, nb,
+                                                dev))
+        jobs.append(best)
+    return jobs
+
+
+def _bc6h_search_jobs_plain(px: torch.Tensor, signed: bool):
+    """Plain twin of K5's jobs: px [48, NB] int32 F16-ints -> [(err [NB]
+    f32, order [NB] int64, words [4, NB] int32)] of the one-region job and
+    candidate jobs 0-3, each its best row by (error, position in the twin's
+    fold order); order -1 where no row of the job fits."""
+    parts = [_search_jobs_slice(_px_lane_major(px[:, s:s + _PLAIN_SEARCH_SLICE]),
+                                signed)
+             for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE)]
+    return [(torch.cat([p[j][0] for p in parts]),
+             torch.cat([p[j][1] for p in parts]),
+             torch.cat([_words_i32(p[j][2]) for p in parts], dim=1))
+            for j in range(len(parts[0]))]
+
+
+def _bc6h_jobs_fold_plain(jobs):
+    """Plain twin of K5's fold: the jobs' (err, order, words) folded by
+    (error, position) in the order given -> (err [NB], words [4, NB])."""
+    best = (torch.full_like(jobs[0][0], float("inf")),
+            torch.full_like(jobs[0][1], -1), torch.zeros_like(jobs[0][2]))
+    for err, order, words in jobs:
+        best = _keep_beating(best, err, order, words)
+    return best[0], best[2]
+
+
 def bc6h_search_words(px: torch.Tensor, signed: bool):
     """K5 wrapper: the whole shared-fit search. px [48, NB] int32 F16-ints
     -> (err [NB] f32, words [4, NB] int32). A CUDA tensor launches the

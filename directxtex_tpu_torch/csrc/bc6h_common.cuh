@@ -18,6 +18,7 @@ namespace bc6h {
 using bc7::Bits128;
 using bc7::get_bits;
 using bc7::kThreads;
+using bc7::nibble_mask;
 using bc7::pal_weight;
 using bc7::pal_weight_f;
 using bc7::put_bits;
@@ -259,6 +260,69 @@ __device__ __forceinline__ float palette_err(const P& px, unsigned msk,
   return err;
 }
 
+// Both subsets' palette scores in one pass over the 16 pixels: pixel i
+// takes its own subset's endpoints t[(m1 >> i) & 1] and adds to that
+// subset's sum, so each sum runs over its subset's pixels in pixel order
+// with palette_err's arithmetic; writes every entry of idx
+template <int K, class P>
+__device__ __forceinline__ void palette_err_pair(const P& px, unsigned m1,
+                                                 const int t[2][2][3],
+                                                 int prec, bool sgn,
+                                                 unsigned long long& idx,
+                                                 float err[2]) {
+  int u0[2][3], u1[2][3];
+  float f0[2][3], e[2][3], s64[2];
+#pragma unroll
+  for (int sub = 0; sub < 2; ++sub) {
+    float span = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      u0[sub][c] = unquantize(t[sub][0][c], prec, sgn);
+      u1[sub][c] = unquantize(t[sub][1][c], prec, sgn);
+      f0[sub][c] = (float)finish(u0[sub][c], sgn);
+      e[sub][c] = (float)finish(u1[sub][c], sgn) - f0[sub][c];
+      span = span + e[sub][c] * e[sub][c];
+    }
+    s64[sub] = 64.0f / (span > 0.0f ? span : 1.0f);
+  }
+  err[0] = 0.0f;
+  err[1] = 0.0f;
+#pragma unroll 4
+  for (int i = 0; i < 16; ++i) {
+    const bool s1 = (m1 >> i) & 1u;
+    float dot = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      dot = dot + (px.f(c, i) - (s1 ? f0[1][c] : f0[0][c]))
+                  * (s1 ? e[1][c] : e[0][c]);
+    const float p64 = fminf(fmaxf(dot * (s1 ? s64[1] : s64[0]), 0.0f),
+                            64.0f);
+    int kf = (int)rintf(p64 * (float)((K - 1) / 64.0));
+    kf = min(max(kf, 0), K - 1);
+    const int wk = pal_weight<K>(kf);
+    const int wkp = pal_weight<K>(min(kf + 1, K - 1));
+    const int wkm = pal_weight<K>(max(kf - 1, 0));
+    const bool up = kf < K - 1 && 2.0f * p64 > (float)(wk + wkp);
+    const bool dn = kf > 0 && 2.0f * p64 < (float)(wk + wkm);
+    const int k = up ? kf + 1 : (dn ? kf - 1 : kf);
+    const int w = pal_weight<K>(k);
+    float best = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int a0 = s1 ? u0[1][c] : u0[0][c];
+      const int a1 = s1 ? u1[1][c] : u1[0][c];
+      const int pal = finish((a0 * (64 - w) + a1 * w + 32) >> 6, sgn);
+      const float dd = (float)(px(c, i) - pal);
+      best = best + dd * dd;
+    }
+    idx_set(idx, i, k);
+    if (s1)
+      err[1] = err[1] + best;
+    else
+      err[0] = err[0] + best;
+  }
+}
+
 // the same on quantized endpoints at precision prec (per block or static)
 template <int K, class P>
 __device__ __forceinline__ float palette_err_q(const P& px, unsigned msk,
@@ -277,7 +341,8 @@ __device__ __forceinline__ float palette_err_q(const P& px, unsigned msk,
 
 // LS magnitude cap of a subset (_mag_cap): max(|min|, |max|) + 1024 per
 // channel over the masked pixels; mi/ma are the masked box
-__device__ __forceinline__ void mag_cap(const Px& px, unsigned msk,
+template <class P>
+__device__ __forceinline__ void mag_cap(const P& px, unsigned msk,
                                         float mi[3], float ma[3],
                                         float cap[3]) {
 #pragma unroll
@@ -303,8 +368,8 @@ __device__ __forceinline__ void mag_cap(const Px& px, unsigned msk,
 // plane idx, int palette weights when INT_W, else the float trajectory's
 // pal_weight_f), clipped to the F16-int range and the cap; e0/e1 keep
 // their values where the system is singular (_bc6h_ls_refit)
-template <int K, bool INT_W>
-__device__ __forceinline__ void ls_refit(const Px& px, unsigned msk,
+template <int K, bool INT_W, class P>
+__device__ __forceinline__ void ls_refit(const P& px, unsigned msk,
                                          unsigned long long idx,
                                          const float cap[3], bool sgn,
                                          float e0[3], float e1[3]) {

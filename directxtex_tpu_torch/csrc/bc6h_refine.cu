@@ -427,78 +427,6 @@ __device__ __forceinline__ void put_job(JobOut& o, float err,
   }
 }
 
-// the 64-bit index-plane mask of a 16-bit pixel mask
-__device__ __forceinline__ unsigned long long nibble_mask(unsigned msk) {
-  unsigned long long m = 0ull;
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    if ((msk >> i) & 1u) m |= 0xFull << (4 * i);
-  return m;
-}
-
-// Both subsets' palette scores in one pass over the 16 pixels: pixel i
-// takes its own subset's endpoints t[(m1 >> i) & 1] and adds to that
-// subset's sum, so each sum runs over its subset's pixels in pixel order
-// with palette_err's arithmetic; writes every entry of idx
-template <int K, class P>
-__device__ __forceinline__ void palette_err_pair(const P& px, unsigned m1,
-                                                 const int t[2][2][3],
-                                                 int prec, bool sgn,
-                                                 unsigned long long& idx,
-                                                 float err[2]) {
-  int u0[2][3], u1[2][3];
-  float f0[2][3], e[2][3], s64[2];
-#pragma unroll
-  for (int sub = 0; sub < 2; ++sub) {
-    float span = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      u0[sub][c] = unquantize(t[sub][0][c], prec, sgn);
-      u1[sub][c] = unquantize(t[sub][1][c], prec, sgn);
-      f0[sub][c] = (float)finish(u0[sub][c], sgn);
-      e[sub][c] = (float)finish(u1[sub][c], sgn) - f0[sub][c];
-      span = span + e[sub][c] * e[sub][c];
-    }
-    s64[sub] = 64.0f / (span > 0.0f ? span : 1.0f);
-  }
-  err[0] = 0.0f;
-  err[1] = 0.0f;
-#pragma unroll 4
-  for (int i = 0; i < 16; ++i) {
-    const bool s1 = (m1 >> i) & 1u;
-    float dot = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      dot = dot + (px.f(c, i) - (s1 ? f0[1][c] : f0[0][c]))
-                  * (s1 ? e[1][c] : e[0][c]);
-    const float p64 = fminf(fmaxf(dot * (s1 ? s64[1] : s64[0]), 0.0f),
-                            64.0f);
-    int kf = (int)rintf(p64 * (float)((K - 1) / 64.0));
-    kf = min(max(kf, 0), K - 1);
-    const int wk = pal_weight<K>(kf);
-    const int wkp = pal_weight<K>(min(kf + 1, K - 1));
-    const int wkm = pal_weight<K>(max(kf - 1, 0));
-    const bool up = kf < K - 1 && 2.0f * p64 > (float)(wk + wkp);
-    const bool dn = kf > 0 && 2.0f * p64 < (float)(wk + wkm);
-    const int k = up ? kf + 1 : (dn ? kf - 1 : kf);
-    const int w = pal_weight<K>(k);
-    float best = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const int a0 = s1 ? u0[1][c] : u0[0][c];
-      const int a1 = s1 ? u1[1][c] : u1[0][c];
-      const int pal = finish((a0 * (64 - w) + a1 * w + 32) >> 6, sgn);
-      const float dd = (float)(px(c, i) - pal);
-      best = best + dd * dd;
-    }
-    idx_set(idx, i, k);
-    if (s1)
-      err[1] = err[1] + best;
-    else
-      err[0] = err[0] + best;
-  }
-}
-
 // Both subsets' re-mapping ladders in lockstep (a unit-B lane): at
 // each probe both move the same (channel, endpoint, delta, sign), each
 // within its own bounds, one palette_err_pair scores both, and each

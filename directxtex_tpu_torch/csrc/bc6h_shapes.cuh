@@ -1,18 +1,18 @@
 // The BC6H shape ranking shared by K5 (bc6h_encode.cu) and its launch of
 // its own (bc6h_shapes.cu): the off-axis estimate of each of the 32
 // two-region shapes at axis_w = 0 and the top 4 by (estimate, shape).
+// shape_top4 ranks every shape of a block in one thread (the launch of its
+// own); K5 ranks slices of them on several warps (rank_slice) and merges
+// the slices' lists by the same order.
 #pragma once
 
 #include "bc6h_common.cuh"
 
 namespace bc6h {
 
-// Off-axis ranking of the 32 two-region shapes
-// (_shape_estimates_table(n_shapes=32, axis_w=0) on RGB plus a zero alpha
-// plane, whose terms add exact zeros and are left out) and the 4 shapes
-// of least (estimate, shape), in that order
-__device__ __forceinline__ void shape_top4(const Px& px, int cand[4]) {
-  float mu[3];
+// the block's mean per channel, summed in pixel order
+template <class P>
+__device__ __forceinline__ void block_mean(const P& px, float mu[3]) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float s = px.f(c, 0);
@@ -20,10 +20,19 @@ __device__ __forceinline__ void shape_top4(const Px& px, int cand[4]) {
     for (int i = 1; i < 16; ++i) s = s + px.f(c, i);
     mu[c] = s * (1.0f / 16.0f);
   }
-  float bv[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
-  int bi[4] = {0, 0, 0, 0};
+}
+
+// Off-axis estimates of the shapes first, first + stride, ... below 32
+// (_shape_estimates_table(n_shapes=32, axis_w=0) on RGB plus a zero alpha
+// plane, whose terms add exact zeros and are left out), folded into a
+// running top 4 (bv, bi) by (estimate, shape): a tie keeps the earlier
+// shape first, as argmin does
+template <class P>
+__device__ __forceinline__ void rank_slice(const P& px, const float mu[3],
+                                           int first, int stride,
+                                           float bv[4], int bi[4]) {
 #pragma unroll 1
-  for (int s = 0; s < 32; ++s) {
+  for (int s = first; s < 32; s += stride) {
     const uint32_t pp = bc7::c_pp2[s];
     // 10 masked 16-pixel sums per subset: |xc|^2, xc (3), RGB cross (6)
     float acc[2][10];
@@ -94,6 +103,16 @@ __device__ __forceinline__ void shape_top4(const Px& px, int cand[4]) {
       if (bv[1] < bv[0]) { const float t = bv[0]; bv[0] = bv[1]; bv[1] = t; bc7::swap_ints(bi[0], bi[1]); }
     }
   }
+}
+
+// The 4 shapes of least (estimate, shape) of the 32, in that order
+template <class P>
+__device__ __forceinline__ void shape_top4(const P& px, int cand[4]) {
+  float mu[3];
+  block_mean(px, mu);
+  float bv[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
+  int bi[4] = {0, 0, 0, 0};
+  rank_slice(px, mu, 0, 1, bv, bi);
 #pragma unroll
   for (int k = 0; k < 4; ++k) cand[k] = bi[k];
 }

@@ -227,6 +227,16 @@ __device__ __forceinline__ int unquant_channel(int q, int p, int c) {
   return unquantize(v, prec_p(M, c));
 }
 
+// the 4-bit fields of the pixels in a 16-bit mask, in an index plane
+// packed 16 to a 64-bit word (pixel i at bits 4i)
+__device__ __forceinline__ unsigned long long nibble_mask(unsigned msk) {
+  unsigned long long m = 0ull;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if ((msk >> i) & 1u) m |= 0xFull << (4 * i);
+  return m;
+}
+
 __device__ __forceinline__ void swap_ints(int& a, int& b) {
   const int t = a;
   a = b;

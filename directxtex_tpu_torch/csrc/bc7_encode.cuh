@@ -1,6 +1,6 @@
-// K2 — the whole BC7 search of one tier: the opaque variant as a team of
-// four warps per 32 blocks (below, bc7_encode_opaque_kernel), the others
-// one thread per 4x4 block.
+// K2 — the whole BC7 search of one tier: the default and maxq variants as
+// teams of warps per 32 blocks (below, bc7_encode_opaque_kernel and
+// bc7_encode_maxq_kernel), the quick variant one thread per 4x4 block.
 //
 // Replaces directxtex_tpu/bc/pallas_kernels.py:bc7_encode_pallas /
 // _bc7_all_kernel, in three variants, each a template instance built from
@@ -43,26 +43,26 @@
 //     its own running best over its candidates, so the fold runs in the
 //     twin's order whatever order the modes were evaluated in.
 // The TPU evaluated every lane through where-chains over [16, T] planes;
-// here each block is one thread's scalar program (split over four warps'
-// phases in the opaque variant). The TPU kernel fixes the mode-4/5
-// anchors once, on the fold winner (_k_mode45_finish); this kernel fixes
-// and emits every candidate as the jnp twin does. A fix moves no error, so
-// the winner and its words are the same.
+// here each block is one lane's scalar program, split over the warps'
+// phases in the team variants. The TPU kernel fixes the mode-4/5 anchors
+// once, on the fold winner (_k_mode45_finish); this kernel fixes and emits
+// every candidate as the jnp twin does. A fix moves no error, so the
+// winner and its words are the same.
 //
 // Bound: compute. A block reads 64 bytes and writes 20, against roughly
 // 10^5 integer and f32 operations, so the kernel is limited by issue rate
-// and by registers. In the one-thread variants the per-thread state (16
-// packed pixels, 16 centred pixel vectors during ranking, 16 indices,
-// endpoints) spills past 255 registers into local memory, which the L1
-// cache serves. The design keeps pixels packed as RGBA8 words (16
-// registers for the block), recomputes cross moments instead of holding
-// them, keeps the top-4 shapes in a compare-swap chain, and loops over
-// shapes, candidates and rotations without unrolling to bound code size
-// and build time. The maxq variants run each mode's candidates as a loop
-// of its own, after the others, so that only one mode's fit state is live
-// at a time. The opaque team kernel stages pixels and centred pixels in
-// shared memory and gives each warp one phase's slice at a time, so that
-// its state fits 128 registers.
+// and by registers. A one-thread search (16 packed pixels, 16 centred
+// pixel vectors during ranking, 16-entry index planes, endpoints) spills
+// past 255 registers into local memory. The design keeps pixels packed as
+// RGBA8 words (16 registers for the block), recomputes cross moments
+// instead of holding them, keeps the top-4 shapes in a compare-swap chain,
+// and loops over shapes, candidates and rotations without unrolling to
+// bound code size and build time. The team kernels stage pixels and
+// centred pixels in shared memory and give each warp one phase's slice at
+// a time; the maxq team's evaluation jobs also hold their index planes
+// packed 4 bits a pixel and fit both subsets of a two-subset candidate in
+// one pass over the pixels (fit_ns below), so that a job fits 128
+// registers.
 //
 // Built with --fmad=false: every float step rounds as the plain twin's
 // separate torch ops do, so kernel and twin pick the same words.
@@ -432,9 +432,9 @@ __device__ __forceinline__ void rank_shapes(const Moments& mom, int first,
 // Off-axis ranking of the first S shapes with NS subsets
 // (_shape_estimates_table(off_axis=True) + _top_k_shapes, bc67.py:1243):
 // the 4 shapes of least (estimate, shape), in that order. K9
-// (bc7_shapes.cu) ranks any of (2 or 3 subsets) x (16 or 64 shapes), the
-// one-thread K2 variants the 64 two-subset shapes; one thread ranks every
-// shape of its block.
+// (bc7_shapes.cu) ranks any of (2 or 3 subsets) x (16 or 64 shapes); one
+// thread ranks every shape of its block (the K2 teams split the 64
+// two-subset shapes over their warps, team_rank).
 template <int NS = 2, int S = 64>
 __device__ __forceinline__ void shape_top4(const uint32_t pix[16],
                                            int cand[4]) {
@@ -728,74 +728,449 @@ __device__ __forceinline__ void trajectory_45(const uint32_t pix[16],
   ls_refit_f<3, 3, 4>(prp, aidx, 0xFFFFu, e0, e1);
 }
 
-// The maxq tier's search (_bc7_all_kernel with share2sub=False,
-// share45=False, m4_ims=(0, 1)): each mode's candidates in a loop of its
-// own, then the fold in the order (1, 3, 5, 6, 4); the top-4 shapes into
-// picks[k * nb + b] where picks is not null
-template <bool W>
-__device__ __forceinline__ Best search_maxq(const uint32_t pix[16],
-                                            float aw,
-                                            int32_t* __restrict__ picks,
-                                            int nb, int b) {
-  int cand[4];
-  shape_top4(pix, cand);
-  if (picks) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) picks[(size_t)k * nb + b] = cand[k];
-  }
-  Best best1{INFINITY, {0ull, 0ull}};
-#pragma unroll 1
-  for (int k = 0; k < 4; ++k)
-    eval_partition<1, W>(pix, cand[k], subset1_mask(cand[k]), aw, best1);
-  Best best3{INFINITY, {0ull, 0ull}};
-#pragma unroll 1
-  for (int k = 0; k < 4; ++k)
-    eval_partition<3, W>(pix, cand[k], subset1_mask(cand[k]), aw, best3);
+// ---------------------------------------------------------------------------
+// Packed fits: the maxq team's evaluation jobs
+// ---------------------------------------------------------------------------
+// The functions below compute what minmax_axis, assign_indices, ls_refit,
+// fit_subset, eval_partition, eval_mode6, rot_data and eval_45_own
+// compute, with two changes that keep a job within 128 registers:
+//   - an index plane is 4-bit fields of one 64-bit word (pixel i at bits
+//     4i), not 16 ints;
+//   - a two-subset fit (NS = 2) runs both subsets in one pass over the 16
+//     pixels: pixel i takes its own subset's state, (m1 >> i) & 1, and
+//     adds only to that subset's sums, in pixel order. A one-subset fit
+//     (NS = 1: mode 6, modes 4 and 5) is the same code with every pixel
+//     in subset 0.
+// Why a paired fit gives the two one-subset fits' bits. fit_subset visits
+// all 16 pixels and masks the other subset's off: minmax_axis takes its
+// min / max over the subset's pixels and gives every other pixel a zero
+// projection (pt = ... * 0, a signed zero), so f * f = +0 joins each
+// sign's score; ls_refit weighs every other pixel by m = 0, so a = (1 -
+// x) * 0 and b = x * 0 are +0 (x in [0, 1]) and add the products a * a,
+// a * b, b * b, a * p, b * p, each +0 (p >= 0), to A, B, C, r0 and r1;
+// assign_indices adds 0.0f for every other pixel. Each of those sums
+// starts at +0, and adding a zero to a float leaves it as it was. The
+// subset's own pixels' terms are the same operations on the same values
+// in the same order (a multiply by m = 1 is exact). So each subset's box,
+// endpoints, errors and indices are the one-subset fit's, bit for bit,
+// and so is each subset's keep-the-better pick (its own strict `<`). The
+// g++ rehearsal, bc67._fit_pair_plain and the card hold it (PERF.md).
 
-  const Best best6 = eval_mode6<W>(pix, aw);
-
-  Best best5{INFINITY, {0ull, 0ull}};
-#pragma unroll 1
-  for (int rot = 0; rot < 4; ++rot) {
-    uint32_t prp[16];
-    float e0[4], e1[4];
-    rot_data(pix, rot, prp, e0, e1);
-    eval_45_own<5, 0, W>(prp, rot, e0, e1, aw, best5);
-  }
-  Best best4{INFINITY, {0ull, 0ull}};
-#pragma unroll 1
-  for (int rot = 0; rot < 4; ++rot) {
-    uint32_t prp[16];
-    float e0[4], e1[4];
-    rot_data(pix, rot, prp, e0, e1);
-    eval_45_own<4, 0, W>(prp, rot, e0, e1, aw, best4);
-    eval_45_own<4, 1, W>(prp, rot, e0, e1, aw, best4);
-  }
-
-  Best fold{INFINITY, {0ull, 0ull}};
-  keep_if_better(fold, best1.err, best1.w);
-  keep_if_better(fold, best3.err, best3.w);
-  keep_if_better(fold, best5.err, best5.w);
-  keep_if_better(fold, best6.err, best6.w);
-  keep_if_better(fold, best4.err, best4.w);
-  return fold;
+// The packed fits read a block's pixels through a source PX: px.word(i)
+// is pixel i's packed RGBA8 word, px.fence() opens a pass over them (the
+// maxq team's PixShared, below).
+__device__ __forceinline__ int byte_of(uint32_t w, int c) {
+  return (int)((w >> (8 * c)) & 0xFFu);
 }
 
-// The quick and maxq variants: one thread per block. picks (maxq, where
-// not null): the top-4 two-subset shapes, [4, NB] in rank order.
+__device__ __forceinline__ int nib_get(unsigned long long v, int i) {
+  return (int)((v >> (4 * i)) & 0xFull);
+}
+
+// pixel i's subset: 1 where NS = 2 and m1 has it
+template <int NS>
+__device__ __forceinline__ bool in_sub1(unsigned m1, int i) {
+  return NS == 2 && ((m1 >> i) & 1u);
+}
+
+// minmax_axis of each subset, in one pass
+template <bool WITH_ALPHA, int NS, class PX>
+__device__ __forceinline__ void minmax_axis_ns(const PX& px,
+                                               unsigned m1, float e0[NS][4],
+                                               float e1[NS][4]) {
+  float mi[NS][4], ma[NS][4], mid[NS][4], dirv[NS][4];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      mi[s][c] = 1e9f;
+      ma[s][c] = -1e9f;
+    }
+  }
+  px.fence();
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const bool s1 = in_sub1<NS>(m1, i);
+    const uint32_t w = px.word(i);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float x = (float)byte_of(w, c);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const bool own = (s == 1) == s1;
+        mi[s][c] = own ? fminf(mi[s][c], x) : mi[s][c];
+        ma[s][c] = own ? fmaxf(ma[s][c], x) : ma[s][c];
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    float ab[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      mid[s][c] = (mi[s][c] + ma[s][c]) * 0.5f;
+      ab[c] = ma[s][c] - mi[s][c];
+    }
+    float fab = ab[0] * ab[0];
+    fab = fab + ab[1] * ab[1];
+    fab = fab + ab[2] * ab[2];
+    if (WITH_ALPHA) fab = fab + ab[3] * ab[3];
+    const float den = fab > 0.0f ? fab : 1.0f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dirv[s][c] = ab[c] / den;
+  }
+  constexpr int n_signs = WITH_ALPHA ? 8 : 4;
+  float score[NS][n_signs];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+#pragma unroll
+    for (int j = 0; j < n_signs; ++j) score[s][j] = 0.0f;
+  }
+  px.fence();
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const bool s1 = in_sub1<NS>(m1, i);
+    const uint32_t w = px.word(i);
+    float pt[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      pt[c] = ((float)byte_of(w, c) - (s1 ? mid[NS - 1][c] : mid[0][c]))
+              * (s1 ? dirv[NS - 1][c] : dirv[0][c]);
+#pragma unroll
+    for (int j = 0; j < n_signs; ++j) {
+      const float sg = (j & (WITH_ALPHA ? 4 : 2)) ? -1.0f : 1.0f;
+      const float sb = (j & (WITH_ALPHA ? 2 : 1)) ? -1.0f : 1.0f;
+      const float sa = (WITH_ALPHA && (j & 1)) ? -1.0f : 1.0f;
+      float f = pt[0] + sg * pt[1];
+      f = f + sb * pt[2];
+      if (WITH_ALPHA) f = f + sa * pt[3];
+      const float ff = f * f;
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        score[s][j] = (s == 1) == s1 ? score[s][j] + ff : score[s][j];
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    float best = -1.0f, bsg = 1.0f, bsb = 1.0f, bsa = 1.0f;
+#pragma unroll
+    for (int j = 0; j < n_signs; ++j) {
+      if (score[s][j] > best) {
+        best = score[s][j];
+        bsg = (j & (WITH_ALPHA ? 4 : 2)) ? -1.0f : 1.0f;
+        bsb = (j & (WITH_ALPHA ? 2 : 1)) ? -1.0f : 1.0f;
+        bsa = (WITH_ALPHA && (j & 1)) ? -1.0f : 1.0f;
+      }
+    }
+    e0[s][0] = mi[s][0];
+    e1[s][0] = ma[s][0];
+    e0[s][1] = bsg < 0.0f ? ma[s][1] : mi[s][1];
+    e1[s][1] = bsg < 0.0f ? mi[s][1] : ma[s][1];
+    e0[s][2] = bsb < 0.0f ? ma[s][2] : mi[s][2];
+    e1[s][2] = bsb < 0.0f ? mi[s][2] : ma[s][2];
+    e0[s][3] = (WITH_ALPHA && bsa < 0.0f) ? ma[s][3] : mi[s][3];
+    e1[s][3] = (WITH_ALPHA && bsa < 0.0f) ? mi[s][3] : ma[s][3];
+  }
+}
+
+// assign_indices over channels [LO, HI) of each subset, in one pass:
+// every pixel's index into `idx`, each subset's error into err[s]
+template <int PREC, int LO, int HI, int NS, bool W, class PX>
+__device__ __forceinline__ void assign_ns(const PX& px,
+                                          const int u0[NS][4],
+                                          const int u1[NS][4], unsigned m1,
+                                          float aw, int wch,
+                                          unsigned long long& idx,
+                                          float err[NS]) {
+  constexpr int K = 1 << PREC;
+  int e[NS][4];
+  float s64[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    int span = 0;
+#pragma unroll
+    for (int c = LO; c < HI; ++c) {
+      e[s][c] = u1[s][c] - u0[s][c];
+      span += e[s][c] * e[s][c];
+    }
+    const float spanf = (float)span;
+    s64[s] = 64.0f / (spanf > 0.0f ? spanf : 1.0f);
+    err[s] = 0.0f;
+  }
+  idx = 0ull;
+  px.fence();
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const bool s1 = in_sub1<NS>(m1, i);
+    const uint32_t wd = px.word(i);
+    int d[4];
+    int dot = 0;
+#pragma unroll
+    for (int c = LO; c < HI; ++c) {
+      d[c] = byte_of(wd, c) - (s1 ? u0[NS - 1][c] : u0[0][c]);
+      dot += d[c] * (s1 ? e[NS - 1][c] : e[0][c]);
+    }
+    const float p64 = fminf(
+        fmaxf((float)dot * (s1 ? s64[NS - 1] : s64[0]), 0.0f), 64.0f);
+    int kf = (int)rintf(p64 * (float)((K - 1) / 64.0));
+    kf = min(max(kf, 0), K - 1);
+    const int wk = pal_weight<K>(kf);
+    const int wkp = pal_weight<K>(min(kf + 1, K - 1));
+    const int wkm = pal_weight<K>(max(kf - 1, 0));
+    const bool up = kf < K - 1 && 2.0f * p64 > (float)(wk + wkp);
+    const bool dn = kf > 0 && 2.0f * p64 < (float)(wk + wkm);
+    const int k = up ? kf + 1 : (dn ? kf - 1 : kf);
+    const int w = pal_weight<K>(k);
+    float dist = 0.0f;
+#pragma unroll
+    for (int c = LO; c < HI; ++c) {
+      const int ec = s1 ? e[NS - 1][c] : e[0][c];
+      const float r = (float)(d[c] - ((w * ec + 32) >> 6));
+      float r2 = r * r;
+      if (W && c == wch) r2 = r2 * aw;
+      dist = dist + r2;
+    }
+    idx |= (unsigned long long)k << (4 * i);
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      err[s] = (s == 1) == s1 ? err[s] + dist : err[s];
+  }
+}
+
+// ls_refit of channels [LO, HI) of each subset, in one pass over the
+// pixels for A, B, C and every channel's r0, r1, at the palette weights of
+// the P-bit index plane idx; in place. Each sum runs over its subset's
+// pixels in pixel order, as ls_refit's per-channel loops take it.
+template <int P, int LO, int HI, int NS, class PX>
+__device__ __forceinline__ void ls_refit_ns(const PX& px,
+                                            unsigned long long idx,
+                                            unsigned m1, float e0[NS][4],
+                                            float e1[NS][4]) {
+  float A[NS], B[NS], C[NS], r0[NS][4], r1[NS][4];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    A[s] = B[s] = C[s] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) r0[s][c] = r1[s][c] = 0.0f;
+  }
+  px.fence();
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const bool s1 = in_sub1<NS>(m1, i);
+    const float x = (float)pal_weight<1 << P>(nib_get(idx, i))
+                    * (1.0f / 64.0f);
+    const float a = 1.0f - x, b = x;
+    const uint32_t w = px.word(i);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const bool own = (s == 1) == s1;
+      A[s] = own ? A[s] + a * a : A[s];
+      B[s] = own ? B[s] + a * b : B[s];
+      C[s] = own ? C[s] + b * b : C[s];
+#pragma unroll
+      for (int c = LO; c < HI; ++c) {
+        const float p = (float)byte_of(w, c);
+        r0[s][c] = own ? r0[s][c] + a * p : r0[s][c];
+        r1[s][c] = own ? r1[s][c] + b * p : r1[s][c];
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const float det = A[s] * C[s] - B[s] * B[s];
+    const bool ok = fabsf(det) > 1e-6f;
+    const float inv = 1.0f / (ok ? det : 1.0f);
+#pragma unroll
+    for (int c = LO; c < HI; ++c) {
+      const float n0 =
+          fminf(fmaxf((C[s] * r0[s][c] - B[s] * r1[s][c]) * inv, 0.0f), 255.0f);
+      const float n1 =
+          fminf(fmaxf((A[s] * r1[s][c] - B[s] * r0[s][c]) * inv, 0.0f), 255.0f);
+      if (ok) {
+        e0[s][c] = n0;
+        e1[s][c] = n1;
+      }
+    }
+  }
+}
+
+// fit_subset of each subset of mode M, in one pass per step: axis fit,
+// quantize and assign, one LS refit and re-assign, each subset keeping
+// its better by its own strict `<`. Writes each subset's codes, p bits
+// and error, and every pixel's index into idx.
+template <int M, int NS, bool W, class PX>
+__device__ __forceinline__ void fit_ns(const PX& px, unsigned m1,
+                                       float aw, int q0[NS][4],
+                                       int q1[NS][4], int p0[NS],
+                                       int p1[NS], unsigned long long& idx,
+                                       float err[NS]) {
+  constexpr int P = index_prec(M);
+  float e0[NS][4], e1[NS][4];
+  minmax_axis_ns<(prec(M, 3) > 0), NS>(px, m1, e0, e1);
+  int u0[NS][4], u1[NS][4];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    quantize_endpoints<M>(e0[s], e1[s], q0[s], q1[s], p0[s], p1[s]);
+    unquantize_endpoints<M>(q0[s], q1[s], p0[s], p1[s], u0[s], u1[s]);
+  }
+  assign_ns<P, 0, 4, NS, W>(px, u0, u1, m1, aw, 3, idx, err);
+  ls_refit_ns<P, 0, 4, NS>(px, idx, m1, e0, e1);
+  int qb0[NS][4], qb1[NS][4], pb0[NS], pb1[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    quantize_endpoints<M>(e0[s], e1[s], qb0[s], qb1[s], pb0[s], pb1[s]);
+    unquantize_endpoints<M>(qb0[s], qb1[s], pb0[s], pb1[s], u0[s], u1[s]);
+  }
+  unsigned long long idxb;
+  float errb[NS];
+  assign_ns<P, 0, 4, NS, W>(px, u0, u1, m1, aw, 3, idxb, errb);
+  const unsigned long long n1 = NS == 2 ? nibble_mask(m1) : 0ull;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    if (errb[s] < err[s]) {
+      err[s] = errb[s];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        q0[s][c] = qb0[s][c];
+        q1[s][c] = qb1[s][c];
+      }
+      p0[s] = pb0[s];
+      p1[s] = pb1[s];
+      const unsigned long long nm = s ? n1 : ~n1;
+      idx = (idx & ~nm) | (idxb & nm);
+    }
+  }
+}
+
+// eval_partition of two-subset mode M (1, 3 or 7) by the paired fit
+template <int M, bool W, class PX>
+__device__ __forceinline__ void eval_partition_pair(const PX& px,
+                                                    int shape, unsigned m1,
+                                                    float aw, Best& best) {
+  static_assert(parts(M) == 1, "two subsets");
+  int q0[2][4], q1[2][4], p0[2], p1[2], idx[16];
+  unsigned long long plane;
+  float err[2];
+  fit_ns<M, 2, W>(px, m1, aw, q0, q1, p0, p1, plane, err);
+  float total = 0.0f;
+  total = total + err[0];
+  total = total + err[1];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) idx[i] = nib_get(plane, i);
+  anchor_swaps_2sub<index_prec(M)>(shape, m1, q0, q1, p0, p1, idx);
+  keep_if_better(best, total,
+                 emit_block<M>(shape, 0, 0, q0, q1, p0, p1, idx, nullptr));
+}
+
+// eval_mode6 with a packed index plane
+template <bool W, class PX>
+__device__ __forceinline__ Best eval_mode6_packed(const PX& px, float aw) {
+  int q0[1][4], q1[1][4], p0[1], p1[1], idx[16];
+  unsigned long long plane;
+  float err[1];
+  fit_ns<6, 1, W>(px, 0u, aw, q0, q1, p0, p1, plane, err);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) idx[i] = nib_get(plane, i);
+  if (idx[0] & 8) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) swap_ints(q0[0][c], q1[0][c]);
+    swap_ints(p0[0], p1[0]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) idx[i] = 15 - idx[i];
+  }
+  return Best{err[0], emit_block<6>(0, 0, 0, q0, q1, p0, p1, idx, nullptr)};
+}
+
+// rot_data by minmax_axis_ns, on pixels already rotated (prp)
+template <class PX>
+__device__ __forceinline__ void rot_data_ns(const PX& prp, float e0[4],
+                                            float e1[4]) {
+  float f0[1][4], f1[1][4];
+  minmax_axis_ns<false, 1>(prp, 0u, f0, f1);
+  float amin = 1e9f, amax = -1e9f;
+  prp.fence();
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const uint32_t w = prp.word(i);
+    amin = fminf(amin, (float)byte_of(w, 3));
+    amax = fmaxf(amax, (float)byte_of(w, 3));
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    e0[c] = f0[0][c];
+    e1[c] = f1[0][c];
+  }
+  e0[3] = amin;
+  e1[3] = amax;
+}
+
+// eval_45_own with packed colour and alpha index planes
+template <int M, int IM, bool W, class PX>
+__device__ __forceinline__ void eval_45_packed(const PX& prp,
+                                               int rot, const float e0f[4],
+                                               const float e1f[4], float aw,
+                                               Best& best) {
+  constexpr int P1 = index_prec(M), P2 = index_prec2(M);
+  constexpr int CP = IM ? P2 : P1, AP = IM ? P1 : P2;
+  const int wch = rot ? rot - 1 : 3;
+  int q0[1][4], q1[1][4], p0[1], p1[1], u0[1][4], u1[1][4];
+  quantize_endpoints<M>(e0f, e1f, q0[0], q1[0], p0[0], p1[0]);
+  unquantize_endpoints<M>(q0[0], q1[0], p0[0], p1[0], u0[0], u1[0]);
+  unsigned long long ci, ai;
+  float ec[1], ea[1];
+  assign_ns<CP, 0, 3, 1, W>(prp, u0, u1, 0u, aw, wch, ci, ec);
+  assign_ns<AP, 3, 4, 1, W>(prp, u0, u1, 0u, aw, wch, ai, ea);
+  float err = ec[0];
+  err = err + ea[0];
+
+  float e0[1][4], e1[1][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    e0[0][c] = e0f[c];
+    e1[0][c] = e1f[c];
+  }
+  ls_refit_ns<CP, 0, 3, 1>(prp, ci, 0u, e0, e1);
+  ls_refit_ns<AP, 3, 4, 1>(prp, ai, 0u, e0, e1);
+  int qb0[4], qb1[4], pb0, pb1;
+  quantize_endpoints<M>(e0[0], e1[0], qb0, qb1, pb0, pb1);
+  unquantize_endpoints<M>(qb0, qb1, pb0, pb1, u0[0], u1[0]);
+  unsigned long long cb, ab;
+  assign_ns<CP, 0, 3, 1, W>(prp, u0, u1, 0u, aw, wch, cb, ec);
+  assign_ns<AP, 3, 4, 1, W>(prp, u0, u1, 0u, aw, wch, ab, ea);
+  float err_b = ec[0];
+  err_b = err_b + ea[0];
+  if (err_b < err) {
+    err = err_b;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      q0[0][c] = qb0[c];
+      q1[0][c] = qb1[c];
+    }
+    ci = cb;
+    ai = ab;
+  }
+  int w1[16], w2[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    w1[i] = nib_get(IM ? ai : ci, i);
+    w2[i] = nib_get(IM ? ci : ai, i);
+  }
+  anchor_swaps_45<P1, P2>(IM == 0, w1, w2, q0[0], q1[0]);
+  keep_if_better(best, err, emit_block<M>(0, rot, IM, q0, q1, p0, p1, w1, w2));
+}
+
+// The quick variant: one thread per block, mode 6 alone
 template <int V, bool W>
 __global__ void __launch_bounds__(kThreads)
     bc7_encode_kernel(const int32_t* __restrict__ px, float* __restrict__ err,
                       uint32_t* __restrict__ words,
                       int32_t* __restrict__ picks, int nb, float aw) {
-  static_assert(V == kQuick || V == kMaxq,
-                "the opaque search is the team kernel's");
+  static_assert(V == kQuick, "the opaque and maxq searches are teams");
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= nb) return;
   uint32_t pix[16];
   load_pixels(px, nb, b, pix);
-  const Best best = V == kQuick ? eval_mode6<W>(pix, aw)
-                                 : search_maxq<W>(pix, aw, picks, nb, b);
+  const Best best = eval_mode6<W>(pix, aw);
   err[b] = best.err;
   store_words(words, nb, b, best.w);
 }
@@ -831,6 +1206,9 @@ __global__ void __launch_bounds__(kThreads)
 // out of the shape loop, the loads held 80 registers and the ranking
 // spilled. Fenced, it needs 56. The evaluation phase needs more than 128
 // and spills (ptxas, PERF.md), which is what holds the kernel back.
+//
+// Phases 1-3 are shared with the maxq team (below), whose shared memory
+// holds more result slots (the phases take either layout).
 // ---------------------------------------------------------------------------
 constexpr int kTeamBlocks = 32;                 // blocks per CTA, one a lane
 constexpr int kTeamWarps = kThreads / 32;       // slices of each phase
@@ -841,7 +1219,9 @@ static_assert(kTeamWarps == 4, "four candidate ranks and four rotations");
 enum TeamSlot { kSlot1 = 0, kSlot3 = 4, kSlot5 = 8, kSlot4 = 12,
                 kSlot6 = 16, kSlots = 17 };
 
-struct TeamSmem {
+// a team's shared memory with SLOTS result slots a block
+template <int SLOTS>
+struct TeamSmemT {
   uint32_t pix[16][kTeamBlocks];                // packed RGBA8
   float top_est[kTeamWarps][4][kTeamBlocks];    // each warp's local top 4
   int top_shape[kTeamWarps][4][kTeamBlocks];
@@ -850,17 +1230,19 @@ struct TeamSmem {
   union {
     float4 mom[16][3][kTeamBlocks];             // 11 moment terms a pixel
     struct {
-      float err[kSlots][kTeamBlocks];
-      uint32_t w[kSlots][4][kTeamBlocks];
+      float err[SLOTS][kTeamBlocks];
+      uint32_t w[SLOTS][4][kTeamBlocks];
     } res;
   };
 };
+using TeamSmem = TeamSmemT<kSlots>;
 
 // the staged moment terms of lane `lane`'s block, as rank_shapes reads
 // them. The fence (a compiler memory barrier) makes each shape load them
 // anew: hoisted out of the shape loop, they would hold 80 registers.
+template <class Smem>
 struct MomentsShared {
-  const TeamSmem* sm;
+  const Smem* sm;
   int lane;
   __device__ __forceinline__ void fence() const {
     asm volatile("" ::: "memory");
@@ -884,8 +1266,9 @@ struct MomentsShared {
 
 // Phase 1a: pixel j of block b0 + l into pix[j][l]; a lane past the last
 // block stages zeros (its results are never stored)
+template <class Smem>
 __device__ __forceinline__ void team_stage_pixels(
-    TeamSmem& sm, const int32_t* __restrict__ px, int nb, int b0, int tid) {
+    Smem& sm, const int32_t* __restrict__ px, int nb, int b0, int tid) {
 #pragma unroll
   for (int r = 0; r < 16 * kTeamBlocks / kThreads; ++r) {
     const int slot = r * kThreads + tid;
@@ -903,8 +1286,8 @@ __device__ __forceinline__ void team_stage_pixels(
 
 // Phase 1b: the moment terms of pixels 4w..4w+3 of lane `lane`'s block
 // (the mean over all 16, as shape_moments takes it)
-__device__ __forceinline__ void team_moments(TeamSmem& sm, int warp,
-                                             int lane) {
+template <class Smem>
+__device__ __forceinline__ void team_moments(Smem& sm, int warp, int lane) {
   uint32_t pix[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) pix[i] = sm.pix[i][lane];
@@ -929,10 +1312,12 @@ __device__ __forceinline__ void team_moments(TeamSmem& sm, int warp,
 }
 
 // Phase 2: warp w's slice of the 64 two-subset shapes
-__device__ __forceinline__ void team_rank(TeamSmem& sm, int warp, int lane) {
+template <class Smem>
+__device__ __forceinline__ void team_rank(Smem& sm, int warp, int lane) {
   float bv[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
   int bi[4] = {0, 0, 0, 0};
-  rank_shapes<2, kTeamWarps>(MomentsShared{&sm, lane}, warp, 64, bv, bi);
+  rank_shapes<2, kTeamWarps>(MomentsShared<Smem>{&sm, lane}, warp, 64, bv,
+                             bi);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     sm.top_est[warp][k][lane] = bv[k];
@@ -947,7 +1332,8 @@ __device__ __forceinline__ bool rank_before(float e1, int s1, float e2,
 }
 
 // The merged rank `k` shape of lane `lane`'s block
-__device__ __forceinline__ int team_candidate(const TeamSmem& sm, int k,
+template <class Smem>
+__device__ __forceinline__ int team_candidate(const Smem& sm, int k,
                                               int lane) {
   float bv[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
   int bi[4] = {64, 64, 64, 64};
@@ -975,7 +1361,8 @@ __device__ __forceinline__ int team_candidate(const TeamSmem& sm, int k,
   return k == 0 ? bi[0] : k == 1 ? bi[1] : k == 2 ? bi[2] : bi[3];
 }
 
-__device__ __forceinline__ void team_put(TeamSmem& sm, int slot, int lane,
+template <class Smem>
+__device__ __forceinline__ void team_put(Smem& sm, int slot, int lane,
                                          const Best& r) {
   sm.res.err[slot][lane] = r.err;
   sm.res.w[slot][0][lane] = (uint32_t)r.w.lo;
@@ -984,7 +1371,8 @@ __device__ __forceinline__ void team_put(TeamSmem& sm, int slot, int lane,
   sm.res.w[slot][3][lane] = (uint32_t)(r.w.hi >> 32);
 }
 
-__device__ __forceinline__ Best team_get(const TeamSmem& sm, int slot,
+template <class Smem>
+__device__ __forceinline__ Best team_get(const Smem& sm, int slot,
                                          int lane) {
   Best r;
   r.err = sm.res.err[slot][lane];
@@ -1085,6 +1473,166 @@ __global__ void __launch_bounds__(kThreads, 4)
   if (warp == 0) team_fold(sm, lane, err, words, nb, b0);
 }
 
+// ---------------------------------------------------------------------------
+// The maxq search as a team: a CTA of four warps searches 32 blocks, one
+// per lane. Phases 1-3 are the opaque team's (staging, moment terms, the
+// ranking in four slices and the merge, which gives shape_top4's
+// cand[0..3] exactly). Then the block's 21 evaluations run as 13 jobs,
+// job j on warp j % 4, the same job on every lane of a warp:
+//   jobs 0-3    mode 1 on candidate rank j (its shape into picks[j] where
+//               picks is not null, for mode 7's launch),
+//   jobs 4-7    mode 3 on candidate rank j - 4,
+//   jobs 8-11   rotation j - 8: mode 5 at index mode 0, mode 4 at index
+//               mode 0, mode 4 at index mode 1, one after the other off
+//               one rot_data,
+//   job 12      mode 6.
+// Modes 1 and 3 fit both subsets of their candidate in one pass
+// (eval_partition_pair), modes 4, 5 and 6 hold packed index planes
+// (eval_45_packed, eval_mode6_packed): the fits above, bit for bit the
+// one-subset fits'. Each evaluation's result goes to its slot (MaxqSlot:
+// mode 1 ranks 0-3, mode 3 ranks 0-3, mode 5 rotations 0-3, mode 4
+// rotation-major by index mode, mode 6) over the moment terms; after a
+// barrier warp 0 folds each block in the plain twin's order:
+// per mode over the candidates in rank order and the rotations in order
+// (mode 4 index mode 0 before 1), then over the modes (1, 3, 5, 6, 4),
+// with keep_if_better's strict `<`. So the words and errors are the plain
+// twin's.
+//
+// Why: the one-thread maxq search held 255 registers and spilled 1.4 to
+// 1.9 KB a thread (8 warps an SM), and ran each two-subset fit over all
+// 16 pixels twice with half of them masked off. Here a warp holds one
+// job's state at 128 registers (16 warps an SM), a two-subset fit issues
+// each pixel's work once, and a job reads its pixels from shared memory
+// at each pass (PixShared): with the 16 words in registers, the compiler
+// kept their unpacked bytes live across passes and the kernel spilled
+// heavily. Four warps ran faster than eight, and a job per rotation
+// faster than a job per (rotation, mode, index mode) (PERF.md).
+// ---------------------------------------------------------------------------
+enum MaxqSlot { kQ1 = 0, kQ3 = 4, kQ5 = 8, kQ4 = 12, kQ6 = 20, kQSlots = 21 };
+constexpr int kQJobs = kQ5 + 4 + 1;   // jobs: 8 candidate, 4 rotation, mode 6
+
+using MaxqSmem = TeamSmemT<kQSlots>;
+
+// Lane `lane`'s block's pixels as a job reads them: from shared memory at
+// each pass, rotated by `rot` (modes 4 and 5), so that no pass holds the
+// block's 16 words, or the bytes unpacked from them, over the next one.
+// The fence (a compiler memory barrier) makes each pass load them anew.
+struct PixShared {
+  const uint32_t* p;                            // &pix[0][lane]
+  int rot;
+  __device__ __forceinline__ uint32_t word(int i) const {
+    const uint32_t v = p[i * kTeamBlocks];
+    if (!rot) return v;
+    const int sh = 8 * (rot - 1);               // as rotate_pixels
+    const uint32_t x = (v >> sh) & 0xFFu, a = v >> 24;
+    return (v & ~((0xFFu << sh) | 0xFF000000u)) | (a << sh) | (x << 24);
+  }
+  __device__ __forceinline__ void fence() const {
+    asm volatile("" ::: "memory");
+  }
+};
+
+// Job j of lane `lane`'s block: j < 8 modes 1 and 3 on a candidate, its
+// result into slot j; 8 + r rotation r, whose rot_data feeds modes 5, 4
+// at index mode 0 and 4 at index mode 1 in turn, into their slots; 12
+// mode 6
+template <bool W, class Smem>
+__device__ __forceinline__ void maxq_job(Smem& sm, int j, int lane, float aw,
+                                         int32_t* __restrict__ picks, int nb,
+                                         int b0) {
+  if (j < kQ5) {
+    const PixShared px{&sm.pix[0][lane], 0};
+    const int k = j & 3;
+    const int shape = team_candidate(sm, k, lane);
+    const unsigned m1 = subset1_mask(shape);
+    Best r{INFINITY, {0ull, 0ull}};
+    if (j < kQ3) {
+      if (picks && b0 + lane < nb)
+        picks[(size_t)k * nb + b0 + lane] = shape;
+      eval_partition_pair<1, W>(px, shape, m1, aw, r);
+    } else {
+      eval_partition_pair<3, W>(px, shape, m1, aw, r);
+    }
+    team_put(sm, j, lane, r);
+  } else if (j < kQ5 + 4) {
+    const int rot = j - kQ5;
+    const PixShared prp{&sm.pix[0][lane], rot};
+    float e0[4], e1[4];
+    rot_data_ns(prp, e0, e1);
+    Best r5{INFINITY, {0ull, 0ull}};
+    eval_45_packed<5, 0, W>(prp, rot, e0, e1, aw, r5);
+    team_put(sm, kQ5 + rot, lane, r5);
+    Best r40{INFINITY, {0ull, 0ull}};
+    eval_45_packed<4, 0, W>(prp, rot, e0, e1, aw, r40);
+    team_put(sm, kQ4 + 2 * rot, lane, r40);
+    Best r41{INFINITY, {0ull, 0ull}};
+    eval_45_packed<4, 1, W>(prp, rot, e0, e1, aw, r41);
+    team_put(sm, kQ4 + 2 * rot + 1, lane, r41);
+  } else {
+    team_put(sm, kQ6, lane,
+             eval_mode6_packed<W>(PixShared{&sm.pix[0][lane], 0}, aw));
+  }
+}
+
+// Lane `lane`'s fold in the plain twin's order, stored for a block below
+// nb
+template <class Smem>
+__device__ __forceinline__ void maxq_fold(const Smem& sm, int lane,
+                                          float* __restrict__ err,
+                                          uint32_t* __restrict__ words,
+                                          int nb, int b0) {
+  Best best1{INFINITY, {0ull, 0ull}}, best3{INFINITY, {0ull, 0ull}};
+  Best best4{INFINITY, {0ull, 0ull}}, best5{INFINITY, {0ull, 0ull}};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    Best r = team_get(sm, kQ1 + k, lane);
+    keep_if_better(best1, r.err, r.w);
+    r = team_get(sm, kQ3 + k, lane);
+    keep_if_better(best3, r.err, r.w);
+    r = team_get(sm, kQ5 + k, lane);
+    keep_if_better(best5, r.err, r.w);
+  }
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {                 // rotation-major
+    const Best r = team_get(sm, kQ4 + t, lane);
+    keep_if_better(best4, r.err, r.w);
+  }
+  const Best best6 = team_get(sm, kQ6, lane);
+  Best fold{INFINITY, {0ull, 0ull}};
+  keep_if_better(fold, best1.err, best1.w);
+  keep_if_better(fold, best3.err, best3.w);
+  keep_if_better(fold, best5.err, best5.w);
+  keep_if_better(fold, best6.err, best6.w);
+  keep_if_better(fold, best4.err, best4.w);
+  const int b = b0 + lane;
+  if (b < nb) {
+    err[b] = fold.err;
+    store_words(words, nb, b, fold.w);
+  }
+}
+
+template <bool W>
+__global__ void __launch_bounds__(kThreads, 4)
+    bc7_encode_maxq_kernel(const int32_t* __restrict__ px,
+                           float* __restrict__ err,
+                           uint32_t* __restrict__ words,
+                           int32_t* __restrict__ picks, int nb, float aw) {
+  __shared__ MaxqSmem sm;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b0 = blockIdx.x * kTeamBlocks;
+  team_stage_pixels(sm, px, nb, b0, tid);
+  __syncthreads();
+  team_moments(sm, warp, lane);
+  __syncthreads();
+  team_rank(sm, warp, lane);
+  __syncthreads();
+#pragma unroll 1
+  for (int j = warp; j < kQJobs; j += kTeamWarps)
+    maxq_job<W>(sm, j, lane, aw, picks, nb, b0);
+  __syncthreads();
+  if (warp == 0) maxq_fold(sm, lane, err, words, nb, b0);
+}
+
 // Host launcher of variant V: alpha_weight arrives as its f32 bit pattern;
 // at 1.0 the unweighted instance runs. picks: [4, NB] int32 or null (the
 // opaque and maxq variants write their top-4 shapes there).
@@ -1106,6 +1654,14 @@ int launch_encode(const void* px, void* err, void* words, void* picks,
     else
       bc7_encode_opaque_kernel<false><<<grid, kThreads, 0, s>>>(p, e, w, k,
                                                                 nb, aw);
+  } else if constexpr (V == kMaxq) {
+    const int grid = (nb + kTeamBlocks - 1) / kTeamBlocks;
+    if (aw != 1.0f)
+      bc7_encode_maxq_kernel<true><<<grid, kThreads, 0, s>>>(p, e, w, k, nb,
+                                                             aw);
+    else
+      bc7_encode_maxq_kernel<false><<<grid, kThreads, 0, s>>>(p, e, w, k, nb,
+                                                              aw);
   } else {
     const int grid = (nb + kThreads - 1) / kThreads;
     if (aw != 1.0f)

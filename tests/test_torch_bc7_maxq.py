@@ -9,14 +9,15 @@ QUICK|MAXQUALITY, and the pipeline's maxq kind.
 The search is compared under the near-tie rule of test_torch_bc7_encode
 (the port sums its shape estimates in index order, the JAX package with
 an einsum); the refines and the modes-4/5 family are exact and compared
-word for word. The JAX references are computed once per module, on one
-batch (200 random blocks, half opaque, and 32x32 crops of alphagrad and
-albedo): one maxq encode_bc7 records what its search hands to each of
-its two refines and what its modes-4/5 family gives, then the exact
-ladders run once each. The JAX package runs eagerly on the CPU, and a new
-batch size would trace its operations anew. Torch runs on one thread."""
+word for word. The JAX references are frozen in tests/golden/bc7_maxq.npz
+(tests/golden/generate_bc7_maxq.py), on one batch (200 random blocks,
+half opaque, and 32x32 crops of alphagrad and albedo): one maxq
+encode_bc7 recorded what its search hands to each of its two refines and
+what its modes-4/5 family gives, then the exact ladders ran once each.
+Torch runs on one thread."""
 
-import jax.numpy as jnp
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -24,40 +25,15 @@ import torch
 from directxtex_tpu.bc import bc67 as jbc67
 from directxtex_tpu_torch.bc import bc67, cuda_kernels
 from directxtex_tpu_torch.models import pipelines
-from test_torch_bc7_alpha import _mixed_blocks, _modes_of, _px
+from test_torch_bc7_alpha import _modes_of
 from test_torch_bc7_encode import corpus  # noqa: F401
-from test_torch_bc7_encode import _pixels, _words_u32, assert_near_tie
+from test_torch_bc7_encode import _words_u32, assert_near_tie
 
+GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 MAXQ = 0x200000
 QUICK = 0x100000
 SCOPE = (1, 3, 5, 6, 7, 4)          # the maxq refine scope with alpha
 ALBEDO = slice(264, 328)            # the opaque crop's blocks in the batch
-
-
-def _encode_recording(blocks, flags):
-    """The JAX package's encode_bc7, recording what its search hands to
-    each refine (words [NB, 4] u32, ladder, modes) and its modes-4/5
-    family's (err, words) by mode. Returns (refine inputs, family,
-    encoded [NB, 16] u8)."""
-    seen, family = [], {}
-    orig_refine, orig_single = jbc67.refine_bc7_words, jbc67._try_single_mode
-
-    def record(px_i, words, ladder, **kw):
-        seen.append((np.asarray(words), ladder, kw.get("modes")))
-        return orig_refine(px_i, words, ladder, **kw)
-
-    def single(px_i, px_f, mode_id, **kw):
-        out = orig_single(px_i, px_f, mode_id, **kw)
-        family[mode_id] = tuple(np.asarray(o) for o in out)
-        return out
-
-    jbc67.refine_bc7_words, jbc67._try_single_mode = record, single
-    try:
-        out = np.asarray(jbc67.encode_bc7(jnp.asarray(blocks), flags=flags))
-    finally:
-        jbc67.refine_bc7_words = orig_refine
-        jbc67._try_single_mode = orig_single
-    return seen, family, out
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -69,27 +45,20 @@ def _one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def maxq_set(corpus):
+def maxq_set():
     """The batch (blocks [NB, 16, 4], px [16, 4, NB] i32) and the JAX
-    references."""
-    crops = [_pixels(corpus["alphagrad"][16:48, 16:48])[0],
-             _pixels(corpus["albedo"][:32, :32])[0]]
-    blocks = np.concatenate([_mixed_blocks()] + crops)
-    px = _px(blocks)
-    seen, family, out = _encode_recording(blocks, MAXQ)
-    (search, lad0, modes0), (moment, lad1, modes1) = seen
-    assert (lad0, lad1) == (jbc67.LADDER_MOMENT, jbc67.LADDER_FULL)
-    assert modes0 == modes1 == SCOPE
-    ref = {"blocks": blocks, "px": px, "search": search, "moment": moment,
-           "encoded": out, "family": family}
-    words = jnp.asarray(search)
-    for name, ladder in (("full", jbc67.LADDER_FULL),
-                         ("light", jbc67.LADDER_LIGHT)):
-        ref[name] = np.asarray(jbc67.refine_bc7_words(
-            jnp.asarray(px), words, ladder, aw=2.0, modes=SCOPE))
-    seen_q, _, ref["quick_maxq"] = _encode_recording(blocks, QUICK | MAXQ)
-    assert [(s[1], s[2]) for s in seen_q] == [
-        (jbc67.LADDER_MOMENT, (6,)), (jbc67.LADDER_FULL, (6,))]
+    references, frozen."""
+    g = np.load(GOLDEN / "bc7_maxq.npz")
+    assert (str(g["search_ladder"]), str(g["moment_ladder"])) == (
+        repr(jbc67.LADDER_MOMENT), repr(jbc67.LADDER_FULL))
+    assert tuple(g["refine_modes"]) == SCOPE
+    ref = {k: g[k] for k in ("blocks", "px", "search", "moment", "encoded",
+                             "full", "light", "quick_maxq")}
+    ref["family"] = {m: (g[f"family{m}_err"], g[f"family{m}_words"])
+                     for m in (4, 5)}
+    assert [(str(lad), tuple(modes)) for lad, modes in zip(
+        g["quick_ladders"], g["quick_modes"])] == [
+        (repr(jbc67.LADDER_MOMENT), (6,)), (repr(jbc67.LADDER_FULL), (6,))]
     return ref
 
 
