@@ -10,7 +10,12 @@ the image with alpha, and their pieces there (each tier's (1, 3, 5, 6,
 over the blocks with alpha); each K3 call of the BC7 paths as its
 launcher's whole call (the default, alpha and maxq MOMENT scopes,
 LADDER_FULL and LADDER_LIGHT, modes 0 and 2 under MOMENT and FULL); the
-2048^2 paths (default and maxq, opaque and with alpha, USE_3SUBSETS);
+USE_3SUBSETS search's pieces (K9 as the path runs it: one launch for
+both modes' candidates where the checkout has it, else its two launches;
+K7 for each of modes 0, 1, 2, 3 and 7, on the opaque image and on the
+image with alpha) and the whole search; the 2048^2 paths (default and
+maxq, opaque and with alpha, and USE_3SUBSETS in both tiers, opaque and
+with alpha);
 and on BASELINE config 4's faces (face 512) K5 (unsigned and signed),
 K6's mid and maxq calls, the mid and maxq encodes and the whole config-4
 path (hdr_cubemap_pipeline). It prints one JSON line of median CUDA-event
@@ -89,6 +94,18 @@ def main() -> None:
     w_3 = bc67.bc7_search_words(px_o, bc67.SEARCH_MODES_3)[1]
     w_3q = bc67.bc7_search_words(px_o, bc67.SEARCH_MODES_3, 1.0, maxq)[1]
     w_3m = ck.bc7_refine(px_o, w_3q, bc67.SEARCH_MODES_3)
+    # K9 as the USE_3SUBSETS path runs it
+    def k9_path(px):
+        if hasattr(ck, "bc7_partition_shapes_3sub"):
+            return ck.bc7_partition_shapes_3sub(px)
+        return (ck.bc7_partition_shapes(px, 2, 16),
+                ck.bc7_partition_shapes(px, 2, 64))
+
+    cands = {}
+    for key, px in (("opaque", px_o), ("alpha", px_a)):
+        s16, s64 = k9_path(px)
+        s2 = ck.bc7_partition_shapes(px, 1, 64)
+        cands[key] = {0: s16, 2: s64, 1: s2, 3: s2, 7: s2}
     # the blocks with alpha, gathered, and their two-subset picks
     s2 = ck.bc7_partition_shapes(px_a, 1, 64)
     with_alpha = torch.nonzero(
@@ -134,6 +151,13 @@ def main() -> None:
         "path_default_alpha": med(path(img_a)),
         "path_maxq_opaque": med(path(img_o, 0x200000)),
         "path_use3_opaque": med(path(img_o, 0x80000)),
+        "path_use3_alpha": med(path(img_a, 0x80000)),
+        "path_use3_maxq_opaque": med(path(img_o, 0x280000)),
+        "path_use3_maxq_alpha": med(path(img_a, 0x280000)),
+        "search_use3": med(lambda: bc67.bc7_search_words(
+            px_o, bc67.SEARCH_MODES_3)),
+        "k9_path": med(lambda: k9_path(px_o)),
+        "k9_path_alpha_image": med(lambda: k9_path(px_a)),
         "k2_alpha_search": med(lambda: ck.bc7_encode(px_a, alpha)),
         "k2_alpha_search_aw2": med(lambda: ck.bc7_encode(px_a, alpha, 2.0)),
         "k2_maxq_alpha_search": med(lambda: ck.bc7_encode(px_a, alpha, 1.0,
@@ -148,6 +172,11 @@ def main() -> None:
         "k7_mode7_alpha_blocks": med(lambda: ck.bc7_partition_mode(
             px_alpha, s2_alpha, 7)),
         "path_maxq_alpha": med(path(img_a, 0x200000)),
+        **{f"k7_mode{m}{sfx}": med(lambda m=m, px=px, key=key: (
+            ck.bc7_partition_mode(px, cands[key][m], m)))
+           for key, px, sfx in (("opaque", px_o, ""),
+                                ("alpha", px_a, "_alpha_image"))
+           for m in (0, 1, 2, 3, 7)},
         "k5_search": med(lambda: ck.bc6h_encode(px4, False)),
         "k5_search_signed": med(lambda: ck.bc6h_encode(px4s, True)),
         "path_config4": med(lambda: pipe(eq)),
@@ -172,7 +201,20 @@ def main() -> None:
         "k5_search_signed": int(ck.bc6h_encode(px4s, True)[1]
                                 .to(torch.int64).sum()),
         "k6_mid": int(ck.bc6h_refine(px4, w5, *mid).to(torch.int64).sum()),
-        "k6_maxq": int(ck.bc6h_refine(px4, w5, *mxq).to(torch.int64).sum())}
+        "k6_maxq": int(ck.bc6h_refine(px4, w5, *mxq).to(torch.int64).sum()),
+        "k9_path": int(sum(s.to(torch.int64).sum() for key in cands
+                           for s in (cands[key][0], cands[key][2]))),
+        **{f"k7_mode{m}_{key}_aw{aw:g}": int(ck.bc7_partition_mode(
+            px, cands[key][m], m, aw)[1].to(torch.int64).sum())
+           for key, px in (("opaque", px_o), ("alpha", px_a))
+           for m in (0, 1, 2, 3, 7) for aw in (1.0, 2.0)},
+        **{f"use3_{name}": int(bc67.encode_bc7(
+            image_to_blocks(img)[0], flags).view(torch.int32)
+            .to(torch.int64).sum())
+           for name, img, flags in (("opaque", img_o, 0x80000),
+                                    ("alpha", img_a, 0x80000),
+                                    ("maxq_opaque", img_o, 0x280000),
+                                    ("maxq_alpha", img_a, 0x280000))}}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

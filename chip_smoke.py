@@ -23,9 +23,12 @@ every kernel against its plain PyTorch twin on the card:
   shape candidate a block), K6 refine (a unit bucket pass, then a launch
   of lane jobs per unit);
 - USE_3SUBSETS (encode_bc7(flags=0x80000), with MAXQUALITY 0x280000):
-  per mode 0 and 2, K9 ranks the three-subset shapes and K7 evaluates
-  the top 4, K2 searches the other modes, and K3 refines modes 0 and 2 as
-  two more of its per-mode launches;
+  one K9 launch (a team of four warps per 32 blocks) ranks the
+  three-subset shapes for both modes, 0..15 for mode 0 and all 64 for
+  mode 2, K7 (a team, one candidate a warp, every subset of a candidate
+  fitted in one pass) evaluates each mode's top 4, K2 searches the other
+  modes, and K3 refines modes 0 and 2 as two more of its per-mode
+  launches;
 - BC6H with bc6h.BC6H_SHARED_FIT = False (encode_bc6h in every tier, and
   so config 4): K10 (rows 10-13, each evaluated in full), the BC6H shape
   ranking, K11 once per precision group, a strict-`<` fold in torch, then
@@ -99,9 +102,12 @@ Phases:
      kernel (the search on both images at alpha weights 1.0 and 2.0,
      with mode 7 on the image with alpha, with its picks on the bench
      image);
- 18. K9 (three subsets, 16 and 64 shapes; two subsets, 64), K7 (modes 0
-     and 2 on the three-subset picks, 1, 3 and 7 on the two-subset
-     picks), the search with modes 0 and 2 (K9, K7, K2 and the fold) and
+ 18. K9 (the path's one launch that gives both three-subset lists, and
+     the wrapper's three subsets at 16 and 64 shapes and two subsets at
+     64), K7 (modes 0 and 2 on the three-subset picks, 1, 3 and 7 on the
+     two-subset picks; on the synthetic batch and the mixed set also
+     against its candidate jobs in plain form, folded), the search with
+     modes 0 and 2 (K9, K7, K2 and the fold) and
      K3 over modes 0 and 2 (MOMENT, FULL, LIGHT; and over a whole scope)
      against their twins on bench512, the
      opaque corpus, alphagrad, the 200-block mixed set and the synthetic
@@ -112,13 +118,14 @@ Phases:
      above 36 dB; every BC7 corpus content's PSNR at 0x80000 and
      0x280000;
  20. the USE_3SUBSETS paths at 2048^2 (default and maxq tiers, opaque and
-     with alpha), each with its launch counts (two K9, two K7, one K2,
+     with alpha), each with its launch counts (one K9, two K7, one K2,
      and per K3 ladder a bucket pass and a launch per mode), winner
      histograms, CUDA-event times of the paths
-     and kernels beside the default and maxq paths', and one run of each
-     new kernel's plain twin at the path's shapes held against it, on the
-     opaque image's inputs and on the image with alpha's (its own picks,
-     search words and MOMENT words, both tiers);
+     and kernels beside the default and maxq paths' (K9 as the path's one
+     launch, K7 per mode), and one run of each new kernel's plain twin at
+     the path's shapes held against it, on the opaque image's inputs and
+     on the image with alpha's (its own picks, search words and MOMENT
+     words, both tiers);
  21. K10, the BC6H ranking and K11 (every precision group) against their
      twins on the HDR corpus contents and the 200-block random / bimodal
      set, and on config 4's 98,304 face-512 blocks (the twins on the first
@@ -263,9 +270,10 @@ BYTES_PER_BLOCK = {"bc7_decode": 16 + 64, "bc7_encode": 64 + 16,
                    "bc7_encode_maxq": 64 + 16,
                    "bc7_refine_maxq": 64 + 16 + 16,
                    "bc7_refine_ladder": 64 + 16 + 16,
-                   # USE_3SUBSETS: K9 and K7 launch twice a path (modes 0
-                   # and 2); K7 reads 4 candidates, writes err and words
-                   "bc7_partition_shapes": 2 * (64 + 16),
+                   # USE_3SUBSETS: K9 launches once a path and writes
+                   # both modes' 4 picks; K7 launches twice (modes 0 and
+                   # 2), reads 4 candidates, writes err and words
+                   "bc7_partition_shapes": 64 + 2 * 16,
                    "bc7_partition_mode": 2 * (64 + 16 + 4 + 16),
                    # K3 over modes 0 and 2 reads and writes every block's
                    # words, and pixels only for a mode-0/2 block
@@ -315,8 +323,9 @@ MAXQ = 0x200000            # encode_bc7's MAXQUALITY flag
 MAXQ_GATE_SLACK = 0.001    # dB below the default tier (test_bc7.py:211)
 USE3 = 0x80000             # encode_bc7's USE_3SUBSETS flag
 USE3_FLOOR = 36.0          # img_blocks with USE_3SUBSETS (test_bc7.py:240)
-# USE_3SUBSETS: K9 per block over 16 (mode 0) and 64 (mode 2) three-subset
-# shapes; K7 per block over 4 candidates, per mode
+# USE_3SUBSETS: K9 per block over 16 and 64 three-subset shapes (the
+# path's one launch ranks the 64, which include mode 0's 16); K7 per block
+# over 4 candidates, per mode
 BC7_SHAPES_OPS = {16: 9092, 64: 35300}
 BC7_PARTITION_OPS = {0: 22063, 1: 20459, 2: 21295, 3: 19811, 7: 23147}
 # BC6H_SHARED_FIT=False: K10 per block (rows 10-13 each evaluated in
@@ -328,20 +337,22 @@ BC6H_2REGION_OPS = (28530, 28530, 38074, 28482, 38074, 28446)
 # K8 per block: modes 4, 5 and 6 over their candidates
 BC7_SINGLE_MODES_OPS = 51970
 UNSHARED_PLAIN_BLOCKS = 16384  # face-512 blocks of the K10 / K11 twins
-# (registers, spill stores, spill loads in bytes) of the kernel instances
-# whose code the redesign of K2's maxq search and K5 moved or templated
-# but did not change (NVIDIA H100 80GB HBM3 build; PERF.md section 6),
-# by a piece of each instance's mangled name
+# (registers, spill stores, spill loads in bytes) of kernel instances, by a
+# piece of each instance's mangled name (NVIDIA H100 80GB HBM3 build;
+# PERF.md section 6): the K9 and K7 teams as first built, and the
+# instances whose code the K9 / K7 redesign moved or templated but did not
+# change. K2's teams are not held here: its fits were templated on the
+# subset count, so its maxq team's spill moved (PERF.md).
 PTXAS_RECORDED = {
-    "bc7_partition_kernelILi0ELb0": (255, 68, 52),
-    "bc7_partition_kernelILi1ELb0": (255, 28, 24),
-    "bc7_partition_kernelILi2ELb0": (255, 72, 56),
-    "bc7_partition_kernelILi3ELb0": (255, 28, 24),
-    "bc7_partition_kernelILi7ELb0": (255, 16, 16),
+    "bc7_partition_team_kernelILi0ELb0": (128, 116, 96),
+    "bc7_partition_team_kernelILi1ELb0": (128, 36, 28),
+    "bc7_partition_team_kernelILi2ELb0": (128, 88, 64),
+    "bc7_partition_team_kernelILi3ELb0": (128, 36, 28),
+    "bc7_partition_team_kernelILi7ELb0": (128, 176, 176),
+    "bc7_shapes_team_kernelILi2E": (56, 0, 0),
+    "bc7_shapes_team_kernelILi3E": (64, 0, 0),
     "bc7_single_modes_kernelILb0": (255, 0, 0),
     "bc7_mode7_kernelILb0": (255, 24, 12),
-    "bc7_shapes_kernelILi2ELi64": (223, 0, 0),
-    "bc7_shapes_kernelILi3ELi64": (233, 0, 0),
     "bc6h_refine_unit_kernelILi0ELb0": (72, 0, 0),
     "bc6h_refine_unit_kernelILi1ELb0": (80, 224, 248),
     "bc6h_refine_unit_kernelILi1ELb1": (80, 304, 320),
@@ -1571,6 +1582,10 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
             picks[parts, n] = cuda_kernels.bc7_partition_shapes(px, parts, n)
             same(picks[parts, n], bc67._partition_shapes_plain(px, parts, n, 4),
                  f"K9 {label} partitions={parts} shapes={n}")
+        # the path's one launch: both three-subset lists
+        s16, s64 = cuda_kernels.bc7_partition_shapes_3sub(px)
+        same(s16, picks[2, 16], f"K9 path launch 16 shapes {label}")
+        same(s64, picks[2, 64], f"K9 path launch 64 shapes {label}")
         for aw in ALPHA_WEIGHTS:
             what = f"{label} aw={aw}"
             for mode, key in ((0, (2, 16)), (2, (2, 64)), (1, (1, 64)),
@@ -1581,6 +1596,11 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
                                                       aw)
                 same(w_k, w_p, f"K7 mode {mode} words {what}")
                 same(e_k, e_p, f"K7 mode {mode} errors {what}")
+                if label in ("mixed200", "sub3batch"):
+                    e_j, w_j = bc67._partition_jobs_fold_plain(
+                        bc67._partition_jobs_plain(px, picks[key], mode, aw))
+                    same(w_k, w_j, f"K7 mode {mode} words vs jobs {what}")
+                    same(e_k, e_j, f"K7 mode {mode} errors vs jobs {what}")
             e_k, w_k = bc67.bc7_search_words(px, search, aw)
             e_p, w_p = bc67._bc7_search_plain(px, search, aw)
             same(w_k, w_p, f"search with modes 0/2 words {what}")
@@ -1679,7 +1699,7 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
                   if v}
         # per K3 ladder a bucket pass, modes 0 and 2, and one launch per
         # other mode of the scope
-        want = {"bc7_partition_shapes": 2, "bc7_partition_mode": 2, **k2,
+        want = {"bc7_partition_shapes": 1, "bc7_partition_mode": 2, **k2,
                 "bc7_mode_buckets": 2 if flags & MAXQ else 1,
                 "bc7_refine_3sub": 2,
                 "bc7_decode": 1}
@@ -1697,9 +1717,14 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
     launches["bc7_refine_3sub_ladder"] = runs["use3_maxq_opaque"][
         "launches"]["bc7_refine_3sub_ladder"]
 
-    # the new kernels at the opaque paths' shapes, held against the twins
-    s16 = cuda_kernels.bc7_partition_shapes(px_o, 2, 16)
-    s64 = cuda_kernels.bc7_partition_shapes(px_o, 2, 64)
+    # the new kernels at the opaque paths' shapes, held against the twins:
+    # K9 as the path launches it (both lists at once) and as the wrapper's
+    # two rankings
+    s16, s64 = cuda_kernels.bc7_partition_shapes_3sub(px_o)
+    same(cuda_kernels.bc7_partition_shapes(px_o, 2, 16), s16,
+         f"K9 wrapper 16 shapes {size}^2")
+    same(cuda_kernels.bc7_partition_shapes(px_o, 2, 64), s64,
+         f"K9 wrapper 64 shapes {size}^2")
     e0, w0 = cuda_kernels.bc7_partition_mode(px_o, s16, 0)
     e2, w2 = cuda_kernels.bc7_partition_mode(px_o, s64, 2)
     e_s, w_s = bc67.bc7_search_words(px_o, bc67.SEARCH_MODES_3)
@@ -1709,13 +1734,14 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
     w_mq = cuda_kernels.bc7_refine(px_o, w_sq, bc67.SEARCH_MODES_3)
     w_fq = cuda_kernels.bc7_refine(px_o, w_mq, (0, 2), 1.0, full)
     plain, plain_ms = {}, {}
-    t16 = event_ms(lambda: plain.update(
-        s16=bc67._partition_shapes_plain(px_o, 2, 16, 4)))[0]
-    t64 = event_ms(lambda: plain.update(
-        s64=bc67._partition_shapes_plain(px_o, 2, 64, 4)))[0]
-    plain_ms["bc7_partition_shapes"] = t16 + t64
-    same(s16, plain["s16"], f"K9 16 shapes {size}^2")
-    same(s64, plain["s64"], f"K9 64 shapes {size}^2")
+    plain_ms["bc7_partition_shapes"] = event_ms(lambda: plain.update(
+        lists=bc67._shape_lists_plain(px_o)))[0]
+    plain["s16"] = bc67._partition_shapes_plain(px_o, 2, 16, 4)
+    plain["s64"] = bc67._partition_shapes_plain(px_o, 2, 64, 4)
+    for got, want, n in ((s16, plain["s16"], 16), (s64, plain["s64"], 64),
+                         (s16, plain["lists"][0], 16),
+                         (s64, plain["lists"][1], 64)):
+        same(got, want, f"K9 {n} shapes {size}^2")
     t0 = event_ms(lambda: plain.update(
         m0=bc67._partition_mode_plain(px_o, s16, 0)))[0]
     t2 = event_ms(lambda: plain.update(
@@ -1754,8 +1780,10 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
     px_a = px_of(image_to_blocks(img_alpha)[0])
     search_a = bc67.SEARCH_MODES_3_ALPHA
     alpha_cmp = {}
+    lists_a = dict(zip((16, 64),
+                       cuda_kernels.bc7_partition_shapes_3sub(px_a)))
     for n in (16, 64):
-        s_k = cuda_kernels.bc7_partition_shapes(px_a, 2, n)
+        s_k = lists_a[n]
         s_p = bc67._partition_shapes_plain(px_a, 2, n, 4)
         same(s_k, s_p, f"K9 {n} shapes alpha {size}^2")
         max_err["bc7_partition_shapes"] = max(
@@ -1810,6 +1838,8 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
             ("default_path_alpha", lambda: path(img_alpha, 0)),
             ("maxq_path_opaque", lambda: path(img_opaque, MAXQ)),
             ("maxq_path_alpha", lambda: path(img_alpha, MAXQ)),
+            ("bc7_partition_shapes_path", lambda: cuda_kernels
+             .bc7_partition_shapes_3sub(px_o)),
             ("bc7_partition_shapes_16", lambda: cuda_kernels
              .bc7_partition_shapes(px_o, 2, 16)),
             ("bc7_partition_shapes_64", lambda: cuda_kernels
@@ -1841,16 +1871,14 @@ def bc7_3sub_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
           "plain_ms": plain_ms, "plain_search_ms": t_s,
           "words_equal_plain": True, "alpha_equal_plain": alpha_cmp})
 
-    k_ms = {"bc7_partition_shapes": med["bc7_partition_shapes_16"]
-            + med["bc7_partition_shapes_64"],
+    k_ms = {"bc7_partition_shapes": med["bc7_partition_shapes_path"],
             "bc7_partition_mode": med["bc7_partition_mode_0"]
             + med["bc7_partition_mode_2"],
             "bc7_refine_3sub": med["bc7_refine_3sub"],
             "bc7_refine_3sub_ladder": med["bc7_refine_3sub_ladder"]}
     modes_s = bc67._mode_of(bc67._words_i64(w_s))
     modes_m = bc67._mode_of(bc67._words_i64(w_mq))
-    ops = {"bc7_partition_shapes": float(nb) * (BC7_SHAPES_OPS[16]
-                                                + BC7_SHAPES_OPS[64]),
+    ops = {"bc7_partition_shapes": float(nb) * BC7_SHAPES_OPS[64],
            "bc7_partition_mode": float(nb) * (BC7_PARTITION_OPS[0]
                                               + BC7_PARTITION_OPS[2]),
            "bc7_refine_3sub": per_mode_ops(torch, modes_s, {

@@ -1470,38 +1470,43 @@ def _mode7_fold_plain(px: torch.Tensor, picks: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K2's maxq team in plain form: the paired two-subset fit, the 21
-# evaluations of a block and their fold (used by the tests and
-# chip_smoke.py; the search itself is _bc7_search_plain)
+# The teams in plain form: the fit of all subsets in one pass, K2's maxq
+# team's 21 evaluations of a block and their fold, K9's two lists and K7's
+# candidate jobs and their fold (used by the tests and chip_smoke.py; the
+# search itself is _bc7_search_plain)
 # ---------------------------------------------------------------------------
 
-def _pick_pix(s1, a1, a0):
-    """Per pixel its own subset's value: a1 [C, NB] where s1 [16, NB] is
-    set, else a0. Returns [16, C, NB]."""
-    return torch.where(s1[:, None, :], a1[None], a0[None])
+def _pick_pix(sid, arrs):
+    """Per pixel its own subset's value: arrs[s] [C, NB] where sid [16,
+    NB] (int64 subset ids) is s. Returns [16, C, NB]."""
+    out = arrs[0][None].expand(sid.shape[0], *arrs[0].shape)
+    for s in range(1, len(arrs)):
+        out = torch.where((sid == s)[:, None, :], arrs[s][None], out)
+    return out
 
 
-def _own_sums(s1, terms):
+def _own_sums(sid, terms, n_sub: int):
     """Each subset's sum of its own pixels' terms [16, NB] in pixel order,
-    skipping the other subset's pixels (a running sum from 0.0, as K2's
-    paired fit adds). Returns [sum over subset 0, sum over subset 1]."""
-    acc0 = torch.zeros_like(terms[0])
-    acc1 = torch.zeros_like(terms[0])
-    for i in range(terms.shape[0]):
-        acc0 = torch.where(s1[i], acc0, acc0 + terms[i])
-        acc1 = torch.where(s1[i], acc1 + terms[i], acc1)
-    return [acc0, acc1]
+    skipping the other subsets' pixels (a running sum from 0.0, as the
+    kernels' fits in one pass add). Returns [sum over subset 0, ...]."""
+    sums = []
+    for s in range(n_sub):
+        acc = torch.zeros_like(terms[0])
+        for i in range(terms.shape[0]):
+            acc = torch.where(sid[i] == s, acc + terms[i], acc)
+        sums.append(acc)
+    return sums
 
 
-def _minmax_axis_pair_t(px_f, s1, with_alpha: bool):
-    """_minmax_axis_endpoints_t of both subsets in one pass over the
+def _minmax_axis_ns_t(px_f, sid, n_sub: int, with_alpha: bool):
+    """_minmax_axis_endpoints_t of every subset in one pass over the
     pixels: each pixel projected on its own subset's box and scored into
-    its own subset's sums. s1 [16, NB] bool: subset 1's pixels. Returns
-    ([e0 of subset 0, of subset 1], [e1, e1]) [4, NB] each."""
+    its own subset's sums. sid [16, NB] int64: each pixel's subset.
+    Returns ([e0 of each subset], [e1 of each]) [4, NB] each."""
     boxes, mids, dirvs = [], [], []
     nch = 4 if with_alpha else 3
-    for sub in (0, 1):
-        m = (s1 if sub else ~s1)[:, None, :]
+    for sub in range(n_sub):
+        m = (sid == sub)[:, None, :]
         mi = torch.where(m, px_f, 1e9).amin(dim=0)
         ma = torch.where(m, px_f, -1e9).amax(dim=0)
         ab = ma - mi
@@ -1509,18 +1514,18 @@ def _minmax_axis_pair_t(px_f, s1, with_alpha: bool):
         boxes.append((mi, ma))
         mids.append((mi + ma) * 0.5)
         dirvs.append(ab / torch.where(fab > 0, fab, 1.0)[None, :])
-    pt = (px_f - _pick_pix(s1, mids[1], mids[0])) \
-        * _pick_pix(s1, dirvs[1], dirvs[0])
+    pt = (px_f - _pick_pix(sid, mids)) * _pick_pix(sid, dirvs)
     signs = [(sg, sb, sa)
              for sg in (1.0, -1.0) for sb in (1.0, -1.0)
              for sa in ((1.0, -1.0) if with_alpha else (1.0,))]
     best = [[torch.full_like(boxes[0][0][0], -1.0)] + [
-        torch.ones_like(boxes[0][0][0]) for _ in range(3)] for _ in (0, 1)]
+        torch.ones_like(boxes[0][0][0]) for _ in range(3)]
+        for _ in range(n_sub)]
     for sg, sb, sa in signs:
         f = pt[:, 0, :] + sg * pt[:, 1, :] + sb * pt[:, 2, :]
         if with_alpha:
             f = f + sa * pt[:, 3, :]
-        for sub, score in enumerate(_own_sums(s1, f * f)):
+        for sub, score in enumerate(_own_sums(sid, f * f, n_sub)):
             b = best[sub]
             better = score > b[0]
             best[sub] = [torch.where(better, score, b[0]),
@@ -1528,7 +1533,7 @@ def _minmax_axis_pair_t(px_f, s1, with_alpha: bool):
                          torch.where(better, sb, b[2]),
                          torch.where(better, sa, b[3])]
     e0s, e1s = [], []
-    for sub in (0, 1):
+    for sub in range(n_sub):
         mi, ma = boxes[sub]
         _, bsg, bsb, bsa = best[sub]
 
@@ -1543,28 +1548,29 @@ def _minmax_axis_pair_t(px_f, s1, with_alpha: bool):
     return e0s, e1s
 
 
-def _assign_pair_t(px_i, u0s, u1s, s1, prec: int, aw: float = 1.0):
-    """_assign_indices_t over channels 0-3 of both subsets in one pass:
+def _assign_ns_t(px_i, u0s, u1s, sid, prec: int, aw: float = 1.0):
+    """_assign_indices_t over channels 0-3 of every subset in one pass:
     each pixel projected on, and scored against, its own subset's
-    endpoints (u0s / u1s: [subset 0's, subset 1's] [4, NB]). Returns (idx
-    [16, NB] of every pixel, [err of subset 0, of subset 1])."""
+    endpoints (u0s / u1s: each subset's [4, NB]). Returns (idx [16, NB] of
+    every pixel, [err of each subset])."""
     K = 1 << prec
-    e_sub = [[u1s[s][c] - u0s[s][c] for c in range(4)] for s in (0, 1)]
+    n_sub = len(u0s)
+    e_sub = [[u1s[s][c] - u0s[s][c] for c in range(4)] for s in range(n_sub)]
     s64 = []
-    for s in (0, 1):
+    for s in range(n_sub):
         span = torch.zeros_like(e_sub[s][0])
         for ee in e_sub[s]:
             span = span + ee * ee
         span = span.to(torch.float32)
         s64.append(_div(64.0, torch.where(span > 0, span, 1.0)))
-    u0 = _pick_pix(s1, u0s[1], u0s[0])
-    e = _pick_pix(s1, torch.stack(e_sub[1]), torch.stack(e_sub[0]))
+    u0 = _pick_pix(sid, u0s)
+    e = _pick_pix(sid, [torch.stack(es) for es in e_sub])
     d0 = [px_i[:, c, :] - u0[:, c, :] for c in range(4)]
     dot = torch.zeros_like(d0[0])
     for c in range(4):
         dot = dot + d0[c] * e[:, c, :]
-    p64 = (dot.to(torch.float32) * torch.where(s1, s64[1][None, :],
-                                                s64[0][None, :])) \
+    p64 = (dot.to(torch.float32)
+           * _pick_pix(sid, [v[None] for v in s64])[:, 0, :]) \
         .clamp(0.0, 64.0)
     kf = torch.round(p64 * ((K - 1) / 64.0)).to(torch.int32).clamp(0, K - 1)
     wk = _pal_weight(kf, K)
@@ -1578,20 +1584,21 @@ def _assign_pair_t(px_i, u0s, u1s, s1, prec: int, aw: float = 1.0):
     for c in range(4):
         r = (d0[c] - ((wk * e[:, c, :] + 32) >> 6)).to(torch.float32)
         dist = dist + _weighted_sq(r, c, aw, 3, None)
-    return idx, _own_sums(s1, dist)
+    return idx, _own_sums(sid, dist, n_sub)
 
 
-def _ls_refit_pair_t(px_f, idx, s1, prec: int, e0s, e1s):
-    """_ls_refit_t over channels 0-3 of both subsets in one pass, each
+def _ls_refit_ns_t(px_f, idx, sid, prec: int, e0s, e1s):
+    """_ls_refit_t over channels 0-3 of every subset in one pass, each
     pixel weighed into its own subset's sums. Returns (e0s, e1s)."""
+    n_sub = len(e0s)
     x = _pal_weight(idx, 1 << prec).to(torch.float32) * (1 / 64)
     a, b = 1.0 - x, x
-    A, B, C = _own_sums(s1, a * a), _own_sums(s1, a * b), \
-        _own_sums(s1, b * b)
-    r0 = [_own_sums(s1, a * px_f[:, c, :]) for c in range(4)]
-    r1 = [_own_sums(s1, b * px_f[:, c, :]) for c in range(4)]
+    A, B, C = (_own_sums(sid, a * a, n_sub), _own_sums(sid, a * b, n_sub),
+               _own_sums(sid, b * b, n_sub))
+    r0 = [_own_sums(sid, a * px_f[:, c, :], n_sub) for c in range(4)]
+    r1 = [_own_sums(sid, b * px_f[:, c, :], n_sub) for c in range(4)]
     out0, out1 = [], []
-    for s in (0, 1):
+    for s in range(n_sub):
         det = A[s] * C[s] - B[s] * B[s]
         ok = torch.abs(det) > 1e-6
         inv = _div(1.0, torch.where(ok, det, 1.0))
@@ -1606,58 +1613,64 @@ def _ls_refit_pair_t(px_f, idx, s1, prec: int, e0s, e1s):
     return out0, out1
 
 
-def _fit_pair_plain(px_i, px_f, s1, mode_id: int, aw: float = 1.0):
-    """Plain twin of K2's paired fit (fit_ns<M, 2, W>, bc7_encode.cuh):
-    both subsets of two-subset mode mode_id (1, 3 or 7) fitted in one pass
-    per step, each pixel on its own subset's state (s1 [16, NB] bool:
-    subset 1's pixels), each subset keeping its better fit by its own
-    strict `<`. Returns ([err [NB]] x 2, [q0] x 2, [q1] x 2, [p0] x 2,
-    [p1] x 2, idx [16, NB]): what _fit_subset_plain gives for each subset,
-    the index plane of each pixel from its own subset's fit."""
+def _fit_ns_plain(px_i, px_f, sid, n_sub: int, mode_id: int,
+                  aw: float = 1.0):
+    """Plain twin of the kernels' fit in one pass (fit_ns<M, NS, W>,
+    bc7_encode.cuh): the n_sub subsets of partition mode mode_id (two for
+    1, 3 and 7, three for 0 and 2) fitted in one pass per step, each pixel
+    on its own subset's state (sid [16, NB] int64: each pixel's subset),
+    each subset keeping its better fit by its own strict `<`. Returns
+    ([err [NB]] per subset, [q0], [q1], [p0], [p1], idx [16, NB]): what
+    _fit_subset_plain gives for each subset, the index plane of each pixel
+    from its own subset's fit."""
     m = _BC7_MODES[mode_id]
     shared_p = _shared_p(m)
     prec = m.index_prec
+    subs = range(n_sub)
 
     def qpal(e0s_, e1s_):
-        qs = [_quantize_endpoints_t(e0s_[s], e1s_[s], m) for s in (0, 1)]
-        us = [_unquantize_with_p_t(*qs[s], m, shared_p) for s in (0, 1)]
-        idx, errs = _assign_pair_t(px_i, [us[0][0], us[1][0]],
-                                   [us[0][1], us[1][1]], s1, prec, aw)
+        qs = [_quantize_endpoints_t(e0s_[s], e1s_[s], m) for s in subs]
+        us = [_unquantize_with_p_t(*qs[s], m, shared_p) for s in subs]
+        idx, errs = _assign_ns_t(px_i, [u[0] for u in us],
+                                 [u[1] for u in us], sid, prec, aw)
         return qs, idx, errs
 
-    e0s, e1s = _minmax_axis_pair_t(px_f, s1, m.rgba_prec[3] > 0)
+    e0s, e1s = _minmax_axis_ns_t(px_f, sid, n_sub, m.rgba_prec[3] > 0)
     qa, idx_a, err_a = qpal(e0s, e1s)
-    e0c, e1c = _ls_refit_pair_t(px_f, idx_a, s1, prec, e0s, e1s)
+    e0c, e1c = _ls_refit_ns_t(px_f, idx_a, sid, prec, e0s, e1s)
     qb, idx_b, err_b = qpal(e0c, e1c)
     errs, q0s, q1s, p0s, p1s = [], [], [], [], []
     idx = idx_a
-    for s in (0, 1):
+    for s in subs:
         better = err_b[s] < err_a[s]
         errs.append(torch.where(better, err_b[s], err_a[s]))
         q0s.append(torch.where(better[None, :], qb[s][0], qa[s][0]))
         q1s.append(torch.where(better[None, :], qb[s][1], qa[s][1]))
         p0s.append(torch.where(better, qb[s][2], qa[s][2]))
         p1s.append(torch.where(better, qb[s][3], qa[s][3]))
-        own = s1 if s else ~s1
-        idx = torch.where(own & better[None, :], idx_b, idx)
+        idx = torch.where((sid == s) & better[None, :], idx_b, idx)
     return errs, q0s, q1s, p0s, p1s, idx
 
 
-def _eval_partition_pair_plain(px_i, px_f, s_blk, mode_id: int,
-                               aw: float = 1.0):
-    """Two-subset mode mode_id (1, 3, 7) on the shapes s_blk [NB] by the
-    paired fit, anchor swaps, emit (K2's eval_partition_pair). Returns
-    (err [NB], words [4, NB] int64)."""
+def _eval_partition_ns_plain(px_i, px_f, s_blk, mode_id: int,
+                             aw: float = 1.0):
+    """Partition mode mode_id (0, 1, 2, 3, 7) on the shapes s_blk [NB] by
+    the fit in one pass, anchor swaps, emit (the kernels'
+    eval_partition_ns). Returns (err [NB], words [4, NB] int64)."""
+    m = _BC7_MODES[mode_id]
     tabs = _tables(px_i.device)
     s_blk = s_blk.to(torch.int64)
-    s1 = tabs["parts1"][s_blk].t() == 1                  # [16, NB]
-    errs, q0s, q1s, p0s, p1s, idx = _fit_pair_plain(px_i, px_f, s1,
-                                                    mode_id, aw)
+    sid = tabs[f"parts{m.partitions}"][s_blk].t().to(torch.int64)
+    n_sub = m.partitions + 1
+    errs, q0s, q1s, p0s, p1s, idx = _fit_ns_plain(px_i, px_f, sid, n_sub,
+                                                  mode_id, aw)
     total = torch.zeros_like(px_f[0, 0])
-    total = total + errs[0]
-    total = total + errs[1]
-    idx = _anchor_swaps(idx, [~s1, s1], [0, tabs["fix1"][s_blk, 1]],
-                        _BC7_MODES[mode_id].index_prec, q0s, q1s, p0s, p1s)
+    for err in errs:
+        total = total + err
+    anchors = [0] + [tabs[f"fix{m.partitions}"][s_blk, p]
+                     for p in range(1, n_sub)]
+    idx = _anchor_swaps(idx, [sid == s for s in range(n_sub)], anchors,
+                        m.index_prec, q0s, q1s, p0s, p1s)
     return total, _emit_bc7(mode_id, s_blk, 0, 0, q0s, q1s, p0s, p1s, idx,
                             None, px_i.shape[2], px_i.device)
 
@@ -1689,8 +1702,8 @@ def _maxq_jobs_plain(px: torch.Tensor, aw: float = 1.0):
         picks.append(torch.stack(cands).to(torch.int32))
         for j, (mode_id, a, im) in enumerate(MAXQ_JOBS):
             if mode_id in (1, 3):
-                err, w = _eval_partition_pair_plain(px_i, px_f, cands[a],
-                                                    mode_id, aw)
+                err, w = _eval_partition_ns_plain(px_i, px_f, cands[a],
+                                                  mode_id, aw)
             elif mode_id in (4, 5):
                 err, w = _mode45_candidate(px_i, px_f, mode_id, a, im, aw)
             else:
@@ -1721,6 +1734,76 @@ def _maxq_fold_plain(jobs):
     return fold([per_mode[m] for m in (1, 3, 5, 6, 4)])
 
 
+def _shape_lists_of_table(ests, n_slices: int = 4):
+    """Plain twin of K9's two lists: slice w of the shapes (w, w +
+    n_slices, ...) ranked into a local top 4 by (estimate, shape) and the
+    slices' lists merged by the same order (all S shapes), and a running
+    top 4 over the estimates of shapes 0..15 in shape order. ests [S, NB],
+    S >= 16. Returns (the top 4 of shapes 0..15, of all S), each 4 [NB]
+    int64 shape indices in rank order: _top_k_shapes(ests[:16], 4) and
+    _top_k_shapes(ests, 4)."""
+    return (_top_k_shapes(ests[:16], 4), _top4_merge_plain(ests, n_slices))
+
+
+def _shape_lists_plain(px: torch.Tensor):
+    """Plain form of K9's one launch on the USE_3SUBSETS path: px [64, NB]
+    int32 -> (s16, s64) [4, NB] int32, the top 4 of the three-subset
+    shapes 0..15 and of all 64, both from one 64-shape estimate table
+    (a shape's estimate does not depend on how many are ranked)."""
+    out16, out64 = [], []
+    for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE):
+        px_f = px[:, s:s + _PLAIN_SEARCH_SLICE].reshape(16, 4, -1) \
+            .to(torch.float32)
+        s16, s64 = _shape_lists_of_table(
+            _shape_estimates_table(px_f, 64, partitions=2))
+        out16.append(torch.stack(s16))
+        out64.append(torch.stack(s64))
+    return (torch.cat(out16, dim=1).to(torch.int32),
+            torch.cat(out64, dim=1).to(torch.int32))
+
+
+def _partition_jobs_plain(px: torch.Tensor, s_blks: torch.Tensor,
+                          mode_id: int, aw: float = 1.0):
+    """Plain twin of K7's team jobs: px [64, NB] int32, s_blks [C, NB]
+    int32 -> [(err [NB] f32, words [4, NB] int32)] per candidate rank,
+    each candidate's subsets fitted in one pass (_eval_partition_ns_plain)."""
+    jobs = [([], []) for _ in range(s_blks.shape[0])]
+    for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE):
+        px_i = px[:, s:s + _PLAIN_SEARCH_SLICE].reshape(16, 4, -1)
+        px_f = px_i.to(torch.float32)
+        for k, s_blk in enumerate(s_blks[:, s:s + _PLAIN_SEARCH_SLICE]):
+            err, w = _eval_partition_ns_plain(px_i, px_f, s_blk, mode_id, aw)
+            jobs[k][0].append(err)
+            jobs[k][1].append(_words_i32(w))
+    return [(torch.cat(e), torch.cat(w, dim=1)) for e, w in jobs]
+
+
+def _partition_jobs_fold_plain(jobs, n_warps: int = 4):
+    """Plain twin of K7's fold: candidate rank k on warp k % n_warps, each
+    warp's best of its jobs by a strict `<` in rank order, then the warps'
+    bests by (error, rank). Returns (err [NB], words [4, NB] int32): the
+    strict-`<` fold in rank order of _partition_candidates."""
+    nb = jobs[0][0].shape[0]
+    dev = jobs[0][0].device
+    fold_err = torch.full((nb,), float("inf"), device=dev)
+    fold_words = torch.zeros_like(jobs[0][1])
+    fold_rank = torch.full((nb,), len(jobs) + 1, device=dev)
+    for w in range(n_warps):
+        err = torch.full((nb,), float("inf"), device=dev)
+        words = torch.zeros_like(jobs[0][1])
+        rank = torch.full((nb,), len(jobs), device=dev)
+        for k in range(w, len(jobs), n_warps):
+            better = jobs[k][0] < err
+            err = torch.where(better, jobs[k][0], err)
+            words = torch.where(better[None, :], jobs[k][1], words)
+            rank = torch.where(better, k, rank)
+        take = (err < fold_err) | ((err == fold_err) & (rank < fold_rank))
+        fold_err = torch.where(take, err, fold_err)
+        fold_words = torch.where(take[None, :], words, fold_words)
+        fold_rank = torch.where(take, rank, fold_rank)
+    return fold_err, fold_words
+
+
 def bc7_search_words(px: torch.Tensor, modes=SEARCH_MODES,
                      aw: float = 1.0, tier: str = TIER_DEFAULT):
     """The whole search of one tier. px [64, NB] int32 (texels 0..255,
@@ -1728,9 +1811,10 @@ def bc7_search_words(px: torch.Tensor, modes=SEARCH_MODES,
     `modes` is SEARCH_MODES (opaque), SEARCH_MODES_ALPHA (with mode 7),
     SEARCH_MODES_QUICK, or SEARCH_MODES_3 / SEARCH_MODES_3_ALPHA
     (USE_3SUBSETS), `tier` TIER_DEFAULT or TIER_MAXQ. A CUDA tensor
-    launches the kernels (K2; with modes 0 and 2 first K9 and K7 for each
-    of them; with mode 7 K2's search without it, then mode 7's list pass
-    and launch), a CPU tensor runs the plain twin."""
+    launches the kernels (K2; with modes 0 and 2 first one K9 launch that
+    ranks for both, and K7 for each of them; with mode 7 K2's search
+    without it, then mode 7's list pass and launch), a CPU tensor runs the
+    plain twin."""
     _check_px(px)
     modes = _check_search(modes, tier)
     if not _on_cuda(px):
@@ -1739,11 +1823,11 @@ def bc7_search_words(px: torch.Tensor, modes=SEARCH_MODES,
         return cuda_kernels.bc7_encode(px, modes, aw, tier)
     # modes 0 and 2 never share a fit, so both tiers search them the same
     # way (pallas_kernels.py:1910-1921): K9 ranks the three-subset shapes
-    # (mode 0 only shapes 0..15, its 4-bit partition field's), K7
-    # evaluates the top 4; K2 searches the other modes
-    s0 = cuda_kernels.bc7_partition_shapes(px, 2, 16, BC7_SHAPE_CANDIDATES)
+    # once, for mode 2 all 64 and for mode 0 only shapes 0..15 (its 4-bit
+    # partition field's), K7 evaluates each mode's top 4; K2 searches the
+    # other modes
+    s0, s2 = cuda_kernels.bc7_partition_shapes_3sub(px)
     err0, words0 = cuda_kernels.bc7_partition_mode(px, s0, 0, aw)
-    s2 = cuda_kernels.bc7_partition_shapes(px, 2, 64, BC7_SHAPE_CANDIDATES)
     err2, words2 = cuda_kernels.bc7_partition_mode(px, s2, 2, aw)
     err_r, words_r = cuda_kernels.bc7_encode(px, modes[2:], aw, tier)
     # Modes 0 and 2 come first in the fold order, so the strict-`<` fold

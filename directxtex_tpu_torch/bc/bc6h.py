@@ -1401,15 +1401,13 @@ def encode_bc6h(blocks: torch.Tensor, signed: bool, flags: int = 0,
     mid tier (_BC6H_MID, texconv -bc b) adds one re-mapping ladder round at
     the winner's own precision (BC6H_LADDER_MID); the maxq tier
     (_BC7_MAXQUALITY) the full re-mapping ladder over every two-region
-    precision group (BC6H_LADDER_MAXQ, cross2). Both refines run as K6."""
+    precision group (BC6H_LADDER_MAXQ, cross2). Both refines run as K6.
+    Other flag bits (dither, uniform, USE_3SUBSETS, QUICK) are ignored, as
+    in the JAX package (bc67.py:3364-3365)."""
     if rows_sel is not None:
         raise NotImplementedError(
             "rows_sel is a profiling scope of the JAX package and is not "
             "ported (ROADMAP.md queue 2, levers kept out of the kernels)")
-    if flags & ~(_BC7_MAXQUALITY | _BC6H_MID):
-        raise NotImplementedError(
-            f"flags {flags:#x}: BC6H takes _BC6H_MID and _BC7_MAXQUALITY "
-            "only (ROADMAP.md queue 1)")
     if blocks.dim() != 3 or blocks.shape[1] != 16 or blocks.shape[2] < 3:
         raise ValueError(f"blocks must be [NB, 16, 4], got "
                          f"{tuple(blocks.shape)}")

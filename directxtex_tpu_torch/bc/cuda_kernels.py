@@ -28,10 +28,13 @@ live in bc67.py, and bc67's wrappers call these only for CUDA tensors.
        jobs per unit; counted as bc6h_refine, or bc6h_refine_cross2 with
        cross2)
     K7 bc7_partition_mode csrc/bc7_partition.cuh replaces
-       pallas_kernels.py:1414 (modes 1, 3, 7 built in bc7_partition.cu,
-       modes 0 and 2 in bc7_partition_0.cu and bc7_partition_2.cu)
+       pallas_kernels.py:1414 (a team of four warps per 32 blocks, one
+       candidate a warp; modes 1, 3, 7 built in bc7_partition.cu, modes 0
+       and 2 in bc7_partition_0.cu and bc7_partition_2.cu)
     K9 bc7_partition_shapes csrc/bc7_shapes.cu replaces
-       pallas_kernels.py:1850
+       pallas_kernels.py:1850 (a team of four warps per 32 blocks; on the
+       USE_3SUBSETS path one launch gives both modes' candidates,
+       bc7_partition_shapes_3sub)
     K8 bc7_single_modes csrc/bc7_single_modes.cu replaces
        pallas_kernels.py:1714
     K10 bc6h_1region csrc/bc6h_1region.cu replaces pallas_kernels.py:3789
@@ -100,7 +103,7 @@ KERNELS = {
     "bc6h_unit_buckets": CudaKernel("bc6h_unit_buckets_launch", 4, 1),
     "bc6h_refine": CudaKernel("bc6h_refine_launch", 5, 8),
     "bc6h_refine_cross2": CudaKernel("bc6h_refine_launch", 5, 8),
-    "bc7_partition_shapes": CudaKernel("bc7_partition_shapes_launch", 2, 3),
+    "bc7_partition_shapes": CudaKernel("bc7_partition_shapes_launch", 3, 3),
     "bc7_partition_mode": CudaKernel("bc7_partition_mode_launch", 4, 4),
     "bc7_refine_3sub": CudaKernel("bc7_refine_launch", 5, 6),
     "bc7_refine_3sub_ladder": CudaKernel("bc7_refine_launch", 5, 6),
@@ -363,8 +366,23 @@ def bc7_partition_shapes(px: torch.Tensor, partitions: int, n_shapes: int,
     s_blks = torch.empty((n_cand, nb), dtype=torch.int32, device=px.device)
     if nb:
         KERNELS["bc7_partition_shapes"].launch(
-            (px, s_blks), (nb, partitions, n_shapes), px.device)
+            (px, s_blks, None), (nb, partitions, n_shapes), px.device)
     return s_blks
+
+
+def bc7_partition_shapes_3sub(px: torch.Tensor):
+    """K9 on the USE_3SUBSETS path, one launch: px [64, NB] int32 ->
+    (s16, s64), each [4, NB] int32: the top 4 of the three-subset shapes
+    0..15 (mode 0's candidates) and of all 64 (mode 2's), what
+    bc7_partition_shapes(px, 2, 16) and (px, 2, 64) give."""
+    _check(px, "px", 64)
+    nb = px.shape[1]
+    s16 = torch.empty((4, nb), dtype=torch.int32, device=px.device)
+    s64 = torch.empty((4, nb), dtype=torch.int32, device=px.device)
+    if nb:
+        KERNELS["bc7_partition_shapes"].launch((px, s64, s16), (nb, 2, 64),
+                                               px.device)
+    return s16, s64
 
 
 def bc7_partition_mode(px: torch.Tensor, s_blks: torch.Tensor, mode_id: int,

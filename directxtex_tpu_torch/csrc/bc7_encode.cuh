@@ -267,28 +267,9 @@ __device__ __forceinline__ void quantize_endpoints(const float e0f[4],
 
 // A block's 11 moment terms of pixel i, as the shape ranking sums them:
 // |xc|^2, xc (4 channels) and the RGB cross products xc_a * xc_b (a <= b),
-// xc the pixel less the block's mean. MomentsRegs computes them from a
-// thread's centred pixels; the opaque search's team reads them staged in
-// shared memory (MomentsShared below). fence() ends one shape's reads.
-struct MomentsRegs {
-  const float (*xc)[4];
-  const float* q;
-  __device__ __forceinline__ void fence() const {}
-  __device__ __forceinline__ void operator()(int i, float v[11]) const {
-    const float x0 = xc[i][0], x1 = xc[i][1], x2 = xc[i][2], x3 = xc[i][3];
-    v[0] = q[i];
-    v[1] = x0;
-    v[2] = x1;
-    v[3] = x2;
-    v[4] = x3;
-    v[5] = x0 * x0;
-    v[6] = x0 * x1;
-    v[7] = x0 * x2;
-    v[8] = x1 * x1;
-    v[9] = x1 * x2;
-    v[10] = x2 * x2;
-  }
-};
+// xc the pixel less the block's mean. The teams stage them in shared
+// memory (team_moments) and read them through MomentsShared (below);
+// fence() ends one shape's reads.
 
 // The block's mean per channel, summed in pixel order
 // (_shape_estimates_table's mu)
@@ -303,32 +284,43 @@ __device__ __forceinline__ void block_mean(const uint32_t pix[16],
   }
 }
 
-// Centred pixels and their squared norms (_shape_estimates_table's xc
-// and q)
-__device__ __forceinline__ void shape_moments(const uint32_t pix[16],
-                                              float xc[16][4], float q[16]) {
-  float mu[4];
-  block_mean(pix, mu);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) xc[i][c] = (float)px_at(pix, i, c) - mu[c];
-    float s = xc[i][0] * xc[i][0];
-    s = s + xc[i][1] * xc[i][1];
-    s = s + xc[i][2] * xc[i][2];
-    q[i] = s + xc[i][3] * xc[i][3];
+// 1 / max(n, 1) for a subset of n pixels, each entry the f32 quotient
+// the division rounds to
+static __constant__ float c_ninv[17] = {
+    1.0f,        1.0f / 1.0f,  1.0f / 2.0f,  1.0f / 3.0f,  1.0f / 4.0f,
+    1.0f / 5.0f, 1.0f / 6.0f,  1.0f / 7.0f,  1.0f / 8.0f,  1.0f / 9.0f,
+    1.0f / 10.0f, 1.0f / 11.0f, 1.0f / 12.0f, 1.0f / 13.0f, 1.0f / 14.0f,
+    1.0f / 15.0f, 1.0f / 16.0f};
+
+// (est, s) into a running top 4 (bv, bi) of shapes seen in increasing
+// order: a tie keeps the earlier shape first (jnp.argmin)
+__device__ __forceinline__ void top4_insert(float bv[4], int bi[4],
+                                            float est, int s) {
+  if (est < bv[3]) {
+    bv[3] = est;
+    bi[3] = s;
+    if (bv[3] < bv[2]) { const float t = bv[2]; bv[2] = bv[3]; bv[3] = t; swap_ints(bi[2], bi[3]); }
+    if (bv[2] < bv[1]) { const float t = bv[1]; bv[1] = bv[2]; bv[2] = t; swap_ints(bi[1], bi[2]); }
+    if (bv[1] < bv[0]) { const float t = bv[0]; bv[0] = bv[1]; bv[1] = t; swap_ints(bi[0], bi[1]); }
   }
 }
+
+// rank_shapes' default per-shape hook: nothing
+struct NoEst {
+  __device__ __forceinline__ void operator()(int, float) const {}
+};
 
 // The off-axis estimate of the shapes first, first + STRIDE, ... below
 // last with NS subsets, folded into a running top 4 (bv, bi) by
 // (estimate, shape): a tie keeps the earlier shape first, as jnp.argmin
 // does. Each subset's 11 masked sums run over the 16 pixels in pixel
-// order, as the plain twin's masked sums do.
-template <int NS, int STRIDE, class Moments>
+// order, as the plain twin's masked sums do. on_est(s, est) sees every
+// shape's estimate.
+template <int NS, int STRIDE, class Moments, class OnEst = NoEst>
 __device__ __forceinline__ void rank_shapes(const Moments& mom, int first,
                                             int last, float bv[4],
-                                            int bi[4]) {
+                                            int bi[4],
+                                            const OnEst& on_est = OnEst{}) {
   static_assert(NS == 2 || NS == 3, "two or three subsets");
   const float on_axis = (float)(1.0 - 0.05);   // 1 - _ON_AXIS_W
 #pragma unroll 1
@@ -367,23 +359,23 @@ __device__ __forceinline__ void rank_shapes(const Moments& mom, int first,
         for (int k = 0; k < 11; ++k) acc[0][k] = acc[0][k] + v[k];
       }
     }
+    // each subset's pixel count from pp's 2-bit ids: subset 1 where the
+    // low bit alone is set, subset 2 where the high bit alone is
     int cnt[NS];
+    const uint32_t lo = pp & 0x55555555u, hi = (pp >> 1) & 0x55555555u;
     if constexpr (NS == 3) {
-      unsigned msk[3];
-      subset_masks3(s, msk);
-#pragma unroll
-      for (int p = 0; p < 3; ++p) cnt[p] = __popc(msk[p]);
+      cnt[1] = __popc(lo & ~hi);
+      cnt[2] = __popc(hi & ~lo);
+      cnt[0] = 16 - cnt[1] - cnt[2];
     } else {
-      const int n1 = __popc(subset1_mask(s));
-      cnt[0] = 16 - n1;
-      cnt[1] = n1;
+      cnt[1] = __popc(lo);
+      cnt[0] = 16 - cnt[1];
     }
     float est = 0.0f;
 #pragma unroll
     for (int p = 0; p < NS; ++p) {
       const float* sp = acc[p];
-      const int n = cnt[p];
-      const float ninv = 1.0f / (float)max(n, 1);
+      const float ninv = c_ninv[cnt[p]];
       float s2 = sp[1] * sp[1];
       s2 = s2 + sp[2] * sp[2];
       s2 = s2 + sp[3] * sp[3];
@@ -418,33 +410,9 @@ __device__ __forceinline__ void rank_shapes(const Moments& mom, int first,
           + v2 * (cv[2][0] * v0 + cv[2][1] * v1 + cv[2][2] * v2);
       est = est + fmaxf(sse - lam * on_axis, 0.0f);
     }
-    // running top 4; a tie keeps the earlier shape first (jnp.argmin)
-    if (est < bv[3]) {
-      bv[3] = est;
-      bi[3] = s;
-      if (bv[3] < bv[2]) { const float t = bv[2]; bv[2] = bv[3]; bv[3] = t; swap_ints(bi[2], bi[3]); }
-      if (bv[2] < bv[1]) { const float t = bv[1]; bv[1] = bv[2]; bv[2] = t; swap_ints(bi[1], bi[2]); }
-      if (bv[1] < bv[0]) { const float t = bv[0]; bv[0] = bv[1]; bv[1] = t; swap_ints(bi[0], bi[1]); }
-    }
+    on_est(s, est);
+    top4_insert(bv, bi, est, s);
   }
-}
-
-// Off-axis ranking of the first S shapes with NS subsets
-// (_shape_estimates_table(off_axis=True) + _top_k_shapes, bc67.py:1243):
-// the 4 shapes of least (estimate, shape), in that order. K9
-// (bc7_shapes.cu) ranks any of (2 or 3 subsets) x (16 or 64 shapes); one
-// thread ranks every shape of its block (the K2 teams split the 64
-// two-subset shapes over their warps, team_rank).
-template <int NS = 2, int S = 64>
-__device__ __forceinline__ void shape_top4(const uint32_t pix[16],
-                                           int cand[4]) {
-  float xc[16][4], q[16];
-  shape_moments(pix, xc, q);
-  float bv[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
-  int bi[4] = {0, 0, 0, 0};
-  rank_shapes<NS, 1>(MomentsRegs{xc, q}, 0, S, bv, bi);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) cand[k] = bi[k];
 }
 
 struct Best {
@@ -546,49 +514,31 @@ __device__ __forceinline__ Best eval_mode6(const uint32_t pix[16], float aw) {
   return Best{err, emit_block<6>(0, 0, 0, q0, q1, p0, p1, idx, nullptr)};
 }
 
-// A partition mode on one shape candidate, each subset fitted on its own
-// (_eval_subset_candidate over the shape's subsets, then anchor swaps and
-// emit; bc67.py:1348-1384): mode 7 in every tier and modes 1 and 3 in the
-// maxq tier (two subsets, m1 the pixel mask of subset 1), modes 0 and 2
-// (three subsets, from c_pp3; m1 unused) in K7
+// A two-subset partition mode on one shape candidate, each subset fitted
+// on its own (_eval_subset_candidate over the shape's subsets, then anchor
+// swaps and emit; bc67.py:1348-1384): mode 7's launch (bc7_mode7.cu); m1
+// the pixel mask of subset 1. K7 and the maxq team run the packed form,
+// eval_partition_ns below.
 template <int M, bool W>
 __device__ __forceinline__ void eval_partition(const uint32_t pix[16],
                                                int shape, unsigned m1,
                                                float aw, Best& best) {
-  if constexpr (parts(M) == 2) {
-    int q0[3][4], q1[3][4], p0[3], p1[3], idx[16];
-    unsigned msk[3];
-    subset_masks3(shape, msk);
-    float total = 0.0f;
+  static_assert(parts(M) == 1, "two subsets");
+  int q0[2][4], q1[2][4], p0[2], p1[2], idx[16];
+  float total = 0.0f;
 #pragma unroll
-    for (int sub = 0; sub < 3; ++sub) {
-      int it[16];
-      total = total + fit_subset<M, W>(pix, msk[sub], aw, q0[sub], q1[sub],
-                                       p0[sub], p1[sub], it);
+  for (int sub = 0; sub < 2; ++sub) {
+    const unsigned msk = sub ? m1 : (~m1 & 0xFFFFu);
+    int it[16];
+    total = total + fit_subset<M, W>(pix, msk, aw, q0[sub], q1[sub],
+                                     p0[sub], p1[sub], it);
 #pragma unroll
-      for (int i = 0; i < 16; ++i)
-        if ((msk[sub] >> i) & 1u) idx[i] = it[i];
-    }
-    anchor_swaps_3sub<index_prec(M)>(shape, msk, q0, q1, p0, p1, idx);
-    keep_if_better(best, total,
-                   emit_block<M>(shape, 0, 0, q0, q1, p0, p1, idx, nullptr));
-  } else {
-    int q0[2][4], q1[2][4], p0[2], p1[2], idx[16];
-    float total = 0.0f;
-#pragma unroll
-    for (int sub = 0; sub < 2; ++sub) {
-      const unsigned msk = sub ? m1 : (~m1 & 0xFFFFu);
-      int it[16];
-      total = total + fit_subset<M, W>(pix, msk, aw, q0[sub], q1[sub],
-                                       p0[sub], p1[sub], it);
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-        if ((msk >> i) & 1u) idx[i] = it[i];
-    }
-    anchor_swaps_2sub<index_prec(M)>(shape, m1, q0, q1, p0, p1, idx);
-    keep_if_better(best, total,
-                   emit_block<M>(shape, 0, 0, q0, q1, p0, p1, idx, nullptr));
+    for (int i = 0; i < 16; ++i)
+      if ((msk >> i) & 1u) idx[i] = it[i];
   }
+  anchor_swaps_2sub<index_prec(M)>(shape, m1, q0, q1, p0, p1, idx);
+  keep_if_better(best, total,
+                 emit_block<M>(shape, 0, 0, q0, q1, p0, p1, idx, nullptr));
 }
 
 // Mode 4 or 5 at index mode 0 from one rotation's shared trajectory
@@ -729,19 +679,21 @@ __device__ __forceinline__ void trajectory_45(const uint32_t pix[16],
 }
 
 // ---------------------------------------------------------------------------
-// Packed fits: the maxq team's evaluation jobs
+// Packed fits: the maxq team's and K7's evaluation jobs
 // ---------------------------------------------------------------------------
 // The functions below compute what minmax_axis, assign_indices, ls_refit,
 // fit_subset, eval_partition, eval_mode6, rot_data and eval_45_own
 // compute, with two changes that keep a job within 128 registers:
 //   - an index plane is 4-bit fields of one 64-bit word (pixel i at bits
 //     4i), not 16 ints;
-//   - a two-subset fit (NS = 2) runs both subsets in one pass over the 16
-//     pixels: pixel i takes its own subset's state, (m1 >> i) & 1, and
-//     adds only to that subset's sums, in pixel order. A one-subset fit
-//     (NS = 1: mode 6, modes 4 and 5) is the same code with every pixel
-//     in subset 0.
-// Why a paired fit gives the two one-subset fits' bits. fit_subset visits
+//   - a fit of NS subsets runs them all in one pass over the 16 pixels:
+//     pixel i takes its own subset's state and adds only to that subset's
+//     sums, in pixel order. The subset of pixel i comes from a code word
+//     (sub_of): a two-subset fit (NS = 2) takes bit i of m1, subset 1's
+//     pixel mask; a three-subset fit (NS = 3, modes 0 and 2) the 2-bit
+//     field i of the shape's c_pp3 word. A one-subset fit (NS = 1: mode
+//     6, modes 4 and 5) is the same code with every pixel in subset 0.
+// Why a fit in one pass gives the one-subset fits' bits. fit_subset visits
 // all 16 pixels and masks the other subset's off: minmax_axis takes its
 // min / max over the subset's pixels and gives every other pixel a zero
 // projection (pt = ... * 0, a signed zero), so f * f = +0 joins each
@@ -754,7 +706,9 @@ __device__ __forceinline__ void trajectory_45(const uint32_t pix[16],
 // in the same order (a multiply by m = 1 is exact). So each subset's box,
 // endpoints, errors and indices are the one-subset fit's, bit for bit,
 // and so is each subset's keep-the-better pick (its own strict `<`). The
-// g++ rehearsal, bc67._fit_pair_plain and the card hold it (PERF.md).
+// argument does not depend on how many subsets share the pass. The g++
+// rehearsal, bc67._fit_ns_plain and the card hold it for two and three
+// subsets (PERF.md).
 
 // The packed fits read a block's pixels through a source PX: px.word(i)
 // is pixel i's packed RGBA8 word, px.fence() opens a pass over them (the
@@ -767,16 +721,41 @@ __device__ __forceinline__ int nib_get(unsigned long long v, int i) {
   return (int)((v >> (4 * i)) & 0xFull);
 }
 
-// pixel i's subset: 1 where NS = 2 and m1 has it
+// pixel i's subset, 0 <= s < NS, from the fit's code word: NS = 2 bit i
+// of subset 1's pixel mask, NS = 3 the 2-bit field i of c_pp3[shape]
 template <int NS>
-__device__ __forceinline__ bool in_sub1(unsigned m1, int i) {
-  return NS == 2 && ((m1 >> i) & 1u);
+__device__ __forceinline__ int sub_of(unsigned code, int i) {
+  if constexpr (NS == 3) return (int)((code >> (2 * i)) & 3u);
+  return NS == 2 ? (int)((code >> i) & 1u) : 0;
+}
+
+// a0, a1 or a2 by subset s (a1 and a2 are not read where NS is smaller)
+template <int NS, class T>
+__device__ __forceinline__ T by_sub(int s, T a0, T a1, T a2) {
+  if constexpr (NS == 3) return s == 2 ? a2 : (s == 1 ? a1 : a0);
+  return s ? a1 : a0;
+}
+
+// the index plane's 4-bit fields of subset s's pixels
+template <int NS>
+__device__ __forceinline__ unsigned long long sub_nibbles(unsigned code,
+                                                          int s) {
+  if constexpr (NS == 3) {
+    unsigned long long m = 0ull;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (sub_of<3>(code, i) == s) m |= 0xFull << (4 * i);
+    return m;
+  }
+  const unsigned long long n1 = NS == 2 ? nibble_mask(code) : 0ull;
+  return s ? n1 : ~n1;
 }
 
 // minmax_axis of each subset, in one pass
 template <bool WITH_ALPHA, int NS, class PX>
 __device__ __forceinline__ void minmax_axis_ns(const PX& px,
-                                               unsigned m1, float e0[NS][4],
+                                               unsigned code,
+                                               float e0[NS][4],
                                                float e1[NS][4]) {
   float mi[NS][4], ma[NS][4], mid[NS][4], dirv[NS][4];
 #pragma unroll
@@ -790,14 +769,14 @@ __device__ __forceinline__ void minmax_axis_ns(const PX& px,
   px.fence();
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const bool s1 = in_sub1<NS>(m1, i);
+    const int si = sub_of<NS>(code, i);
     const uint32_t w = px.word(i);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const float x = (float)byte_of(w, c);
 #pragma unroll
       for (int s = 0; s < NS; ++s) {
-        const bool own = (s == 1) == s1;
+        const bool own = s == si;
         mi[s][c] = own ? fminf(mi[s][c], x) : mi[s][c];
         ma[s][c] = own ? fmaxf(ma[s][c], x) : ma[s][c];
       }
@@ -829,13 +808,14 @@ __device__ __forceinline__ void minmax_axis_ns(const PX& px,
   px.fence();
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const bool s1 = in_sub1<NS>(m1, i);
+    const int si = sub_of<NS>(code, i);
     const uint32_t w = px.word(i);
     float pt[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c)
-      pt[c] = ((float)byte_of(w, c) - (s1 ? mid[NS - 1][c] : mid[0][c]))
-              * (s1 ? dirv[NS - 1][c] : dirv[0][c]);
+      pt[c] = ((float)byte_of(w, c)
+               - by_sub<NS>(si, mid[0][c], mid[NS > 1][c], mid[NS - 1][c]))
+              * by_sub<NS>(si, dirv[0][c], dirv[NS > 1][c], dirv[NS - 1][c]);
 #pragma unroll
     for (int j = 0; j < n_signs; ++j) {
       const float sg = (j & (WITH_ALPHA ? 4 : 2)) ? -1.0f : 1.0f;
@@ -847,7 +827,7 @@ __device__ __forceinline__ void minmax_axis_ns(const PX& px,
       const float ff = f * f;
 #pragma unroll
       for (int s = 0; s < NS; ++s)
-        score[s][j] = (s == 1) == s1 ? score[s][j] + ff : score[s][j];
+        score[s][j] = s == si ? score[s][j] + ff : score[s][j];
     }
   }
 #pragma unroll
@@ -878,7 +858,7 @@ __device__ __forceinline__ void minmax_axis_ns(const PX& px,
 template <int PREC, int LO, int HI, int NS, bool W, class PX>
 __device__ __forceinline__ void assign_ns(const PX& px,
                                           const int u0[NS][4],
-                                          const int u1[NS][4], unsigned m1,
+                                          const int u1[NS][4], unsigned code,
                                           float aw, int wch,
                                           unsigned long long& idx,
                                           float err[NS]) {
@@ -901,17 +881,20 @@ __device__ __forceinline__ void assign_ns(const PX& px,
   px.fence();
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const bool s1 = in_sub1<NS>(m1, i);
+    const int si = sub_of<NS>(code, i);
     const uint32_t wd = px.word(i);
     int d[4];
     int dot = 0;
 #pragma unroll
     for (int c = LO; c < HI; ++c) {
-      d[c] = byte_of(wd, c) - (s1 ? u0[NS - 1][c] : u0[0][c]);
-      dot += d[c] * (s1 ? e[NS - 1][c] : e[0][c]);
+      d[c] = byte_of(wd, c)
+             - by_sub<NS>(si, u0[0][c], u0[NS > 1][c], u0[NS - 1][c]);
+      dot += d[c] * by_sub<NS>(si, e[0][c], e[NS > 1][c], e[NS - 1][c]);
     }
     const float p64 = fminf(
-        fmaxf((float)dot * (s1 ? s64[NS - 1] : s64[0]), 0.0f), 64.0f);
+        fmaxf((float)dot * by_sub<NS>(si, s64[0], s64[NS > 1], s64[NS - 1]),
+              0.0f),
+        64.0f);
     int kf = (int)rintf(p64 * (float)((K - 1) / 64.0));
     kf = min(max(kf, 0), K - 1);
     const int wk = pal_weight<K>(kf);
@@ -924,7 +907,7 @@ __device__ __forceinline__ void assign_ns(const PX& px,
     float dist = 0.0f;
 #pragma unroll
     for (int c = LO; c < HI; ++c) {
-      const int ec = s1 ? e[NS - 1][c] : e[0][c];
+      const int ec = by_sub<NS>(si, e[0][c], e[NS > 1][c], e[NS - 1][c]);
       const float r = (float)(d[c] - ((w * ec + 32) >> 6));
       float r2 = r * r;
       if (W && c == wch) r2 = r2 * aw;
@@ -933,7 +916,7 @@ __device__ __forceinline__ void assign_ns(const PX& px,
     idx |= (unsigned long long)k << (4 * i);
 #pragma unroll
     for (int s = 0; s < NS; ++s)
-      err[s] = (s == 1) == s1 ? err[s] + dist : err[s];
+      err[s] = s == si ? err[s] + dist : err[s];
   }
 }
 
@@ -944,7 +927,7 @@ __device__ __forceinline__ void assign_ns(const PX& px,
 template <int P, int LO, int HI, int NS, class PX>
 __device__ __forceinline__ void ls_refit_ns(const PX& px,
                                             unsigned long long idx,
-                                            unsigned m1, float e0[NS][4],
+                                            unsigned code, float e0[NS][4],
                                             float e1[NS][4]) {
   float A[NS], B[NS], C[NS], r0[NS][4], r1[NS][4];
 #pragma unroll
@@ -956,14 +939,14 @@ __device__ __forceinline__ void ls_refit_ns(const PX& px,
   px.fence();
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const bool s1 = in_sub1<NS>(m1, i);
+    const int si = sub_of<NS>(code, i);
     const float x = (float)pal_weight<1 << P>(nib_get(idx, i))
                     * (1.0f / 64.0f);
     const float a = 1.0f - x, b = x;
     const uint32_t w = px.word(i);
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
-      const bool own = (s == 1) == s1;
+      const bool own = s == si;
       A[s] = own ? A[s] + a * a : A[s];
       B[s] = own ? B[s] + a * b : B[s];
       C[s] = own ? C[s] + b * b : C[s];
@@ -997,24 +980,24 @@ __device__ __forceinline__ void ls_refit_ns(const PX& px,
 // fit_subset of each subset of mode M, in one pass per step: axis fit,
 // quantize and assign, one LS refit and re-assign, each subset keeping
 // its better by its own strict `<`. Writes each subset's codes, p bits
-// and error, and every pixel's index into idx.
+// and error, and every pixel's index into idx. code: as sub_of reads it.
 template <int M, int NS, bool W, class PX>
-__device__ __forceinline__ void fit_ns(const PX& px, unsigned m1,
+__device__ __forceinline__ void fit_ns(const PX& px, unsigned code,
                                        float aw, int q0[NS][4],
                                        int q1[NS][4], int p0[NS],
                                        int p1[NS], unsigned long long& idx,
                                        float err[NS]) {
   constexpr int P = index_prec(M);
   float e0[NS][4], e1[NS][4];
-  minmax_axis_ns<(prec(M, 3) > 0), NS>(px, m1, e0, e1);
+  minmax_axis_ns<(prec(M, 3) > 0), NS>(px, code, e0, e1);
   int u0[NS][4], u1[NS][4];
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
     quantize_endpoints<M>(e0[s], e1[s], q0[s], q1[s], p0[s], p1[s]);
     unquantize_endpoints<M>(q0[s], q1[s], p0[s], p1[s], u0[s], u1[s]);
   }
-  assign_ns<P, 0, 4, NS, W>(px, u0, u1, m1, aw, 3, idx, err);
-  ls_refit_ns<P, 0, 4, NS>(px, idx, m1, e0, e1);
+  assign_ns<P, 0, 4, NS, W>(px, u0, u1, code, aw, 3, idx, err);
+  ls_refit_ns<P, 0, 4, NS>(px, idx, code, e0, e1);
   int qb0[NS][4], qb1[NS][4], pb0[NS], pb1[NS];
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
@@ -1023,8 +1006,7 @@ __device__ __forceinline__ void fit_ns(const PX& px, unsigned m1,
   }
   unsigned long long idxb;
   float errb[NS];
-  assign_ns<P, 0, 4, NS, W>(px, u0, u1, m1, aw, 3, idxb, errb);
-  const unsigned long long n1 = NS == 2 ? nibble_mask(m1) : 0ull;
+  assign_ns<P, 0, 4, NS, W>(px, u0, u1, code, aw, 3, idxb, errb);
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
     if (errb[s] < err[s]) {
@@ -1036,28 +1018,41 @@ __device__ __forceinline__ void fit_ns(const PX& px, unsigned m1,
       }
       p0[s] = pb0[s];
       p1[s] = pb1[s];
-      const unsigned long long nm = s ? n1 : ~n1;
+      const unsigned long long nm = sub_nibbles<NS>(code, s);
       idx = (idx & ~nm) | (idxb & nm);
     }
   }
 }
 
-// eval_partition of two-subset mode M (1, 3 or 7) by the paired fit
+// A partition mode on one shape candidate by the fit in one pass, then
+// anchor swaps and emit (eval_partition's steps; the three-subset modes 0
+// and 2 as _eval_subset_candidate over their subsets, bc67.py:1348-1384):
+// two subsets (modes 1, 3 and 7) with m1 the pixel mask of subset 1, three
+// (modes 0 and 2) from c_pp3[shape] (m1 not read). The subsets' errors are
+// summed in subset order, as eval_partition sums them.
 template <int M, bool W, class PX>
-__device__ __forceinline__ void eval_partition_pair(const PX& px,
-                                                    int shape, unsigned m1,
-                                                    float aw, Best& best) {
-  static_assert(parts(M) == 1, "two subsets");
-  int q0[2][4], q1[2][4], p0[2], p1[2], idx[16];
+__device__ __forceinline__ void eval_partition_ns(const PX& px, int shape,
+                                                  unsigned m1, float aw,
+                                                  Best& best) {
+  constexpr int NS = parts(M) + 1;
+  static_assert(NS == 2 || NS == 3, "a partition mode");
+  int q0[NS][4], q1[NS][4], p0[NS], p1[NS], idx[16];
   unsigned long long plane;
-  float err[2];
-  fit_ns<M, 2, W>(px, m1, aw, q0, q1, p0, p1, plane, err);
+  float err[NS];
+  fit_ns<M, NS, W>(px, NS == 3 ? c_pp3[shape] : m1, aw, q0, q1, p0, p1,
+                   plane, err);
   float total = 0.0f;
-  total = total + err[0];
-  total = total + err[1];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) total = total + err[s];
 #pragma unroll
   for (int i = 0; i < 16; ++i) idx[i] = nib_get(plane, i);
-  anchor_swaps_2sub<index_prec(M)>(shape, m1, q0, q1, p0, p1, idx);
+  if constexpr (NS == 3) {
+    unsigned msk[3];
+    subset_masks3(shape, msk);
+    anchor_swaps_3sub<index_prec(M)>(shape, msk, q0, q1, p0, p1, idx);
+  } else {
+    anchor_swaps_2sub<index_prec(M)>(shape, m1, q0, q1, p0, p1, idx);
+  }
   keep_if_better(best, total,
                  emit_block<M>(shape, 0, 0, q0, q1, p0, p1, idx, nullptr));
 }
@@ -1184,9 +1179,9 @@ __global__ void __launch_bounds__(kThreads)
 //   2. warp w ranks shapes w, w + 4, ..., w + 60 and keeps a local top 4
 //      by (estimate, shape);
 //   3. every warp merges the four local lists by the same total order
-//      (the lower shape first on an equal estimate: shape_top4's and
-//      _top_k_shapes's tie rule), which gives the one-thread ranking's
-//      cand[0..3] exactly (written to picks[w] where picks is not null,
+//      (the lower shape first on an equal estimate: rank_shapes's and
+//      _top_k_shapes's tie rule), which gives a one-thread ranking's
+//      top 4 exactly (written to picks[w] where picks is not null,
 //      for mode 7's launch); warp w runs candidate rank w (both subset
 //      trajectories, then modes 1 and 3) and rotation w (modes 4 and 5);
 //      the last warp also runs mode 6. Each result goes to shared memory,
@@ -1331,18 +1326,20 @@ __device__ __forceinline__ bool rank_before(float e1, int s1, float e2,
   return e1 < e2 || (e1 == e2 && s1 < s2);
 }
 
-// The merged rank `k` shape of lane `lane`'s block
-template <class Smem>
-__device__ __forceinline__ int team_candidate(const Smem& sm, int k,
-                                              int lane) {
+// The four warps' local top-4 lists of lane `lane`'s block merged by
+// (estimate, shape) into bi[0..3]
+__device__ __forceinline__ void merge_top4(
+    const float (&est)[kTeamWarps][4][kTeamBlocks],
+    const int (&shape)[kTeamWarps][4][kTeamBlocks], int lane, int bi[4]) {
   float bv[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
-  int bi[4] = {64, 64, 64, 64};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) bi[k] = 64;
 #pragma unroll
   for (int w = 0; w < kTeamWarps; ++w) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float e = sm.top_est[w][j][lane];
-      const int s = sm.top_shape[w][j][lane];
+      const float e = est[w][j][lane];
+      const int s = shape[w][j][lane];
       if (rank_before(e, s, bv[3], bi[3])) {
         bv[3] = e;
         bi[3] = s;
@@ -1358,6 +1355,14 @@ __device__ __forceinline__ int team_candidate(const Smem& sm, int k,
       }
     }
   }
+}
+
+// The merged rank `k` shape of lane `lane`'s block
+template <class Smem>
+__device__ __forceinline__ int team_candidate(const Smem& sm, int k,
+                                              int lane) {
+  int bi[4];
+  merge_top4(sm.top_est, sm.top_shape, lane, bi);
   return k == 0 ? bi[0] : k == 1 ? bi[1] : k == 2 ? bi[2] : bi[3];
 }
 
@@ -1476,8 +1481,8 @@ __global__ void __launch_bounds__(kThreads, 4)
 // ---------------------------------------------------------------------------
 // The maxq search as a team: a CTA of four warps searches 32 blocks, one
 // per lane. Phases 1-3 are the opaque team's (staging, moment terms, the
-// ranking in four slices and the merge, which gives shape_top4's
-// cand[0..3] exactly). Then the block's 21 evaluations run as 13 jobs,
+// ranking in four slices and the merge, which gives a one-thread
+// ranking's top 4 exactly). Then the block's 21 evaluations run as 13 jobs,
 // job j on warp j % 4, the same job on every lane of a warp:
 //   jobs 0-3    mode 1 on candidate rank j (its shape into picks[j] where
 //               picks is not null, for mode 7's launch),
@@ -1487,7 +1492,7 @@ __global__ void __launch_bounds__(kThreads, 4)
 //               one rot_data,
 //   job 12      mode 6.
 // Modes 1 and 3 fit both subsets of their candidate in one pass
-// (eval_partition_pair), modes 4, 5 and 6 hold packed index planes
+// (eval_partition_ns), modes 4, 5 and 6 hold packed index planes
 // (eval_45_packed, eval_mode6_packed): the fits above, bit for bit the
 // one-subset fits'. Each evaluation's result goes to its slot (MaxqSlot:
 // mode 1 ranks 0-3, mode 3 ranks 0-3, mode 5 rotations 0-3, mode 4
@@ -1549,9 +1554,9 @@ __device__ __forceinline__ void maxq_job(Smem& sm, int j, int lane, float aw,
     if (j < kQ3) {
       if (picks && b0 + lane < nb)
         picks[(size_t)k * nb + b0 + lane] = shape;
-      eval_partition_pair<1, W>(px, shape, m1, aw, r);
+      eval_partition_ns<1, W>(px, shape, m1, aw, r);
     } else {
-      eval_partition_pair<3, W>(px, shape, m1, aw, r);
+      eval_partition_ns<3, W>(px, shape, m1, aw, r);
     }
     team_put(sm, j, lane, r);
   } else if (j < kQ5 + 4) {

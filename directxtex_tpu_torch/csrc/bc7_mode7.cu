@@ -6,9 +6,9 @@
 //      __ballot_sync + __popc per warp, a shared-memory atomic per warp,
 //      one global atomicAdd per CTA; the count stays on the card);
 //   2. bc7_mode7: per listed block, mode 7 on the search's four shapes,
-//      each candidate fitted on its own (K7's code, eval_partition<7>,
-//      the best by a strict `<` in rank order), folded into the search's
-//      result in place.
+//      each candidate fitted on its own (one subset at a time,
+//      eval_partition<7>, the best by a strict `<` in rank order), folded
+//      into the search's result in place.
 // A block not listed keeps the search's result: its mode-7 error is inf
 // (pallas_kernels.py:1952-1956), which never wins.
 //

@@ -1,6 +1,6 @@
 // K7: the launcher of every mode, and the instances of modes 1, 3 and 7
-// (the templates K2's maxq variants build). The kernel is
-// bc7_partition.cuh's.
+// (their fits are the maxq team's, eval_partition_ns). The kernel is
+// bc7_partition.cuh's team.
 #include "bc7_partition.cuh"
 
 // mode: 0, 1, 2, 3 or 7; anything else returns cudaErrorInvalidValue

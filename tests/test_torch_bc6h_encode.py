@@ -18,6 +18,13 @@ from directxtex_tpu_torch.bc import bc6h
 from directxtex_tpu_torch.bc.bc67 import _shape_estimates_table, _top_k_shapes
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 def _px(signed, nb=64, seed=7):
     """F16-int pixels [16, 3, NB] of random HDR blocks, every fifth flat."""

@@ -9,11 +9,14 @@ the words are compared exactly.
 The input words come from the port's encode_bc6h, which
 test_torch_bc6h_search.py holds to the JAX encode's words; a JAX encode
 here would cost 16 s of the file's time budget for the same input. The
-JAX references are computed once per module; the maxq ladder (26 s per
-JAX call) runs only with DXT_HEAVY_TESTS set, as tests/test_pallas.py
-gates it."""
+JAX references (the F16-int pixels and each refine of the port's words,
+which are checked equal to the ones refined there) are frozen in
+tests/golden/jax_refs.npz by tests/golden/generate_jax_refs.py; the maxq
+ladder (26 s per JAX call) runs live, only with DXT_HEAVY_TESTS set, as
+tests/test_pallas.py gates it. Torch runs on one thread."""
 
 import os
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +26,16 @@ import torch
 from directxtex_tpu.bc import bc67 as jbc67
 from directxtex_tpu_torch.bc import bc6h
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 CASES = [("mid", jbc67.BC6H_LADDER_MID, False),
          ("light_cross2", jbc67.BC6H_LADDER_LIGHT, True)]
 if os.environ.get("DXT_HEAVY_TESTS"):
@@ -44,18 +57,25 @@ def _blocks(signed, nb=64, seed=29):
 @pytest.fixture(scope="module")
 def jax_refs():
     """Per signed: F16-int pixels, encoded words and the JAX refine of
-    them for each case."""
+    them for each case (frozen; the maxq case live), with the fixed-index
+    ladder's under "fixed"."""
+    frozen = np.load(GOLDEN / "jax_refs.npz")
     out = {}
     for signed in (False, True):
+        pre = f"refine6_{'s' if signed else 'u'}_"
         blocks = _blocks(signed)
         nb = blocks.shape[0]
         words = bc6h.encode_bc6h(torch.from_numpy(blocks), signed).numpy() \
             .view(np.uint32).reshape(nb, 4)
-        px_int = np.array(jbc67._f16_to_int(
-            jnp.asarray(np.transpose(blocks[..., :3], (1, 2, 0))), signed))
-        refs = {name: np.asarray(jbc67.refine_bc6h_words(
-            jnp.asarray(px_int), jnp.asarray(words), ladder, signed,
-            remap=True, cross2=cross2)) for name, ladder, cross2 in CASES}
+        np.testing.assert_array_equal(words, frozen[pre + "words"])
+        px_int = frozen[pre + "px_int"]
+        refs = {name: frozen[pre + name] for name in ("mid", "light_cross2",
+                                                      "fixed")}
+        for name, ladder, cross2 in CASES:
+            if name not in refs:
+                refs[name] = np.asarray(jbc67.refine_bc6h_words(
+                    jnp.asarray(px_int), jnp.asarray(words), ladder, signed,
+                    remap=True, cross2=cross2))
         out[signed] = (px_int, words, refs)
     return out
 
@@ -80,10 +100,8 @@ def test_refine_equals_jax(jax_refs, signed, name, ladder, cross2):
 def test_fixed_index_ladder_equals_jax(jax_refs, signed):
     """remap=False: the fixed-index ladder and one re-assignment, own
     precision only."""
-    px_int, words, _ = jax_refs[signed]
-    ref = np.asarray(jbc67.refine_bc6h_words(
-        jnp.asarray(px_int), jnp.asarray(words), jbc67.BC6H_LADDER_FULL,
-        signed, remap=False, cross2=False))
+    px_int, words, refs = jax_refs[signed]
+    ref = refs["fixed"]
     got = bc6h.refine_bc6h_words(
         torch.from_numpy(px_int), torch.from_numpy(words.view(np.int32)),
         jbc67.BC6H_LADDER_FULL, signed).numpy().view(np.uint32)

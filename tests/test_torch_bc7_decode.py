@@ -10,6 +10,15 @@ import torch
 from directxtex_tpu.bc import bc67 as jbc67
 from directxtex_tpu_torch.bc import bc67
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 
 

@@ -4,7 +4,10 @@ same pixels made with numpy. Near-tie picks may differ where a float sum
 is taken in another order (the JAX estimate table is an einsum), so
 search results are compared under the near-tie rule; the MOMENT refine
 is exact and compared word for word. Contents are 32x32 crops (64
-blocks) to keep the JAX side's eager compiles cheap."""
+blocks). The JAX outputs (the estimate tables and picks, each search
+family's words, and the MOMENT refine of the port's search words) are
+frozen in tests/golden/jax_refs.npz by tests/golden/generate_jax_refs.py;
+torch runs on one thread."""
 
 import pathlib
 
@@ -13,9 +16,17 @@ import numpy as np
 import pytest
 import torch
 
-from directxtex_tpu.bc import bc67 as jbc67
 from directxtex_tpu.bc.common import image_to_blocks as j_image_to_blocks
 from directxtex_tpu_torch.bc import bc67
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 
@@ -23,6 +34,20 @@ GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 @pytest.fixture(scope="module")
 def corpus():
     return np.load(GOLDEN / "corpus.npz")
+
+
+@pytest.fixture(scope="module")
+def frozen(corpus):
+    """{content: (px, {key: frozen JAX output})}, the frozen texels
+    checked equal to the ones made here."""
+    refs = np.load(GOLDEN / "jax_refs.npz")
+    out = {}
+    for name, (_, px) in _contents(corpus).items():
+        pre = f"enc_{name}_"
+        np.testing.assert_array_equal(refs[pre + "px"], px, err_msg=name)
+        out[name] = (px, {k[len(pre):]: refs[k] for k in refs.files
+                          if k.startswith(pre)})
+    return out
 
 
 def _pixels(img):
@@ -80,17 +105,15 @@ def _words_u32(words_4nb):
         np.uint32)
 
 
-def test_shape_estimates_match(corpus):
-    for name, (_, px) in _contents(corpus).items():
+def test_shape_estimates_match(frozen):
+    for name, (px, ref_of) in frozen.items():
         pxf = px.astype(np.float32)
-        ref = np.asarray(jbc67._shape_estimates_table(
-            jnp.asarray(pxf), 1, 4, off_axis=True))
+        ref = ref_of["table"]
         got = bc67._shape_estimates_table(torch.from_numpy(pxf)).numpy()
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-3,
                                    err_msg=name)
         # top-4 picks equal except at near-ties of the estimates
-        picks_r = np.stack([np.asarray(s) for s in
-                            jbc67._top_k_shapes(jnp.asarray(ref), 4)])
+        picks_r = ref_of["picks"]
         picks_g = np.stack([s.numpy() for s in bc67._top_k_shapes(
             torch.from_numpy(got), 4)])
         for b in np.nonzero(np.any(picks_g != picks_r, axis=0))[0]:
@@ -100,36 +123,34 @@ def test_shape_estimates_match(corpus):
 
 
 @pytest.mark.parametrize("family", ["modes13", "mode6", "modes45"])
-def test_search_family_matches_jax(corpus, family):
-    for name, (_, px) in _contents(corpus).items():
-        pj, pt = jnp.asarray(px), torch.from_numpy(px)
-        pjf, ptf = pj.astype(jnp.float32), pt.to(torch.float32)
+def test_search_family_matches_jax(frozen, family):
+    for name, (px, ref_of) in frozen.items():
+        pt = torch.from_numpy(px)
+        ptf = pt.to(torch.float32)
         if family == "modes13":
-            ref = jbc67._try_2sub_modes_shared(
-                pj, pjf, (1, 3), jbc67._shape_estimates_table(
-                    pjf, 1, 4, off_axis=True))
             got = bc67._try_2sub_modes_shared(
                 pt, ptf, bc67._shape_estimates_table(ptf))
         elif family == "mode6":
-            ref = {6: jbc67._try_single_mode(pj, pjf, 6)}
             got = {6: bc67._try_mode6(pt, ptf)}
         else:
-            ref = jbc67._try_modes45_shared(pj, pjf)
             got = bc67._try_modes45_shared(pt, ptf)
-        for mode in ref:
-            assert_near_tie(_words_u32(got[mode][1]),
-                            np.asarray(ref[mode][1]), px)
+        assert sorted(got) == {"modes13": [1, 3], "mode6": [6],
+                               "modes45": [4, 5]}[family]
+        for mode in got:
+            assert_near_tie(_words_u32(got[mode][1]), ref_of[f"mode{mode}"],
+                            px)
 
 
-def test_refine_moment_equals_jax(corpus):
-    for name, (_, px) in _contents(corpus).items():
+def test_refine_moment_equals_jax(frozen):
+    for name, (px, ref_of) in frozen.items():
         nb = px.shape[2]
         pt = torch.from_numpy(px)
         _, words = bc67.bc7_search_words(pt.reshape(64, nb).contiguous())
         w_nb4 = words.t().contiguous()                  # int32 bit patterns
-        ref = np.asarray(jbc67.refine_bc7_words(
-            jnp.asarray(px), jnp.asarray(w_nb4.numpy().view(np.uint32)),
-            jbc67.LADDER_MOMENT, modes=(1, 3, 5, 4)))
+        # the frozen refine took these search words
+        np.testing.assert_array_equal(w_nb4.numpy().view(np.uint32),
+                                      ref_of["refine_in"], err_msg=name)
+        ref = ref_of["refine"]
         got = bc67.refine_bc7_words(pt, w_nb4, bc67.LADDER_MOMENT,
                                     modes=(1, 3, 5, 4))
         np.testing.assert_array_equal(got.numpy().view(np.uint32), ref,

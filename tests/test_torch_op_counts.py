@@ -34,10 +34,21 @@ import json
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 from jax.extend.core import Literal
 
 from directxtex_tpu.bc import bc67 as jbc67
 from directxtex_tpu.bc.bc67_tables import BC6H_MODE_INFO, FIXUPS
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 NB = 256          # blocks traced; every count is divided by it
 

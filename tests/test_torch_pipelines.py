@@ -1,22 +1,30 @@
 """BASELINE config 4 and the BC6H corpus gates through the PyTorch port on
 the CPU: hdr_cubemap_pipeline against the JAX package's (the sampled
-faces and the words), the BC6H PSNR floors of tests/test_golden.py and
-the frozen reference codec's bc6h_hdr_psnr, and bc_encode_pipeline's
-kinds."""
+faces and the words; the JAX pipeline's blocks, words and F16-int pixels
+are frozen in tests/golden/jax_refs.npz by
+tests/golden/generate_jax_refs.py), the BC6H PSNR floors of
+tests/test_golden.py and the frozen reference codec's bc6h_hdr_psnr, and
+bc_encode_pipeline's kinds. Torch runs on one thread."""
 
 import pathlib
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from directxtex_tpu.bc import bc67 as jbc67
-from directxtex_tpu.models import pipelines as jpipelines
 from directxtex_tpu_torch.bc import bc6h, bc67
 from directxtex_tpu_torch.bc.common import image_to_blocks
 from directxtex_tpu_torch.models import pipelines
 from test_torch_bc6h_search import assert_int_rule
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 # tests/test_golden.py PSNR_FLOORS: log-PSNR (unsigned), peak-linear
@@ -30,23 +38,16 @@ def corpus():
     return np.load(GOLDEN / "corpus.npz")
 
 
-def test_cubemap_matches_jax(monkeypatch):
+def test_cubemap_matches_jax():
     """Equirect 16x32 (run_all.py's input at a small face): the port's
     faces may differ from JAX's only where an f32 atan2 / asin ulp moves a
     truncated sample index, allowed on at most 1 in 32 texels (none differ
     here); the words follow the F16-int rule of the search tests."""
     eq = (np.random.default_rng(2).random((16, 32, 4)).astype(np.float32)
           * 4.0)
-    seen = {}
-    encode = jbc67.encode_bc6h
-
-    def capture(blocks, signed):
-        seen["blocks"] = np.asarray(blocks)
-        return encode(blocks, signed)
-
-    monkeypatch.setattr(jbc67, "encode_bc6h", capture)
-    ref = np.concatenate([np.asarray(f) for f in
-                          jpipelines.hdr_cubemap_pipeline()(jnp.asarray(eq))])
+    refs = np.load(GOLDEN / "jax_refs.npz")
+    seen = {"blocks": refs["cubemap_blocks"]}
+    ref = refs["cubemap_ref"]
     got_faces = pipelines.hdr_cubemap_pipeline(device="cpu")(eq)
     assert len(got_faces) == 6 and all(f.device.type == "cpu"
                                        for f in got_faces)
@@ -56,8 +57,7 @@ def test_cubemap_matches_jax(monkeypatch):
     texel_differ = np.any(blocks.numpy() != seen["blocks"], axis=-1)
     assert texel_differ.mean() <= 1 / 32, texel_differ.mean()
     assert got.shape == ref.shape == (6 * 4, 16)        # 8x8 faces
-    px_int = np.asarray(jbc67._f16_to_int(jnp.asarray(
-        np.transpose(seen["blocks"][..., :3], (1, 2, 0))), False))
+    px_int = refs["cubemap_px_int"]
     assert_int_rule(got.view(np.uint32), ref.view(np.uint32), px_int, False)
 
 

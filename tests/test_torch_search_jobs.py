@@ -5,7 +5,7 @@ their plain twins here are held against the one-fold twins, word for
 word and error for error, and against the JAX package's words frozen in
 tests/golden/search_jobs.npz (tests/golden/generate_search_jobs.py):
 
-- the paired two-subset fit (bc67._fit_pair_plain: both subsets in one
+- the paired two-subset fit (bc67._fit_ns_plain at two subsets: both in one
   pass over the pixels, each pixel on its own subset's state and in its
   own subset's sums) against two one-subset fits (_fit_subset_plain), bit
   for bit, modes 1, 3 and 7 at alpha weights 1.0 and 2.0;
@@ -111,8 +111,8 @@ def _fits_equal(px, s_blks, mode, aw):
     tabs = bc67._tables(px.device)
     for s_blk in s_blks:
         s1 = tabs["parts1"][s_blk.to(torch.int64)].t() == 1
-        errs, q0s, q1s, p0s, p1s, idx = bc67._fit_pair_plain(px_i, px_f, s1,
-                                                             mode, aw)
+        errs, q0s, q1s, p0s, p1s, idx = bc67._fit_ns_plain(
+            px_i, px_f, s1.to(torch.int64), 2, mode, aw)
         for sub, mask in enumerate((~s1, s1)):
             err, q0, q1, p0, p1, ix = bc67._fit_subset_plain(px_i, px_f, mask,
                                                             mode, aw)

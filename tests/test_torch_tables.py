@@ -17,6 +17,15 @@ from directxtex_tpu.bc import bc67_tables as jtables
 from directxtex_tpu.bc import common as jcommon
 from directxtex_tpu_torch.bc import bc6h, bc67, common
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CSRC = (pathlib.Path(__file__).resolve().parent.parent
         / "directxtex_tpu_torch" / "csrc")
 CUH = CSRC / "bc7_common.cuh"
