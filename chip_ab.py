@@ -18,7 +18,10 @@ maxq, opaque and with alpha, and USE_3SUBSETS in both tiers, opaque and
 with alpha);
 and on BASELINE config 4's faces (face 512) K5 (unsigned and signed),
 K6's mid and maxq calls, the mid and maxq encodes and the whole config-4
-path (hdr_cubemap_pipeline). It prints one JSON line of median CUDA-event
+path (hdr_cubemap_pipeline). Decode: K1's words API on the 2048^2 bench
+image's final words and on 262,144 random mixed words, decode_bc7 as a
+path on the same blocks, K4's words API and decode_bc6h on config 4's
+words; where the checkout has them, K1's and K4's f32 epilogue alone. It prints one JSON line of median CUDA-event
 times in ms of
 the checkout at ROOT, with the card's name and power limit and sums of
 the words, so that two checkouts can be seen to agree. To compare two
@@ -129,6 +132,40 @@ def main() -> None:
     mid = (bc6h.BC6H_LADDER_MID, bc6h.BC6H_LADDER_MID, False, True, False)
     mxq = (bc6h.BC6H_LADDER_MAXQ, bc6h.BC6H_LADDER_MAXQ, False, True, True)
 
+    # decode: the bench image's final words and random mixed words (every
+    # 97th reserved), config 4's words
+    w_fin = ck.bc7_refine(px_o, w_d, bc67.REFINE_MODES)
+    blk_fin = w_fin.t().contiguous().view(torch.uint8).reshape(-1, 16)
+    raw = np.random.default_rng(2026).integers(
+        0, 256, (chip_smoke.RANDOM_BLOCKS, 16), dtype=np.uint8)
+    raw[::97, 0] = 0
+    blk_r = torch.from_numpy(raw).to(dev)
+    w_r = blk_r.view(torch.int32).t().contiguous()
+    blk5 = w5.t().contiguous().view(torch.uint8).reshape(-1, 16)
+    decode_ms = {
+        "k1_words": med(lambda: ck.bc7_decode(w_fin)),
+        "k1_words_random_mixed": med(lambda: ck.bc7_decode(w_r)),
+        "decode_bc7_path": med(lambda: bc67.decode_bc7(blk_fin)),
+        "decode_bc7_path_random_mixed": med(lambda: bc67.decode_bc7(blk_r)),
+        "k4_words": med(lambda: ck.bc6h_decode(w5, False)),
+        "decode_bc6h_path": med(lambda: bc6h.decode_bc6h(blk5, False)),
+    }
+    if hasattr(ck, "bc7_decode_blocks"):
+        decode_ms["k1_f32"] = med(lambda: ck.bc7_decode_blocks(blk_fin))
+        decode_ms["k1_f32_random_mixed"] = med(
+            lambda: ck.bc7_decode_blocks(blk_r))
+        decode_ms["k4_f32"] = med(lambda: ck.bc6h_decode_blocks(blk5, False))
+    decode_sums = {
+        "decode_bc7": float(bc67.decode_bc7(blk_fin).to(torch.float64)
+                            .sum()),
+        "decode_bc7_random_mixed": float(bc67.decode_bc7(blk_r)
+                                         .to(torch.float64).sum()),
+        "decode_bc6h": float(bc6h.decode_bc6h(blk5, False)
+                             .to(torch.float64).sum()),
+        "decode_bc6h_signed": float(bc6h.decode_bc6h(blk5, True)
+                                    .to(torch.float64).sum()),
+    }
+
     ms = {
         "k2_opaque": med(lambda: ck.bc7_encode(px_o)),
         "k2_opaque_aw2": med(lambda: ck.bc7_encode(px_o, opaque, 2.0)),
@@ -220,7 +257,8 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"tag": tag, "card": smi, "build_s": build_s,
-                      "ms": ms, "full_words_sum": digest,
+                      "ms": ms, "decode_ms": decode_ms,
+                      "decode_sums": decode_sums, "full_words_sum": digest,
                       "words_sums": digests}), flush=True)
 
 

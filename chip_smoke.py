@@ -41,8 +41,12 @@ Phases:
   1. build: nvcc builds the kernels from directxtex_tpu_torch/csrc; ptxas
      registers, stack and spills per kernel instance, and those of the
      kernels that keep their recorded build (PTXAS_RECORDED) held to it;
-  2. K1: bit-exact on tests/golden/decode_vectors.npz and equal to the
-     plain decode on 262,144 random mixed-mode words;
+  2. K1 (a lane a block parses the headers, then sixteen lanes a block
+     write the pixels; two epilogues, the words API's int32 planes and
+     decode_bc7's f32): bit for
+     bit equal to their plain versions on tests/golden/decode_vectors.npz,
+     on 262,144 random mixed-mode words (every 97th reserved: transparent
+     black) and on 32,768 random words of each mode;
   3. K2: kernel search vs plain search on bench512.npz and the opaque
      corpus.npz contents: words and errors equal (bench512 also at alpha
      weight 2.0);
@@ -55,9 +59,14 @@ Phases:
      launcher's whole call, the bucket pass and a plain copy of the words
      also alone), the bucket counts, and one run of the plain path on the
      same inputs, held against the kernels' output (K2 at both weights,
-     words and errors equal);
-  7. K4: bit-exact on the golden BC6H vectors (unsigned and signed) and
-     equal to the plain decode on 262,144 random words per mode;
+     words and errors equal; K1's epilogues on the path's words); then
+     decode: decode_bc7 as a path (one CUDA kernel in a torch.profiler
+     record), K1's f32 and words epilogues, and K1
+     on the random mixed words, CUDA-event times beside their bounds;
+  7. K4 (as K1, two epilogues): bit-exact on the
+     golden BC6H vectors and equal to the plain versions on them, on
+     262,144 random words and on 32,768 random words of each mode row,
+     unsigned and signed;
   8. K5 and K6 (mid, maxq): kernel vs plain on the five HDR corpus
      contents and the 200-block random / bimodal set, unsigned and
      signed: words equal, and K5's search errors equal (on the random
@@ -66,7 +75,10 @@ Phases:
   9. BC6H gates: the corpus PSNR floors and the frozen reference's
      bc6h_hdr_psnr through encode_bc6h -> decode_bc6h on the card;
  10. config 4 at face 512: the path with launch counts and CUDA-event
-     times, each kernel's time at the path's shapes, one run of each plain
+     times, each kernel's time at the path's shapes, decode_bc6h as a path
+     (one CUDA kernel in a profiler record) and K4's epilogues and header
+     modes on the path's words (held against their plain versions, signed
+     and unsigned), one run of each plain
      twin held against its kernel (K6 mid on every block, K6 maxq on the
      first MAXQ_PLAIN_BLOCKS, the bucket pass), the unit counts, and the
      mid / maxq tiers on the same faces with their launch counts (K5, the
@@ -247,11 +259,13 @@ BC6H_REFINE_OPS = {"one_region": 815084, "two_region": 1294096}
 BC6H_REFINE_MID_OPS = {"one_region": 143564, "two_region": 39517}
 # bytes each block must move, inputs read once and outputs written once at
 # the data's own width: u8 texels, f16 pixels and halves, 16-byte words
-BYTES_PER_BLOCK = {"bc7_decode": 16 + 64, "bc7_encode": 64 + 16,
+# (the decoders: 16 bytes of packed block in, decode's f32 [16, 4] out,
+# 256 bytes; the words API's int32 planes, DECODE_WORDS_BYTES)
+BYTES_PER_BLOCK = {"bc7_decode": 16 + 256, "bc7_encode": 64 + 16,
                    # K3's bucket pass: the words read, their copy and one
                    # list entry written
                    "bc7_mode_buckets": 16 + 16 + 4,
-                   "bc7_refine": 64 + 16 + 16, "bc6h_decode": 16 + 96,
+                   "bc7_refine": 64 + 16 + 16, "bc6h_decode": 16 + 256,
                    "bc6h_encode": 96 + 16, "bc6h_refine": 96 + 16 + 16,
                    "bc6h_refine_cross2": 96 + 16 + 16,
                    # K6's bucket pass: the words read, their copy and one
@@ -288,6 +302,9 @@ BYTES_PER_BLOCK = {"bc7_decode": 16 + 64, "bc7_encode": 64 + 16,
                    # K8: each of modes 4, 5 and 6's err and words
                    "bc7_single_modes": 64 + 3 * (4 + 16)}
 BC7_PIXEL_BYTES = 64
+DECODE_WORDS_BYTES = {"bc7_decode": 16 + 256, "bc6h_decode": 16 + 192}
+# random words a mode (BC7) or mode row (BC6H) for the decode checks
+DECODE_MODE_BLOCKS = 32768
 # K3's bucket pass does a few integer operations a block: bytes bound it
 BC7_BUCKET_OPS = 0
 # H100 SXM published peaks: HBM bytes/s, and
@@ -476,6 +493,88 @@ def units_equal(torch, words, what: str) -> list:
                        bc6h._unit_buckets_plain(words), what)
 
 
+def mode_blocks(rng, n: int, low_bits: int, value: int) -> np.ndarray:
+    """n random packed blocks [n, 16] u8 whose byte 0 has its low_bits
+    low bits set to value (a BC7 mode's or a BC6H mode row's header)."""
+    raw = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+    keep = np.uint8(~((1 << low_bits) - 1) & 0xFF)
+    raw[:, 0] = (raw[:, 0] & keep) | np.uint8(value)
+    return raw
+
+
+def decode_equal(torch, blocks, what: str, signed=None) -> None:
+    """K1 (signed None) or K4 on packed blocks [NB, 16] u8 on the card,
+    both epilogues (the words API's int32 planes and decode's f32), held
+    bit for bit against their plain versions."""
+    from directxtex_tpu_torch.bc import bc67, bc6h, cuda_kernels
+
+    words = blocks.view(torch.int32).t().contiguous()
+    if signed is None:
+        want_w = bc67._bc7_decode_plain(words)
+        want_f = bc67._bc7_decode_f32_plain(blocks)
+        got_w = cuda_kernels.bc7_decode(words)
+        got_f = cuda_kernels.bc7_decode_blocks(blocks)
+    else:
+        want_w = bc6h._bc6h_decode_plain(words, signed)
+        want_f = bc6h._bc6h_decode_f32_plain(blocks, signed)
+        got_w = cuda_kernels.bc6h_decode(words, signed)
+        got_f = cuda_kernels.bc6h_decode_blocks(blocks, signed)
+    check(torch.equal(got_w, want_w), f"{what}: words API vs plain")
+    check(got_f.shape == want_f.shape and torch.equal(
+        got_f.view(torch.int32), want_f.view(torch.int32)),
+        f"{what}: f32 vs plain")
+
+
+def profile_calls(torch, calls: dict, tries: int = 3) -> dict:
+    """{label: [(kernel name, device µs)]}: the CUDA kernels each call of
+    `calls` ({label: fn}) runs, from one torch.profiler record (CUPTI sees
+    the kernels launched through ctypes too). Each call runs in a range of
+    its own and synchronises, so a kernel belongs to the range it starts
+    in. A record that holds no device activity at all (CUPTI delivered
+    none) is taken again, up to `tries` records."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for label, fn in calls.items():
+                with record_function(label):
+                    fn()
+                    torch.cuda.synchronize()
+        events = prof.events()
+        # the ranges' own device-side copies carry their labels
+        device = [e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.name not in calls
+                  and not e.name.startswith(("Memcpy", "Memset"))]
+        if not device:
+            continue
+        out = {}
+        for label in calls:
+            rng = [e.time_range for e in events if e.name == label
+                   and e.device_type == torch.autograd.DeviceType.CPU][0]
+            out[label] = [(e.name, e.time_range.elapsed_us()) for e in device
+                          if rng.start <= e.time_range.start <= rng.end]
+        return out
+    raise RuntimeError(f"no device activity in {tries} profiler records")
+
+
+def host_us(torch, fn, reps: int = 100) -> float:
+    """Host time a call of fn() takes to return (µs, mean of reps calls
+    after a warm-up; the device may still be running)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
 def main() -> None:
     import torch
 
@@ -483,8 +582,9 @@ def main() -> None:
         raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU")
     sys.path.insert(0, ROOT)
     from directxtex_tpu_torch import _build
-    from directxtex_tpu_torch.bc import bc67, cuda_kernels
+    from directxtex_tpu_torch.bc import bc67, bc6h, cuda_kernels
     from directxtex_tpu_torch.bc.common import image_to_blocks
+    from directxtex_tpu_torch.models import pipelines
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -542,15 +642,21 @@ def main() -> None:
     vec = np.load(os.path.join(GOLDEN, "decode_vectors.npz"))
     got = bc67.decode_bc7(to_dev(vec["bc7_blocks"])).cpu().numpy()
     check(np.array_equal(got, vec["bc7_rgba"]), "K1 golden vectors")
+    decode_equal(torch, to_dev(vec["bc7_blocks"]), "K1 golden vectors")
     rng = np.random.default_rng(2026)
     raw = rng.integers(0, 256, (RANDOM_BLOCKS, 16), dtype=np.uint8)
     raw[::97, 0] = 0                              # reserved mode
-    words_r = to_dev(raw).view(torch.int32).t().contiguous()
-    k1 = cuda_kernels.bc7_decode(words_r)
-    p1 = bc67._bc7_decode_plain(words_r)
-    check(torch.equal(k1, p1), "K1 vs plain on random words")
-    emit({"phase": "K1", "golden_bit_exact": True, "random_blocks": RANDOM_BLOCKS,
-          "random_equal": True})
+    blocks_r = to_dev(raw)
+    decode_equal(torch, blocks_r, "K1 random mixed words")
+    check(bool((bc67.decode_bc7(blocks_r)[::97] == 0).all()),
+          "K1 reserved mode: transparent black")
+    for m in range(8):
+        decode_equal(torch, to_dev(mode_blocks(
+            rng, DECODE_MODE_BLOCKS, m + 1, 1 << m)), f"K1 mode {m} words")
+    emit({"phase": "K1", "golden_bit_exact": True,
+          "random_blocks": RANDOM_BLOCKS, "random_equal": True,
+          "mode_blocks": DECODE_MODE_BLOCKS, "modes_equal": list(range(8)),
+          "epilogues": ["words", "f32"]})
 
     # 3-4. K2 and K3 on bench512 and the opaque corpus --------------------
     b512 = np.load(os.path.join(GOLDEN, "bench512.npz"))
@@ -631,8 +737,9 @@ def main() -> None:
         "bc7_refine": float(np.median(event_ms(
             lambda: cuda_kernels.bc7_refine(px2k, w_search,
                                             bc67.REFINE_MODES), 7))),
+        # K1 as decode_bc7 launches it: packed blocks -> f32
         "bc7_decode": float(np.median(event_ms(
-            lambda: cuda_kernels.bc7_decode(w_final), 7))),
+            lambda: cuda_kernels.bc7_decode_blocks(enc), 7))),
         "bc7_mode_buckets": float(np.median(event_ms(
             lambda: cuda_kernels.bc7_mode_buckets(w_search, refine_mask),
             7))),
@@ -649,7 +756,7 @@ def main() -> None:
         lambda: out.update(refine=bc67._bc7_refine_plain(
             px2k, w_search, bc67.REFINE_MODES)))[0]
     plain_ms["bc7_decode"] = event_ms(
-        lambda: out.update(decode=bc67._bc7_decode_plain(w_final)))[0]
+        lambda: out.update(decode=bc67._bc7_decode_f32_plain(enc)))[0]
     plain_ms["bc7_mode_buckets"] = event_ms(lambda: out.update(
         buckets=bc67._mode_buckets_plain(w_search, refine_mask)))[0]
     same(w_search, out["search"][1], "K2 words 2048^2")
@@ -661,8 +768,10 @@ def main() -> None:
     bucket_counts = buckets_equal(torch, w_search, bc67.REFINE_MODES,
                                   "2048^2 default scope")
     check(torch.equal(out["refine"], w_final), "K3 2048^2 vs plain")
-    k1_out = cuda_kernels.bc7_decode(w_final)
-    check(torch.equal(out["decode"], k1_out), "K1 2048^2 vs plain")
+    k1_out = cuda_kernels.bc7_decode_blocks(enc)
+    check(torch.equal(out["decode"].view(torch.int32),
+                      k1_out.view(torch.int32)), "K1 2048^2 vs plain")
+    decode_equal(torch, enc, "K1 2048^2 words")
     max_err = {
         "bc7_encode": float((err_k - out["search"][0]).abs().max()),
         "bc7_refine": float((out["refine"].to(torch.int64)
@@ -671,6 +780,26 @@ def main() -> None:
         # counts and bucket sets held equal above
         "bc7_mode_buckets": 0.0,
     }
+    # decode: the path, K1's other epilogue, and K1 on the random mixed
+    # words (their CUDA kernels and device times: phase decode_profile)
+    decode_ms = {
+        "decode_bc7_path": float(np.median(event_ms(
+            lambda: bc67.decode_bc7(enc), 7))),
+        "k1_f32": k_ms["bc7_decode"],
+        "k1_words": float(np.median(event_ms(
+            lambda: cuda_kernels.bc7_decode(w_final), 7))),
+        "k1_f32_random_mixed": float(np.median(event_ms(
+            lambda: cuda_kernels.bc7_decode_blocks(blocks_r), 7))),
+    }
+    nb2k = size * size // 16
+    emit({"phase": "decode2k", "card": smi, "blocks": nb2k,
+          "ms": decode_ms,
+          "decode_bc7_host_us": host_us(torch, lambda: bc67.decode_bc7(enc)),
+          "bound_ms": {"f32": BYTES_PER_BLOCK["bc7_decode"] * nb2k
+                       / HBM_BYTES_PER_S * 1e3,
+                       "words": DECODE_WORDS_BYTES["bc7_decode"] * nb2k
+                       / HBM_BYTES_PER_S * 1e3}})
+
     mtexels = size * size / (enc_ms * 1e-3) / 1e6
     emit({"phase": "timing2k", "card": smi, "encode_ms": enc_ms,
           "encode_mtexels_per_s": mtexels, "kernel_ms": k_ms,
@@ -678,6 +807,33 @@ def main() -> None:
           "bucket_counts": bucket_counts, "plain_ms": plain_ms,
           "search_words_differ_vs_plain": 0,
           "earlier_ms": EARLIER_OPAQUE_MS})
+
+    # both decode paths and their kernels in one profiler record: each
+    # decode is one CUDA kernel, and the kernels' device times. Config 4's
+    # words as phase 10 makes them (its input, the shipped pipeline).
+    eq4 = to_dev(np.random.default_rng(2).random(
+        (FACE * 2, FACE * 4, 4)).astype(np.float32) * 4.0)
+    packed4 = torch.cat(pipelines.hdr_cubemap_pipeline()(eq4))
+    words4 = packed4.view(torch.int32).t().contiguous()
+    prof = profile_calls(torch, {
+        "decode_bc7": lambda: bc67.decode_bc7(enc),
+        "k1_f32": lambda: cuda_kernels.bc7_decode_blocks(enc),
+        "k1_words": lambda: cuda_kernels.bc7_decode(w_final),
+        "k1_f32_random_mixed": lambda: cuda_kernels.bc7_decode_blocks(
+            blocks_r),
+        "decode_bc6h": lambda: bc6h.decode_bc6h(packed4, False),
+        "k4_f32": lambda: cuda_kernels.bc6h_decode_blocks(packed4, False),
+        "k4_words": lambda: cuda_kernels.bc6h_decode(words4, False),
+        "k4_f32_signed": lambda: cuda_kernels.bc6h_decode_blocks(packed4,
+                                                                 True)})
+    for path in ("decode_bc7", "decode_bc6h"):
+        check(len(prof[path]) == 1, f"{path} runs {prof[path]}")
+    emit({"phase": "decode_profile", "card": smi,
+          "cuda_kernels_a_decode": {p: len(prof[p]) for p in
+                                    ("decode_bc7", "decode_bc6h")},
+          "kernels": {p: prof[p][0][0] for p in ("decode_bc7",
+                                                 "decode_bc6h")},
+          "device_us": {k: [t for _, t in v] for k, v in prof.items()}})
 
     nb_of = {"bc7_decode": px2k.shape[1], "bc7_encode": px2k.shape[1],
              "bc7_refine": px2k.shape[1],
@@ -821,6 +977,7 @@ def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
     """Phases 7-10. Returns the BC6H kernels' launches (from the paths'
     runs), times, plain times, errors against the twins and block counts."""
     from directxtex_tpu_torch.bc import bc6h, cuda_kernels
+    from directxtex_tpu_torch.bc.bc67_tables import BC6H_MODE_INFO
     from directxtex_tpu_torch.bc.common import image_to_blocks
     from directxtex_tpu_torch.models import pipelines
 
@@ -836,22 +993,30 @@ def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
 
     # 7. K4 -------------------------------------------------------------
     vec = np.load(os.path.join(GOLDEN, "decode_vectors.npz"))
-    words_g = to_dev(vec["bc6h_blocks"]).view(torch.int32).t().contiguous()
+    blocks_g = to_dev(vec["bc6h_blocks"])
+    words_g = blocks_g.view(torch.int32).t().contiguous()
     rng = np.random.default_rng(2027)
     raw = rng.integers(0, 256, (RANDOM_BLOCKS, 16), dtype=np.uint8)
-    words_r = to_dev(raw).view(torch.int32).t().contiguous()
+    blocks_r = to_dev(raw)
+    words_r = blocks_r.view(torch.int32).t().contiguous()
     n_reserved = int((bc6h._mode_rows(bc6h._words_i64(words_r)) < 0).sum())
     for signed, key in ((False, "bc6h_uf_bits"), (True, "bc6h_sf_bits")):
         got = cuda_kernels.bc6h_decode(words_g, signed)
         ref = vec[key][..., :3].astype(np.int32).transpose(1, 2, 0)
         check(np.array_equal(got.cpu().numpy(), ref.reshape(48, -1)),
               f"K4 golden vectors signed={signed}")
-        check(torch.equal(cuda_kernels.bc6h_decode(words_r, signed),
-                          bc6h._bc6h_decode_plain(words_r, signed)),
-              f"K4 vs plain on random words signed={signed}")
+        decode_equal(torch, blocks_g, f"K4 golden signed={signed}", signed)
+        decode_equal(torch, blocks_r, f"K4 random words signed={signed}",
+                     signed)
+        for row, info in enumerate(BC6H_MODE_INFO):
+            decode_equal(torch, to_dev(mode_blocks(
+                rng, DECODE_MODE_BLOCKS, 2 if info[0] < 2 else 5, info[0])),
+                f"K4 row {row} signed={signed}", signed)
     emit({"phase": "K4", "golden_bit_exact": True,
           "random_blocks": RANDOM_BLOCKS, "reserved_blocks": n_reserved,
-          "random_equal": True, "signed": [False, True]})
+          "random_equal": True, "signed": [False, True],
+          "row_blocks": DECODE_MODE_BLOCKS, "rows_equal": list(range(14)),
+          "epilogues": ["words", "f32"]})
 
     # 8. K5 and K6 against their twins ----------------------------------
     corpus = np.load(os.path.join(GOLDEN, "corpus.npz"))
@@ -957,8 +1122,9 @@ def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
     k_ms = {
         "bc6h_encode": float(np.median(event_ms(
             lambda: cuda_kernels.bc6h_encode(px4, False), 7))),
+        # K4 as decode_bc6h launches it: packed blocks -> f32
         "bc6h_decode": float(np.median(event_ms(
-            lambda: cuda_kernels.bc6h_decode(w5, False), 7))),
+            lambda: cuda_kernels.bc6h_decode_blocks(packed, False), 7))),
         "bc6h_refine_cross2": float(np.median(event_ms(
             lambda: cuda_kernels.bc6h_refine(px4, w5, *maxq_args), 7))),
         "bc6h_refine": float(np.median(event_ms(
@@ -977,7 +1143,8 @@ def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
     plain_ms["bc6h_encode"] = event_ms(
         lambda: out.update(search=bc6h._bc6h_search_plain(px4, False)))[0]
     plain_ms["bc6h_decode"] = event_ms(
-        lambda: out.update(decode=bc6h._bc6h_decode_plain(w5, False)))[0]
+        lambda: out.update(decode=bc6h._bc6h_decode_f32_plain(packed,
+                                                              False)))[0]
     px_q, w5_q = px4[:, :MAXQ_PLAIN_BLOCKS], w5[:, :MAXQ_PLAIN_BLOCKS]
     plain_ms["bc6h_refine_cross2"] = event_ms(
         lambda: out.update(maxq=bc6h._bc6h_refine_plain(
@@ -989,7 +1156,11 @@ def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
         lambda: out.update(units=bc6h._unit_buckets_plain(w5)))[0]
     same(w5, out["search"][1], "K5 words face 512")
     same(e5, out["search"][0], "K5 errors face 512")
-    same(out["decode"], cuda_kernels.bc6h_decode(w5, False), "K4 face 512")
+    same(out["decode"].view(torch.int32),
+         cuda_kernels.bc6h_decode_blocks(packed, False).view(torch.int32),
+         "K4 face 512")
+    for signed in (False, True):
+        decode_equal(torch, packed, f"K4 config 4 signed={signed}", signed)
     same(w_mid, out["mid"], "K6 mid face 512")
     same(w_maxq[:, :MAXQ_PLAIN_BLOCKS], out["maxq"], "K6 maxq face 512")
     units = units_equal(torch, w5, f"face {FACE}")
@@ -997,14 +1168,34 @@ def bc6h_phases(torch, dev, to_dev, event_ms, smi) -> dict:
     max_err = {
         "bc6h_encode": float((e5 - out["search"][0])[fin].abs().max())
         if bool(fin.any()) else 0.0,
-        "bc6h_decode": word_diff(out["decode"],
-                                 cuda_kernels.bc6h_decode(w5, False)),
+        "bc6h_decode": float((out["decode"] - cuda_kernels.bc6h_decode_blocks(
+            packed, False)).abs().max()),
         "bc6h_refine_cross2": word_diff(out["maxq"],
                                         w_maxq[:, :MAXQ_PLAIN_BLOCKS]),
         "bc6h_refine": word_diff(out["mid"], w_mid),
         # counts and unit sets held equal above
         "bc6h_unit_buckets": 0.0,
     }
+    # decode: the path, K4's other epilogue (their CUDA kernels and device
+    # times: phase decode_profile)
+    decode_ms = {
+        "decode_bc6h_path": float(np.median(event_ms(
+            lambda: bc6h.decode_bc6h(packed, False), 7))),
+        "k4_f32": k_ms["bc6h_decode"],
+        "k4_words": float(np.median(event_ms(
+            lambda: cuda_kernels.bc6h_decode(w5, False), 7))),
+        "k4_f32_signed": float(np.median(event_ms(
+            lambda: cuda_kernels.bc6h_decode_blocks(packed, True), 7))),
+    }
+    emit({"phase": "decode_config4", "card": smi, "blocks": nb4,
+          "ms": decode_ms,
+          "decode_bc6h_host_us": host_us(
+              torch, lambda: bc6h.decode_bc6h(packed, False)),
+          "bound_ms": {"f32": BYTES_PER_BLOCK["bc6h_decode"] * nb4
+                       / HBM_BYTES_PER_S * 1e3,
+                       "words": DECODE_WORDS_BYTES["bc6h_decode"] * nb4
+                       / HBM_BYTES_PER_S * 1e3}})
+
     texels = 6 * FACE * FACE
     emit({"phase": "config4", "card": smi, "face": FACE, "blocks": nb4,
           "launches": launches, "log_psnr": psnr4,

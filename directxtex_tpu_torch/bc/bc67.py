@@ -481,18 +481,39 @@ def bc7_decode_words(words: torch.Tensor) -> torch.Tensor:
     return _bc7_decode_plain(words)
 
 
+def _bc7_decode_f32_plain(blocks: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K1's f32 epilogue: [NB, 16] u8 -> [NB, 16, 4] f32,
+    the words twin followed by decode's conversion."""
+    # little-endian bytes -> u32 words, lane-major [4, NB]
+    words = blocks.contiguous().view(torch.int32).t().contiguous()
+    out = _bc7_decode_plain(words)
+    # float(c) * f32(1/255) — the reference's c * (1/255) (BC6HBC7.cpp:427)
+    outf = out.clamp(0, 255).to(torch.float32) * (1 / 255)
+    return outf.reshape(16, 4, -1).permute(2, 0, 1).contiguous()
+
+
+def _index_field(i: int, prec: int, a2: int = 16, a3: int = 16):
+    """(bit offset from the index set's start, width) of pixel i's index
+    in a set of prec-bit indices whose anchor pixels (pixel 0 and the
+    fixups a2, a3; 16 = none) hold one bit less: the closed form that the
+    decode kernels take per lane (dec::index_offset / index_width in
+    csrc/decode_lanes.cuh) in place of the sequential walk."""
+    before = (i > 0) + (a2 < i) + (a3 < i)
+    anchor = i == 0 or i == a2 or i == a3
+    return prec * i - before, prec - anchor
+
+
 def decode_bc7(blocks: torch.Tensor) -> torch.Tensor:
-    """[NB, 16] u8 -> [NB, 16, 4] f32 (D3DXDecodeBC7, bit-exact)."""
+    """[NB, 16] u8 -> [NB, 16, 4] f32 (D3DXDecodeBC7, bit-exact). A CUDA
+    tensor is one K1 launch that reads the packed blocks and writes the
+    f32 texels; a CPU tensor runs the plain twin."""
     if blocks.dtype != torch.uint8 or blocks.dim() != 2 \
             or blocks.shape[1] != 16:
         raise ValueError(f"blocks must be [NB, 16] uint8, got "
                          f"{tuple(blocks.shape)} {blocks.dtype}")
-    # little-endian bytes -> u32 words, lane-major [4, NB]
-    words = blocks.contiguous().view(torch.int32).t().contiguous()
-    out = bc7_decode_words(words)
-    # float(c) * f32(1/255) — the reference's c * (1/255) (BC6HBC7.cpp:427)
-    outf = out.clamp(0, 255).to(torch.float32) * (1 / 255)
-    return outf.reshape(16, 4, -1).permute(2, 0, 1).contiguous()
+    if _on_cuda(blocks):
+        return cuda_kernels.bc7_decode_blocks(blocks)
+    return _bc7_decode_f32_plain(blocks)
 
 
 # ---------------------------------------------------------------------------

@@ -260,14 +260,25 @@ def _check_blocks_u8(blocks: torch.Tensor) -> None:
                          f"{tuple(blocks.shape)} {blocks.dtype}")
 
 
-def decode_bc6h(blocks: torch.Tensor, signed: bool) -> torch.Tensor:
-    """[NB, 16] u8 -> [NB, 16, 4] f32 (D3DXDecodeBC6HU/S, bit-exact);
-    alpha 1, reserved modes black."""
-    _check_blocks_u8(blocks)
+def _bc6h_decode_f32_plain(blocks: torch.Tensor, signed: bool
+                           ) -> torch.Tensor:
+    """Plain twin of K4's f32 epilogue: [NB, 16] u8 -> [NB, 16, 4] f32,
+    the half-bits twin followed by decode's conversion (alpha 1)."""
     words = blocks.contiguous().view(torch.int32).t().contiguous()
-    rgb = _half_bits_to_f32(bc6h_decode_words(words, signed))
+    rgb = _half_bits_to_f32(_bc6h_decode_plain(words, signed))
     rgb = rgb.reshape(16, 3, -1).permute(2, 0, 1)
     return torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+
+
+def decode_bc6h(blocks: torch.Tensor, signed: bool) -> torch.Tensor:
+    """[NB, 16] u8 -> [NB, 16, 4] f32 (D3DXDecodeBC6HU/S, bit-exact);
+    alpha 1, reserved modes black. A CUDA tensor is one K4 launch that
+    reads the packed blocks and writes the f32 texels; a CPU tensor runs
+    the plain twin."""
+    _check_blocks_u8(blocks)
+    if _on_cuda(blocks):
+        return cuda_kernels.bc6h_decode_blocks(blocks, signed)
+    return _bc6h_decode_f32_plain(blocks, signed)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,10 @@ its kernel's launch count. There is no fallback: the plain PyTorch twins
 live in bc67.py, and bc67's wrappers call these only for CUDA tensors.
 
     K1 bc7_decode  csrc/bc7_decode.cu  replaces pallas_kernels.py:2735
+       (a lane a block parses the headers, then sixteen lanes a block
+       write decode_bc7's f32 from the packed blocks, bc7_decode_blocks;
+       or a lane a block writes the words API's int32 planes,
+       bc7_decode; both counted as bc7_decode)
     K2 bc7_encode  csrc/bc7_encode.cuh replaces pallas_kernels.py:2020
        (variants: bc7_encode.cu the default tier, bc7_encode_quick.cu
        mode 6 alone, bc7_encode_maxq.cu the maxq tier; with mode 7 the
@@ -22,6 +26,8 @@ live in bc67.py, and bc67's wrappers call these only for CUDA tensors.
        exact ladders, bc7_refine_ladder, and modes 0 and 2 in any scope,
        bc7_refine_3sub and bc7_refine_3sub_ladder)
     K4 bc6h_decode csrc/bc6h_decode.cu replaces pallas_kernels.py:2784
+       (as K1: bc6h_decode_blocks and bc6h_decode, counted as
+       bc6h_decode)
     K5 bc6h_encode csrc/bc6h_encode.cu replaces pallas_kernels.py:3744
     K6 bc6h_refine csrc/bc6h_refine.cu replaces pallas_kernels.py:3704
        (a unit bucket pass, bc6h_unit_buckets, then one launch of lane
@@ -87,7 +93,7 @@ def _call(symbol: str, tensors, ints, device: torch.device) -> None:
 
 
 KERNELS = {
-    "bc7_decode": CudaKernel("bc7_decode_launch", 2, 1),
+    "bc7_decode": CudaKernel("bc7_decode_launch", 2, 2),
     "bc7_encode": CudaKernel("bc7_encode_launch", 4, 2),
     "bc7_encode_quick": CudaKernel("bc7_encode_quick_launch", 4, 2),
     "bc7_encode_maxq": CudaKernel("bc7_encode_maxq_launch", 4, 2),
@@ -98,7 +104,7 @@ KERNELS = {
     "bc7_refine_alpha": CudaKernel("bc7_refine_launch", 5, 6),
     "bc7_refine_maxq": CudaKernel("bc7_refine_launch", 5, 6),
     "bc7_refine_ladder": CudaKernel("bc7_refine_launch", 5, 6),
-    "bc6h_decode": CudaKernel("bc6h_decode_launch", 2, 2),
+    "bc6h_decode": CudaKernel("bc6h_decode_launch", 2, 3),
     "bc6h_encode": CudaKernel("bc6h_encode_launch", 3, 2),
     "bc6h_unit_buckets": CudaKernel("bc6h_unit_buckets_launch", 4, 1),
     "bc6h_refine": CudaKernel("bc6h_refine_launch", 5, 8),
@@ -134,14 +140,39 @@ def _check(t: torch.Tensor, name: str, rows: int, nb: int | None = None):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_blocks(blocks: torch.Tensor) -> torch.Tensor:
+    """Packed blocks [NB, 16] u8, contiguous, on CUDA; a copy where the
+    data is not 16-byte aligned (each lane reads its block as one 16-byte
+    load)."""
+    if not blocks.is_cuda:
+        raise ValueError(f"blocks must be a CUDA tensor, got {blocks.device}")
+    if blocks.dtype != torch.uint8 or blocks.dim() != 2 \
+            or blocks.shape[1] != 16:
+        raise ValueError(f"blocks must be [NB, 16] uint8, got "
+                         f"{tuple(blocks.shape)} {blocks.dtype}")
+    blocks = blocks.contiguous()
+    return blocks if blocks.data_ptr() % 16 == 0 else blocks.clone()
+
+
 def bc7_decode(words: torch.Tensor) -> torch.Tensor:
-    """K1: words [4, NB] int32 -> texels [64, NB] int32 (0..255; the
-    reserved mode gives 0)."""
+    """K1's words API: words [4, NB] int32 -> texels [64, NB] int32
+    (0..255; the reserved mode gives 0)."""
     _check(words, "words", 4)
     nb = words.shape[1]
     out = torch.empty((64, nb), dtype=torch.int32, device=words.device)
     if nb:
-        KERNELS["bc7_decode"].launch((words, out), (nb,), words.device)
+        KERNELS["bc7_decode"].launch((words, out), (nb, 0), words.device)
+    return out
+
+
+def bc7_decode_blocks(blocks: torch.Tensor) -> torch.Tensor:
+    """K1, decode_bc7's contract: packed blocks [NB, 16] u8 -> [NB, 16, 4]
+    f32, float(texel) * f32(1/255); the reserved mode gives 0."""
+    blocks = _check_blocks(blocks)
+    nb = blocks.shape[0]
+    out = torch.empty((nb, 16, 4), dtype=torch.float32, device=blocks.device)
+    if nb:
+        KERNELS["bc7_decode"].launch((blocks, out), (nb, 1), blocks.device)
     return out
 
 
@@ -426,14 +457,26 @@ def bc7_single_modes(px: torch.Tensor, aw: float = 1.0):
 
 
 def bc6h_decode(words: torch.Tensor, signed: bool) -> torch.Tensor:
-    """K4: words [4, NB] int32 -> half bits [48, NB] int32 (row = pixel *
-    3 + channel; reserved modes give 0)."""
+    """K4's words API: words [4, NB] int32 -> half bits [48, NB] int32
+    (row = pixel * 3 + channel; reserved modes give 0)."""
     _check(words, "words", 4)
     nb = words.shape[1]
     out = torch.empty((48, nb), dtype=torch.int32, device=words.device)
     if nb:
-        KERNELS["bc6h_decode"].launch((words, out), (nb, int(bool(signed))),
+        KERNELS["bc6h_decode"].launch((words, out), (nb, int(bool(signed)), 0),
                                       words.device)
+    return out
+
+
+def bc6h_decode_blocks(blocks: torch.Tensor, signed: bool) -> torch.Tensor:
+    """K4, decode_bc6h's contract: packed blocks [NB, 16] u8 -> [NB, 16,
+    4] f32, the halves converted exactly, alpha 1; reserved modes black."""
+    blocks = _check_blocks(blocks)
+    nb = blocks.shape[0]
+    out = torch.empty((nb, 16, 4), dtype=torch.float32, device=blocks.device)
+    if nb:
+        KERNELS["bc6h_decode"].launch(
+            (blocks, out), (nb, int(bool(signed)), 1), blocks.device)
     return out
 
 

@@ -1,5 +1,6 @@
 """BC6H decode of the PyTorch port (the plain twin of kernel K4) held
-against the frozen golden vectors and the JAX package's decode_bc6h:
+against the frozen golden vectors and the JAX package's decode_bc6h,
+frozen in tests/golden/decode_refs.npz (generate_decode_refs.py):
 integer math only, so both are exact."""
 
 import pathlib
@@ -8,7 +9,6 @@ import numpy as np
 import pytest
 import torch
 
-from directxtex_tpu.bc import bc67 as jbc67
 from directxtex_tpu_torch.bc import bc6h
 
 
@@ -21,6 +21,15 @@ def _one_torch_thread():
 
 
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
+
+
+def _mixed_blocks(signed):
+    """Random words covering all 14 mode rows and, every 7th block, the
+    reserved header value 0b10011."""
+    rng = np.random.default_rng(41 + signed)
+    blocks = rng.integers(0, 256, (512, 16), dtype=np.uint8)
+    blocks[::7, 0] = 0x13
+    return blocks
 
 
 @pytest.mark.parametrize("signed,key", [(False, "bc6h_uf_bits"),
@@ -43,13 +52,12 @@ def test_decode_golden_vectors_bit_exact(signed, key):
 
 @pytest.mark.parametrize("signed", [False, True])
 def test_decode_random_mixed_equals_jax(signed):
-    """Random words cover all 14 mode rows and the reserved headers (black);
-    one JAX call per signed."""
-    rng = np.random.default_rng(41 + signed)
-    blocks = rng.integers(0, 256, (512, 16), dtype=np.uint8)
-    blocks[::7, 0] = 0x13                 # reserved header value 0b10011
+    """Random words cover all 14 mode rows and the reserved headers
+    (black)."""
+    blocks = _mixed_blocks(signed)
     got = bc6h.decode_bc6h(torch.from_numpy(blocks), signed).numpy()
-    ref = np.asarray(jbc67.decode_bc6h(blocks, signed))
+    ref = np.load(GOLDEN / "decode_refs.npz")[
+        "bc6h_mixed_s" if signed else "bc6h_mixed_u"]
     np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
     assert np.all(got[::7, :, :3] == 0.0)
     rows = bc6h._mode_rows(bc6h._words_i64(
