@@ -21,9 +21,14 @@ K6's mid and maxq calls, the mid and maxq encodes and the whole config-4
 path (hdr_cubemap_pipeline). Decode: K1's words API on the 2048^2 bench
 image's final words and on 262,144 random mixed words, decode_bc7 as a
 path on the same blocks, K4's words API and decode_bc6h on config 4's
-words; where the checkout has them, K1's and K4's f32 epilogue alone. It prints one JSON line of median CUDA-event
-times in ms of
-the checkout at ROOT, with the card's name and power limit and sums of
+words; where the checkout has them, K1's and K4's f32 epilogue alone.
+Mode 7's launch (on the default and maxq searches' picks of the image
+with alpha, at alpha weights 1.0 and 2.0) and K11 over the six precision
+groups (one launch where the checkout has it, else its six launches) on
+config 4's faces, unsigned and signed, with the BC6H_SHARED_FIT=False
+search and config-4 path; nvcc's registers and spills of both kernels.
+It prints one JSON line of median CUDA-event times in ms of the checkout
+at ROOT, with the card's name and power limit and sums of
 the words, so that two checkouts can be seen to agree. To compare two
 checkouts on one card, run it from both on that card, in turns (A, B, B,
 A):
@@ -33,12 +38,16 @@ A):
     python3 chip_ab.py . change
     python3 chip_ab.py PARENT_ROOT parent
 
+With a third argument, `focus`, it times only mode 7's launch, K11 and
+the paths and searches that run them (`focus` in the output).
+
 The checkout at ROOT provides directxtex_tpu_torch and chip_smoke.py's
 bench_image; both must have the same entry points as this one's.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
@@ -52,6 +61,7 @@ REPS = 11
 
 def main() -> None:
     root, tag = os.path.abspath(sys.argv[1]), sys.argv[2]
+    only_focus = sys.argv[3:] == ["focus"]
     sys.path.insert(0, root)
     import torch
 
@@ -66,6 +76,9 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
+    # nvcc's log of this build (a later call finds the library built)
+    ptxas = {k: v for k, v in chip_smoke.ptxas_summary(
+        _build.build_info["log"]).items() if "mode7" in k or "2region" in k}
     dev = torch.device("cuda", 0)
 
     def med(fn) -> float:
@@ -131,6 +144,82 @@ def main() -> None:
     pipe = pipelines.hdr_cubemap_pipeline()
     mid = (bc6h.BC6H_LADDER_MID, bc6h.BC6H_LADDER_MID, False, True, False)
     mxq = (bc6h.BC6H_LADDER_MAXQ, bc6h.BC6H_LADDER_MAXQ, False, True, True)
+
+    # mode 7's launch on each tier's picks, folded in place (a second fold
+    # over a folded result keeps it), and K11 over the six groups
+    list_a, count_a = ck.bc7_alpha_list(px_a)
+    fold7 = {(t, aw): ck.bc7_search_picks(px_a, aw, t)
+             for t in (bc67.TIER_DEFAULT, maxq) for aw in (1.0, 2.0)}
+
+    def mode7(t, aw):
+        e, w, picks = fold7[t, aw]
+        return lambda: ck.bc7_mode7(px_a, picks, list_a, count_a, e, w, aw)
+
+    sb4 = ck.bc6h_shapes(px4)
+    sb4s = ck.bc6h_shapes(px4s)
+    one_launch = "groups" in inspect.signature(ck.bc6h_2region).parameters
+
+    def k11(px, sb, signed):
+        if one_launch:
+            return lambda: ck.bc6h_2region(px, sb, range(6), signed)
+        # a checkout whose K11 takes one group a launch: its six launches,
+        # folded as the one launch folds
+        def six():
+            best = None
+            for g in range(6):
+                best = bc6h._fold_first(best,
+                                        *ck.bc6h_2region(px, sb, g, signed))
+            return best
+        return six
+
+    def unshared(fn):
+        def run():
+            saved = bc6h.BC6H_SHARED_FIT
+            bc6h.BC6H_SHARED_FIT = False
+            try:
+                return fn()
+            finally:
+                bc6h.BC6H_SHARED_FIT = saved
+        return run
+
+    focus_calls = {
+        "mode7": mode7(bc67.TIER_DEFAULT, 1.0),
+        "mode7_aw2": mode7(bc67.TIER_DEFAULT, 2.0),
+        "mode7_maxq_picks": mode7(maxq, 1.0),
+        "k11": k11(px4, sb4, False),
+        "k11_signed": k11(px4s, sb4s, True),
+        "search_unshared": lambda: bc6h._search_unshared(px4, False),
+        "path_config4_unshared": unshared(lambda: pipe(eq)),
+        "path_default_alpha": path(img_a),
+        "path_maxq_alpha": path(img_a, 0x200000),
+        "k2_alpha_search": lambda: ck.bc7_encode(px_a, alpha),
+        "k2_maxq_alpha_search": lambda: ck.bc7_encode(px_a, alpha, 1.0,
+                                                      maxq),
+    }
+    if not one_launch:
+        # each of the six launches is its own kernel call
+        focus_calls["k11_six_launches_unfolded"] = lambda: [
+            ck.bc6h_2region(px4, sb4, g, False) for g in range(6)]
+    focus = {k: med(fn) for k, fn in focus_calls.items()}
+    for fn in (mode7(t, aw) for t, aw in fold7):
+        fn()
+    focus_sums = {
+        **{f"mode7_{t}_aw{aw:g}": int(fold7[t, aw][1].to(torch.int64).sum())
+           for t, aw in fold7},
+        "k11": int(k11(px4, sb4, False)()[1].to(torch.int64).sum()),
+        "k11_signed": int(k11(px4s, sb4s, True)()[1].to(torch.int64).sum()),
+        "search_unshared": int(bc6h._search_unshared(px4, False)[1]
+                               .to(torch.int64).sum()),
+    }
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    if only_focus:
+        print(json.dumps({"tag": tag, "card": smi, "build_s": build_s,
+                          "focus": focus, "focus_sums": focus_sums,
+                          "ptxas": ptxas}), flush=True)
+        return
 
     # decode: the bench image's final words and random mixed words (every
     # 97th reserved), config 4's words
@@ -252,12 +341,9 @@ def main() -> None:
                                     ("alpha", img_a, 0x80000),
                                     ("maxq_opaque", img_o, 0x280000),
                                     ("maxq_alpha", img_a, 0x280000))}}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"tag": tag, "card": smi, "build_s": build_s,
-                      "ms": ms, "decode_ms": decode_ms,
+                      "focus": focus, "focus_sums": focus_sums,
+                      "ptxas": ptxas, "ms": ms, "decode_ms": decode_ms,
                       "decode_sums": decode_sums, "full_words_sum": digest,
                       "words_sums": digests}), flush=True)
 

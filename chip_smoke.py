@@ -9,7 +9,8 @@ every kernel against its plain PyTorch twin on the card:
   per mode in scope); on opaque images (K2's search, a team of four
   warps per 32 blocks), on images with alpha (the same search, which
   also writes the shapes it ranked, then mode 7's list pass and launch
-  on those shapes, folded in; K3 with mode 7 in scope), at alpha weights
+  on those shapes, a team of four warps per 32 listed blocks, one
+  candidate a warp, folded in; K3 with mode 7 in scope), at alpha weights
   1.0 and 2.0, and the QUICK tier (K2's quick variant, mode 6 alone);
 - the BC7 MAXQUALITY tier (encode_bc7(flags=0x200000)): K2's maxq
   search (every mode fitted on its own; a team of four warps per 32
@@ -31,8 +32,9 @@ every kernel against its plain PyTorch twin on the card:
   launches;
 - BC6H with bc6h.BC6H_SHARED_FIT = False (encode_bc6h in every tier, and
   so config 4): K10 (rows 10-13, each evaluated in full), the BC6H shape
-  ranking, K11 once per precision group, a strict-`<` fold in torch, then
-  K6 for the mid and maxq tiers;
+  ranking, one K11 launch of lane jobs for the six precision groups, a
+  strict-`<` fold of the two results in torch, then K6 for the mid and
+  maxq tiers;
 - K8, bc67.bc7_single_modes: modes 4, 5 and 6 in one pass.
 
 Phases:
@@ -87,14 +89,16 @@ Phases:
      on bench512, alphagrad, the 200-block mixed set (half opaque) and
      the 2048^2 image with alpha, at alpha weights 1.0 and 2.0: words and
      search errors equal, and each step alone (K2's search and its picks,
-     mode 7's list pass and its launch) equal to its twin;
+     mode 7's list pass and its launch) equal to its twin (mode 7's
+     launch also to its team in plain form, bc67._mode7_jobs_plain);
  12. K2 quick against its twin on bench512.npz and both 2048^2 images;
  13. BC7 gates on the card: the alphagrad corpus floor and the frozen
      reference parity of albedo, tworegion, normal and alphagrad;
  14. the 2048^2 image with alpha through the default path and the QUICK
      path (on both 2048^2 images), each with its launch counts (with
      alpha: K2, the list pass, mode 7, K3), and CUDA-event times of the
-     paths and kernels beside the opaque path's;
+     paths and kernels beside the opaque path's, with mode 7's device
+     time from a torch.profiler record;
  15. K2 maxq (both variants) and K3 (MOMENT with mode 6 in scope, FULL,
      LIGHT, and mode 6 alone on QUICK's words) against their twins on
      bench512, the opaque corpus, alphagrad and the 200-block mixed set,
@@ -109,11 +113,12 @@ Phases:
  17. the maxq path at 2048^2 on the bench image and on the image with
      alpha, each with its launch counts (one K2, with alpha the list pass
      and mode 7; per K3 ladder a bucket pass and a launch per mode),
-     CUDA-event times of the paths and kernels beside the default tier's,
+     CUDA-event times of the paths and kernels beside the default tier's
+     (mode 7's launch on the maxq search's picks also by device time),
      and one run of each plain twin at the path's shapes held against its
      kernel (the search on both images at alpha weights 1.0 and 2.0,
      with mode 7 on the image with alpha, with its picks on the bench
-     image);
+     image; mode 7's launch alone on the maxq picks at both weights);
  18. K9 (the path's one launch that gives both three-subset lists, and
      the wrapper's three subsets at 16 and 64 shapes and two subsets at
      64), K7 (modes 0 and 2 on the three-subset picks, 1, 3 and 7 on the
@@ -138,15 +143,19 @@ Phases:
      the path's shapes held against it, on the opaque image's inputs and
      on the image with alpha's (its own picks, search words and MOMENT
      words, both tiers);
- 21. K10, the BC6H ranking and K11 (every precision group) against their
-     twins on the HDR corpus contents and the 200-block random / bimodal
-     set, and on config 4's 98,304 face-512 blocks (the twins on the first
-     16,384), unsigned and signed: picks, words and errors equal;
+ 21. K10, the BC6H ranking and K11 (one launch over the six precision
+     groups, and each group alone) against their twins on the HDR corpus
+     contents, the 200-block random / bimodal set and the 520 blocks of
+     tests/golden/bc6h_unshared.npz (there also at the JAX package's
+     picks, and against K11's lane jobs in plain form), and on config 4's
+     98,304 face-512 blocks (the twins on the first 16,384), unsigned and
+     signed: picks, words and errors equal;
  22. the BC6H_SHARED_FIT=False paths: config 4 at face 512 with its launch
-     counts (one K10, one ranking, six K11, one K4) and its words held
+     counts (one K10, one ranking, one K11, one K4) and its words held
      against the plain twins' fold, CUDA-event times of the path, of the
-     default, mid and maxq encodes of the same faces and of each kernel,
-     beside the shared-fit path's in the same phase;
+     default, mid and maxq encodes of the same faces and of each kernel
+     (K11 also by device time, and each group's launch alone), beside the
+     shared-fit path's in the same phase;
  23. BC6H gates with the flag off: the frozen reference's bc6h_hdr_psnr,
      and each corpus content within 0.05 dB of the JAX package's own
      flag-off encode (tests/golden/bc6h_unshared.npz, decoded by K4) and
@@ -295,10 +304,11 @@ BYTES_PER_BLOCK = {"bc7_decode": 16 + 256, "bc7_encode": 64 + 16,
                    "bc7_refine_3sub": 16 + 16,
                    "bc7_refine_3sub_ladder": 16 + 16,
                    # BC6H_SHARED_FIT=False: K10 writes err and words; the
-                   # ranking 4 picks; K11 launches once per precision
-                   # group, each reading 4 candidates
+                   # ranking 4 picks; K11's one launch for the six
+                   # precision groups reads the pixels and 4 candidates
+                   # once and writes err and words
                    "bc6h_1region": 96 + 4 + 16, "bc6h_shapes": 96 + 16,
-                   "bc6h_2region": 6 * (96 + 16 + 4 + 16),
+                   "bc6h_2region": 96 + 16 + 4 + 16,
                    # K8: each of modes 4, 5 and 6's err and words
                    "bc7_single_modes": 64 + 3 * (4 + 16)}
 BC7_PIXEL_BYTES = 64
@@ -356,10 +366,11 @@ BC7_SINGLE_MODES_OPS = 51970
 UNSHARED_PLAIN_BLOCKS = 16384  # face-512 blocks of the K10 / K11 twins
 # (registers, spill stores, spill loads in bytes) of kernel instances, by a
 # piece of each instance's mangled name (NVIDIA H100 80GB HBM3 build;
-# PERF.md section 6): the K9 and K7 teams as first built, and the
-# instances whose code the K9 / K7 redesign moved or templated but did not
-# change. K2's teams are not held here: its fits were templated on the
-# subset count, so its maxq team's spill moved (PERF.md).
+# PERF.md section 6): the K9 and K7 teams, mode 7's team and K11's lane
+# jobs as first built, and the instances whose code the K9 / K7 redesign
+# moved or templated but did not change. K2's teams are not held here:
+# its fits were templated on the subset count, so its maxq team's spill
+# moved (PERF.md).
 PTXAS_RECORDED = {
     "bc7_partition_team_kernelILi0ELb0": (128, 116, 96),
     "bc7_partition_team_kernelILi1ELb0": (128, 36, 28),
@@ -369,12 +380,13 @@ PTXAS_RECORDED = {
     "bc7_shapes_team_kernelILi2E": (56, 0, 0),
     "bc7_shapes_team_kernelILi3E": (64, 0, 0),
     "bc7_single_modes_kernelILb0": (255, 0, 0),
-    "bc7_mode7_kernelILb0": (255, 24, 12),
+    "bc7_mode7_team_kernelILb0": (128, 92, 112),
+    "bc7_mode7_team_kernelILb1": (128, 92, 112),
     "bc6h_refine_unit_kernelILi0ELb0": (72, 0, 0),
     "bc6h_refine_unit_kernelILi1ELb0": (80, 224, 248),
     "bc6h_refine_unit_kernelILi1ELb1": (80, 304, 320),
     "bc6h_1region_kernel": (62, 0, 0),
-    "bc6h_2region_kernel": (80, 0, 0),
+    "bc6h_2region_jobs_kernel": (117, 0, 0),
     "bc6h_shapes_kernel": (53, 0, 0),
 }
 
@@ -527,39 +539,34 @@ def decode_equal(torch, blocks, what: str, signed=None) -> None:
 
 def profile_calls(torch, calls: dict, tries: int = 3) -> dict:
     """{label: [(kernel name, device µs)]}: the CUDA kernels each call of
-    `calls` ({label: fn}) runs, from one torch.profiler record (CUPTI sees
-    the kernels launched through ctypes too). Each call runs in a range of
-    its own and synchronises, so a kernel belongs to the range it starts
-    in. A record that holds no device activity at all (CUPTI delivered
-    none) is taken again, up to `tries` records."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    `calls` ({label: fn}) runs, each call in a torch.profiler record of its
+    own (CUPTI sees the kernels launched through ctypes too), so that an
+    offset between the host's and the device's clocks cannot put a kernel
+    under a neighbouring call. A record that holds no device activity
+    (CUPTI delivered none) is taken again, up to `tries` records."""
+    from torch.profiler import ProfilerActivity, profile
 
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for label, fn in calls.items():
-                with record_function(label):
-                    fn()
-                    torch.cuda.synchronize()
-        events = prof.events()
-        # the ranges' own device-side copies carry their labels
-        device = [e for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.name not in calls
-                  and not e.name.startswith(("Memcpy", "Memset"))]
-        if not device:
-            continue
-        out = {}
-        for label in calls:
-            rng = [e.time_range for e in events if e.name == label
-                   and e.device_type == torch.autograd.DeviceType.CPU][0]
-            out[label] = [(e.name, e.time_range.elapsed_us()) for e in device
-                          if rng.start <= e.time_range.start <= rng.end]
-        return out
-    raise RuntimeError(f"no device activity in {tries} profiler records")
+    out = {}
+    for label, fn in calls.items():
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            device = [(e.name, e.time_range.elapsed_us())
+                      for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.name.startswith(("Memcpy", "Memset"))]
+            if device:
+                out[label] = device
+                break
+        else:
+            raise RuntimeError(f"no device activity for {label} in {tries} "
+                               f"profiler records")
+    return out
 
 
 def host_us(torch, fn, reps: int = 100) -> float:
@@ -808,14 +815,34 @@ def main() -> None:
           "search_words_differ_vs_plain": 0,
           "earlier_ms": EARLIER_OPAQUE_MS})
 
-    # both decode paths and their kernels in one profiler record: each
-    # decode is one CUDA kernel, and the kernels' device times. Config 4's
-    # words as phase 10 makes them (its input, the shipped pipeline).
+    # both decode paths and their kernels, each call in a profiler record
+    # of its own: each decode is one CUDA kernel, and the kernels' device
+    # times. Config 4's words as phase 10 makes them (its input, the
+    # shipped pipeline).
     eq4 = to_dev(np.random.default_rng(2).random(
         (FACE * 2, FACE * 4, 4)).astype(np.float32) * 4.0)
     packed4 = torch.cat(pipelines.hdr_cubemap_pipeline()(eq4))
     words4 = packed4.view(torch.int32).t().contiguous()
-    prof = profile_calls(torch, {
+    # mode 7's launch (on both tiers' picks, in place: a second fold over
+    # a folded result keeps it) and K11's one launch at the paths' shapes
+    px_a = px_of(image_to_blocks(to_dev(bench_image(size, alpha=True)))[0])
+    list_a, count_a = cuda_kernels.bc7_alpha_list(px_a)
+    fold_a = {t: cuda_kernels.bc7_search_picks(px_a, 1.0, t)
+              for t in (bc67.TIER_DEFAULT, bc67.TIER_MAXQ)}
+    faces4 = pipelines.cube_faces(eq4)
+    px4 = bc6h.px_of_blocks(torch.cat([image_to_blocks(faces4[i])[0]
+                                       for i in range(6)]), False)
+    sb4 = cuda_kernels.bc6h_shapes(px4)
+    teams = {
+        "bc7_mode7": lambda: cuda_kernels.bc7_mode7(
+            px_a, fold_a[bc67.TIER_DEFAULT][2], list_a, count_a,
+            *fold_a[bc67.TIER_DEFAULT][:2]),
+        "bc7_mode7_maxq": lambda: cuda_kernels.bc7_mode7(
+            px_a, fold_a[bc67.TIER_MAXQ][2], list_a, count_a,
+            *fold_a[bc67.TIER_MAXQ][:2]),
+        "bc6h_2region": lambda: cuda_kernels.bc6h_2region(
+            px4, sb4, range(6), False)}
+    prof = profile_calls(torch, {**teams,
         "decode_bc7": lambda: bc67.decode_bc7(enc),
         "k1_f32": lambda: cuda_kernels.bc7_decode_blocks(enc),
         "k1_words": lambda: cuda_kernels.bc7_decode(w_final),
@@ -826,14 +853,19 @@ def main() -> None:
         "k4_words": lambda: cuda_kernels.bc6h_decode(words4, False),
         "k4_f32_signed": lambda: cuda_kernels.bc6h_decode_blocks(packed4,
                                                                  True)})
-    for path in ("decode_bc7", "decode_bc6h"):
+    for path in ("decode_bc7", "decode_bc6h", *teams):
         check(len(prof[path]) == 1, f"{path} runs {prof[path]}")
+    emit({"phase": "kernel_profile", "card": smi,
+          "alpha_blocks": int(count_a),
+          "kernels": {k: prof[k][0][0] for k in teams},
+          "device_ms": {k: prof[k][0][1] * 1e-3 for k in teams}})
     emit({"phase": "decode_profile", "card": smi,
           "cuda_kernels_a_decode": {p: len(prof[p]) for p in
                                     ("decode_bc7", "decode_bc6h")},
           "kernels": {p: prof[p][0][0] for p in ("decode_bc7",
                                                  "decode_bc6h")},
-          "device_us": {k: [t for _, t in v] for k, v in prof.items()}})
+          "device_us": {k: [t for _, t in v] for k, v in prof.items()
+                        if k not in teams}})
 
     nb_of = {"bc7_decode": px2k.shape[1], "bc7_encode": px2k.shape[1],
              "bc7_refine": px2k.shape[1],
@@ -1291,6 +1323,10 @@ def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
                 px, picks, e_f, w_f, aw)))[0]
             same(w_7, plain["mode7"][1], f"mode 7 words {what}")
             same(e_7, plain["mode7"][0], f"mode 7 errors {what}")
+            if label != f"alpha{size}" or aw == 1.0:
+                e_j, w_j = bc67._mode7_jobs_plain(px, picks, e_f, w_f, aw)
+                same(w_7, w_j, f"mode 7 team (plain form) words {what}")
+                same(e_7, e_j, f"mode 7 team (plain form) errors {what}")
             # the whole search with mode 7, and K3 after it
             e_k, w_k = cuda_kernels.bc7_encode(px, alpha, aw)
             r_k = cuda_kernels.bc7_refine(px, w_k, ralpha, aw)
@@ -1308,7 +1344,8 @@ def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
                   "blocks": px.shape[1], "alpha_blocks": n_alpha,
                   "words_equal": True, "errors_equal": True,
                   "steps_equal": ["search (1, 3, 5, 6, 4)", "picks",
-                                  "alpha list", "mode 7"],
+                                  "alpha list", "mode 7",
+                                  "mode 7 team (plain form)"],
                   "K3_words_equal": True,
                   "refined_blocks": int((r_k != w_k).any(dim=0).sum()),
                   "search_modes": modes})
@@ -1646,6 +1683,23 @@ def bc7_maxq_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
             same(got, plain[key], f"K3 {key} {name} {size}^2")
             max_err[k3] = max(max_err.get(k3, 0.0),
                               word_diff(got, plain[key]))
+
+    # mode 7's launch alone on the maxq search's picks, at both weights
+    px_a = states["alpha"][0]
+    for aw in ALPHA_WEIGHTS:
+        e_q, w_q, p_q = cuda_kernels.bc7_search_picks(px_a, aw, tier)
+        blocks_q, count_q = cuda_kernels.bc7_alpha_list(px_a)
+        e_7, w_7 = e_q.clone(), w_q.clone()
+        cuda_kernels.bc7_mode7(px_a, p_q, blocks_q, count_q, e_7, w_7, aw)
+        t_7 = event_ms(lambda: plain.update(mode7=bc67._mode7_fold_plain(
+            px_a, p_q, e_q, w_q, aw)))[0]
+        same(w_7, plain["mode7"][1], f"mode 7 words, maxq picks, aw={aw}")
+        same(e_7, plain["mode7"][0], f"mode 7 errors, maxq picks, aw={aw}")
+        if aw == 1.0:
+            plain_ms["bc7_mode7_maxq"] = t_7
+    emit({"phase": "mode7_maxq_picks", "blocks": px_a.shape[1],
+          "alpha_blocks": int(count_q), "aws": list(ALPHA_WEIGHTS),
+          "words_errors_equal": True})
 
     med = {}
     (px_o, _, ws_o, wm_o), (px_a, _, ws_a, wm_a) = (states["opaque"],
@@ -2109,15 +2163,20 @@ def bc6h_unshared_phases(torch, to_dev, event_ms, smi) -> dict:
 
     max_err = {"bc6h_1region": 0.0, "bc6h_shapes": 0.0, "bc6h_2region": 0.0}
 
+    all_groups = range(len(groups))
+
     def hold(px, signed, what, n_plain=None):
-        """K10, the ranking and K11 for every group on px, held against
-        their twins on the first n_plain blocks (all by default); the
-        largest differences go into max_err. Returns the twins' times,
-        the kernels' outputs and the twins' fold."""
+        """K10, the ranking and K11 (its one launch over the six groups,
+        and each group alone) on px, held against their twins on the first
+        n_plain blocks (all by default); the largest differences go into
+        max_err. Returns the twins' times, the kernels' outputs (K11's
+        one launch) and the twins' fold over (K10, group 0, ..., group
+        5)."""
         e1, w1 = cuda_kernels.bc6h_1region(px, signed)
         sb = cuda_kernels.bc6h_shapes(px)
-        res2 = [cuda_kernels.bc6h_2region(px, sb, g, signed)
-                for g in range(len(groups))]
+        k11 = cuda_kernels.bc6h_2region(px, sb, all_groups, signed)
+        res2 = [cuda_kernels.bc6h_2region(px, sb, (g,), signed)
+                for g in all_groups]
         n = px.shape[1] if n_plain is None else n_plain
         pp = px[:, :n].contiguous()
         out, t = {}, {}
@@ -2144,27 +2203,62 @@ def bc6h_unshared_phases(torch, to_dev, event_ms, smi) -> dict:
                                           finite_diff(res2[g][0][:n],
                                                       out["g"][0]))
             plain2.append(out["g"])
+        # the one launch: the groups' twins folded in group order, the
+        # first taken as it is (_bc6h_2region_groups_plain)
+        k11_plain = None
+        for r in plain2:
+            k11_plain = bc6h._fold_first(k11_plain, *r)
+        same(k11[1][:, :n], k11_plain[1], f"K11 one launch words {what}")
+        same(k11[0][:n], k11_plain[0], f"K11 one launch errors {what}")
+        max_err["bc6h_2region"] = max(max_err["bc6h_2region"],
+                                      finite_diff(k11[0][:n], k11_plain[0]))
         inf = {f"group{g}_no_fit": int((~torch.isfinite(r[0])).sum())
                for g, r in enumerate(res2)}
-        return t, (e1, w1), sb, res2, fold([out["k10"]] + plain2), inf
+        inf["one_launch_no_fit"] = int((~torch.isfinite(k11[0])).sum())
+        return (t, (e1, w1), sb, k11, fold([out["k10"]] + plain2), inf)
 
     # 21. K10, the ranking and K11 against their twins -------------------
     corpus = np.load(os.path.join(GOLDEN, "corpus.npz"))
 
+    frozen_words = np.load(os.path.join(GOLDEN, "bc6h_unshared.npz"))
     for signed in (False, True):
+        pre = "s_" if signed else "u_"
         contents = [(c, image_to_blocks(to_dev(corpus[c]))[0])
                     for c in HDR_CORPUS]
         contents.append(("random", to_dev(hdr_random_set(signed))))
+        contents.append(("bc6h_unshared.npz",
+                         to_dev(frozen_words[pre + "blocks"])))
         for label, blocks in contents:
             px = bc6h.px_of_blocks(blocks, signed)
             what = f"{label} signed={signed}"
-            _, _, _, _, (fe, fw), inf = hold(px, signed, what)
+            _, k10, _, k11, (fe, fw), inf = hold(px, signed, what)
             e_s, w_s = bc6h._search_unshared(px, signed)
             same(w_s, fw, f"unshared search words {what}")
             same(e_s, fe, f"unshared search errors {what}")
+            # the search's fold of K10 and the one launch
+            e_1, w_1 = fold([k10, k11])
+            same(w_1, fw, f"K10 + K11 one launch fold words {what}")
+            same(e_1, fe, f"K10 + K11 one launch fold errors {what}")
+            extra = {}
+            if label == "bc6h_unshared.npz":
+                # at the JAX package's picks: the one launch against the
+                # groups' twin and K11's lane jobs in plain form
+                picks = to_dev(frozen_words[pre + "picks"])
+                e_k, w_k = cuda_kernels.bc6h_2region(px, picks, all_groups,
+                                                     signed)
+                e_g, w_g = bc6h._bc6h_2region_groups_plain(
+                    px, picks, all_groups, signed)
+                e_j, w_j = bc6h._bc6h_2region_jobs_fold_plain(
+                    bc6h._bc6h_2region_jobs_plain(px, picks, all_groups,
+                                                  signed))
+                same(w_k, w_g, f"K11 words at the JAX picks {what}")
+                same(e_k, e_g, f"K11 errors at the JAX picks {what}")
+                same(w_j, w_g, f"K11 jobs (plain form) words {what}")
+                same(e_j, e_g, f"K11 jobs (plain form) errors {what}")
+                extra = {"jax_picks_equal": True, "jobs_plain_equal": True}
             emit({"phase": "K10_K11", "content": label, "signed": signed,
                   "blocks": px.shape[1], "picks_words_errors_equal": True,
-                  "search_words_equal": True, **inf})
+                  "search_words_equal": True, **extra, **inf})
 
     rng = np.random.default_rng(2)
     eq = to_dev(rng.random((FACE * 2, FACE * 4, 4)).astype(np.float32)
@@ -2177,11 +2271,11 @@ def bc6h_unshared_phases(torch, to_dev, event_ms, smi) -> dict:
     for signed in (False, True):
         px = bc6h.px_of_blocks(blocks4, signed)
         what = f"face {FACE} signed={signed}"
-        t, k10, sb, res2, (fe, fw), inf = hold(px, signed, what, n_plain)
+        t, k10, sb, k11, (fe, fw), inf = hold(px, signed, what, n_plain)
         e_s, w_s = bc6h._search_unshared(px, signed)
         same(w_s[:, :n_plain], fw, f"unshared search words {what}")
         same(e_s[:n_plain], fe, f"unshared search errors {what}")
-        held[signed] = (px, t, k10, sb, res2, e_s, w_s)
+        held[signed] = (px, t, k10, sb, k11, e_s, w_s)
         emit({"phase": "K10_K11", "content": f"face{FACE}", "signed": signed,
               "blocks": nb4, "plain_blocks": n_plain,
               "picks_words_errors_equal": True, "search_words_equal": True,
@@ -2189,7 +2283,7 @@ def bc6h_unshared_phases(torch, to_dev, event_ms, smi) -> dict:
 
     # 22. the BC6H_SHARED_FIT=False paths at face 512 -----------------------
     pipe = pipelines.hdr_cubemap_pipeline()
-    px4, plain_ms, k10, sb4, res2, e_s, w_s = held[False]
+    px4, plain_ms, k10, sb4, k11, e_s, w_s = held[False]
     tiers = (("default", 0), ("mid", bc6h._BC6H_MID),
              ("maxq", bc6h._BC7_MAXQUALITY))
     saved = bc6h.BC6H_SHARED_FIT
@@ -2202,8 +2296,8 @@ def bc6h_unshared_phases(torch, to_dev, event_ms, smi) -> dict:
         torch.cuda.synchronize()
         counts = {k: v for k, v in cuda_kernels.launch_counts().items()
                   if v}
-        want = {"bc6h_1region": 1, "bc6h_shapes": 1,
-                "bc6h_2region": len(groups), "bc6h_decode": 1}
+        want = {"bc6h_1region": 1, "bc6h_shapes": 1, "bc6h_2region": 1,
+                "bc6h_decode": 1}
         check(counts == want, f"config 4 unshared launch counts {counts}")
         check(tuple(dec.shape) == (nb4, 16, 4)
               and bool(torch.isfinite(dec).all()), "config 4 unshared output")
@@ -2217,7 +2311,7 @@ def bc6h_unshared_phases(torch, to_dev, event_ms, smi) -> dict:
         counts_t = {k: v for k, v in cuda_kernels.launch_counts().items()
                     if v}
         check(counts_t == {"bc6h_1region": 2, "bc6h_shapes": 2,
-                           "bc6h_2region": 2 * len(groups),
+                           "bc6h_2region": 2,
                            "bc6h_unit_buckets": 2, "bc6h_refine": 2,
                            "bc6h_refine_cross2": 2},
               f"unshared mid / maxq launch counts {counts_t}")
@@ -2230,10 +2324,13 @@ def bc6h_unshared_phases(torch, to_dev, event_ms, smi) -> dict:
                 lambda f=f: bc6h.encode_bc6h(blocks4, False, f))
         runs["bc6h_1region"] = lambda: cuda_kernels.bc6h_1region(px4, False)
         runs["bc6h_shapes"] = lambda: cuda_kernels.bc6h_shapes(px4)
-        for g in range(len(groups)):
+        runs["bc6h_2region"] = lambda: cuda_kernels.bc6h_2region(
+            px4, sb4, all_groups, False)
+        # each group's launch alone, for the record
+        for g in all_groups:
             runs[f"bc6h_2region_group{g}"] = (
-                lambda g=g: cuda_kernels.bc6h_2region(px4, sb4, g, False))
-        runs["fold"] = lambda: fold([k10] + res2)
+                lambda g=g: cuda_kernels.bc6h_2region(px4, sb4, (g,), False))
+        runs["fold"] = lambda: fold([k10, k11])
         ms = {}
         for name, fn in runs.items():
             fn()
@@ -2252,12 +2349,13 @@ def bc6h_unshared_phases(torch, to_dev, event_ms, smi) -> dict:
     texels = 6 * FACE * FACE
     k_ms = {"bc6h_1region": ms["bc6h_1region"],
             "bc6h_shapes": ms["bc6h_shapes"],
-            "bc6h_2region": sum(ms[f"bc6h_2region_group{g}"]
-                                for g in range(len(groups)))}
+            "bc6h_2region": ms["bc6h_2region"]}
     emit({"phase": "config4_unshared", "card": smi, "face": FACE,
           "blocks": nb4, "launches": counts, "tier_launches": counts_t,
           "log_psnr": psnr, "log_psnr_shared": psnr_shared, "ms": ms,
           "kernel_ms": k_ms,
+          "bc6h_2region_groups_alone_ms": sum(
+              ms[f"bc6h_2region_group{g}"] for g in all_groups),
           "path_mtexels_per_s": texels / (ms["path"] * 1e-3) / 1e6,
           "shared_ms": shared_ms,
           "shared_path_mtexels_per_s":
@@ -2272,7 +2370,6 @@ def bc6h_unshared_phases(torch, to_dev, event_ms, smi) -> dict:
     # (tests/golden/bc6h_unshared.npz), decoded here by K4: the corpus
     # floors were set for the shipped (shared-fit) search, and the JAX
     # package's flag-off words fall below two of them (hdr, hdr_sun).
-    frozen_words = np.load(os.path.join(GOLDEN, "bc6h_unshared.npz"))
     frozen, n_differ = {}, {}
     bc6h.BC6H_SHARED_FIT = False
     try:

@@ -1478,12 +1478,31 @@ def _mode7_fold_plain(px: torch.Tensor, picks: torch.Tensor,
     """Plain twin of the mode-7 launch: mode 7 (K7's twin) on picks [4, NB]
     of the blocks with alpha, folded into a (1, 3, 5, 6, 4) search's err
     [NB] and words [4, NB] int32 by _take7. Returns (err, words)."""
+    return _fold_mode7(px, picks, err, words,
+                       lambda p, s: _partition_mode_plain(p, s, 7, aw))
+
+
+def _mode7_jobs_plain(px: torch.Tensor, picks: torch.Tensor,
+                      err: torch.Tensor, words: torch.Tensor,
+                      aw: float = 1.0):
+    """The mode-7 launch's team in plain form (used by the tests and
+    chip_smoke.py): over the listed blocks, candidate rank k a job
+    (_partition_jobs_plain, both subsets in one pass), the jobs folded in
+    rank order (_partition_jobs_fold_plain), then _take7. Returns (err,
+    words), _mode7_fold_plain's."""
+    return _fold_mode7(px, picks, err, words,
+                       lambda p, s: _partition_jobs_fold_plain(
+                           _partition_jobs_plain(p, s, 7, aw)))
+
+
+def _fold_mode7(px, picks, err, words, mode7):
+    """mode7(px, picks) [(err, words)] of the blocks with alpha, gathered,
+    folded into (err, words) by _take7."""
     blocks = _alpha_list_plain(px).to(torch.int64)
     err, words = err.clone(), words.clone()
     if not len(blocks):
         return err, words
-    err7, words7 = _partition_mode_plain(px[:, blocks], picks[:, blocks], 7,
-                                         aw)
+    err7, words7 = mode7(px[:, blocks], picks[:, blocks])
     take = _take7(err[blocks], words[:, blocks], err7)
     err[blocks] = torch.where(take, err7, err[blocks])
     words[:, blocks] = torch.where(take[None, :], words7, words[:, blocks])

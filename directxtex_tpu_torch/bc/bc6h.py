@@ -953,42 +953,157 @@ def bc6h_shape_picks(px: torch.Tensor) -> torch.Tensor:
 
 def bc6h_2region_words(px: torch.Tensor, s_blks: torch.Tensor, group: int,
                        signed: bool):
-    """K11 wrapper: the rows of precision group `group` (an index into
-    _bc6h_row_groups()) over the candidates s_blks [C, NB] int32. px
-    [48, NB] int32 F16-ints -> (err [NB] f32, words [4, NB] int32). A CUDA
-    tensor launches the kernel, a CPU tensor runs the plain twin."""
+    """K11 wrapper for one group: the rows of precision group `group` (an
+    index into _bc6h_row_groups()) over the candidates s_blks [C, NB]
+    int32. px [48, NB] int32 F16-ints -> (err [NB] f32, words [4, NB]
+    int32). A CUDA tensor launches the kernel, a CPU tensor runs the plain
+    twin."""
+    groups = _bc6h_row_groups()
+    if group not in range(len(groups)):
+        raise ValueError(f"group {group}: the precision groups are "
+                         f"0-{len(groups) - 1}, {groups}")
+    return bc6h_2region_groups_words(px, s_blks, (group,), signed)
+
+
+def bc6h_2region_groups_words(px: torch.Tensor, s_blks: torch.Tensor,
+                              groups, signed: bool):
+    """K11 wrapper: the rows of the precision groups `groups` (indices into
+    _bc6h_row_groups(), ascending) over the candidates s_blks [C, NB]
+    int32, in one launch. px [48, NB] int32 F16-ints -> (err [NB] f32,
+    words [4, NB] int32): the least error, the first in (row, candidate)
+    order, and where no row fits the first group's first row's first
+    candidate's words. A CUDA tensor launches the kernel, a CPU tensor
+    runs the plain twin (_bc6h_2region_groups_plain)."""
     _check_px48(px)
     if s_blks.dtype != torch.int32 or s_blks.dim() != 2 \
             or s_blks.shape[1] != px.shape[1]:
         raise ValueError(f"s_blks must be [C, NB] int32, got "
                          f"{tuple(s_blks.shape)} {s_blks.dtype}")
-    groups = _bc6h_row_groups()
-    if group not in range(len(groups)):
-        raise ValueError(f"group {group}: the precision groups are "
-                         f"0-{len(groups) - 1}, {groups}")
+    groups = _check_groups(groups)
     if _on_cuda(px, s_blks):
-        return cuda_kernels.bc6h_2region(px, s_blks, group, signed)
-    return _bc6h_2region_plain(px, s_blks, groups[group], signed)
+        return cuda_kernels.bc6h_2region(px, s_blks, groups, signed)
+    return _bc6h_2region_groups_plain(px, s_blks, groups, signed)
+
+
+def _check_groups(groups) -> tuple:
+    groups = tuple(int(g) for g in groups)
+    n = len(_bc6h_row_groups())
+    if not groups or list(groups) != sorted(set(groups)) \
+            or not all(g in range(n) for g in groups):
+        raise ValueError(f"groups {groups}: precision groups 0-{n - 1}, "
+                         f"ascending, each once")
+    return groups
+
+
+def _bc6h_2region_groups_plain(px: torch.Tensor, s_blks: torch.Tensor,
+                               groups, signed: bool):
+    """Plain twin of K11 over several precision groups: each group's
+    _bc6h_2region_plain, folded in group order from the first group's
+    result as it is, then with a strict `<` (the flat fold over (row,
+    candidate) in row order). -> (err [NB] f32, words [4, NB] int32)."""
+    all_groups = _bc6h_row_groups()
+    best = None
+    for g in _check_groups(groups):
+        best = _fold_first(best, *_bc6h_2region_plain(px, s_blks,
+                                                      all_groups[g], signed))
+    return best
+
+
+# K11's lane jobs in plain form (used by the tests and chip_smoke.py; the
+# twin itself is _bc6h_2region_groups_plain): job j = k + C * i is
+# candidate rank k on the i-th group of the mask, keeping its best row by
+# (error, position row * C + k) from (inf, past the last position); job j
+# runs on warp j % 4, and the warps' bests fold by the same order
+
+_NO_POSITION = 1 << 31
+
+
+def _two_region_jobs_slice(px_int, s_blks, groups, signed: bool):
+    nb = px_int.shape[2]
+    dev = px_int.device
+    tabs = _tables(dev)
+    n_cand = s_blks.shape[0]
+    all_groups = _bc6h_row_groups()
+    jobs = []
+    for g in groups:
+        rows = all_groups[g]
+        for k, s_blk in enumerate(s_blks.to(torch.int64)):
+            pmask = tabs["parts1"][s_blk].t()
+            mask_list = [pmask == 0, pmask == 1]
+            anchors = [0, tabs["fix1"][s_blk, 1]]
+            terr, q_pairs, idx = _bc6h_eval_subsets(
+                px_int, mask_list, anchors, rows[0], signed)
+            best = (torch.full((nb,), float("inf"), device=dev),
+                    torch.full((nb,), _NO_POSITION, dtype=torch.int64,
+                               device=dev),
+                    torch.zeros((4, nb), dtype=torch.int64, device=dev))
+            for row in rows:
+                err, pairs = _bc6h_transform_fit_t(q_pairs, terr, row, signed)
+                best = _keep_beating(
+                    best, err,
+                    torch.full((nb,), row * n_cand + k, dtype=torch.int64,
+                               device=dev),
+                    _bc6h_emit(row, s_blk, pairs, idx, nb, dev))
+            jobs.append(best)
+    return jobs
+
+
+def _bc6h_2region_jobs_plain(px: torch.Tensor, s_blks: torch.Tensor, groups,
+                             signed: bool):
+    """Plain twin of K11's lane jobs: px [48, NB] int32 F16-ints, s_blks
+    [C, NB] int32 -> [(err [NB] f32, order [NB] int64, words [4, NB]
+    int32)] in job order (j = k + C * i: candidate rank k, the i-th group
+    of `groups`), each its best row by (error, position row * C + k)."""
+    _check_px48(px)
+    groups = _check_groups(groups)
+    parts = [_two_region_jobs_slice(
+        _px_lane_major(px[:, s:s + _PLAIN_SEARCH_SLICE]),
+        s_blks[:, s:s + _PLAIN_SEARCH_SLICE], groups, signed)
+        for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE)]
+    return [(torch.cat([p[j][0] for p in parts]),
+             torch.cat([p[j][1] for p in parts]),
+             torch.cat([_words_i32(p[j][2]) for p in parts], dim=1))
+            for j in range(len(parts[0]))]
+
+
+def _bc6h_2region_jobs_fold_plain(jobs, n_warps: int = 4):
+    """Plain twin of K11's fold: job j on warp j % n_warps, each warp's
+    best of its jobs by (error, position), then the warps' bests by the
+    same, each from (inf, past the last position, zero words) -> (err
+    [NB] f32, words [4, NB] int32)."""
+    def none():
+        return (torch.full_like(jobs[0][0], float("inf")),
+                torch.full_like(jobs[0][1], _NO_POSITION),
+                torch.zeros_like(jobs[0][2]))
+
+    fold = none()
+    for w in range(n_warps):
+        best = none()
+        for err, order, words in jobs[w::n_warps]:
+            best = _keep_beating(best, err, order, words)
+        fold = _keep_beating(fold, *best)
+    return fold[0], fold[2]
 
 
 def _search_unshared(px: torch.Tensor, signed: bool):
     """The BC6H_SHARED_FIT=False search (bc67.py:3497-3535): K10 (rows
-    10-13), the shape ranking, K11 for each precision group, then a
-    strict-`<` fold over (K10, group 0, ..., group 5) from (inf, zero
-    words). Every piece runs where px lies (kernel or plain twin). px
-    [48, NB] int32 F16-ints -> (err [NB] f32, words [4, NB] int32).
+    10-13), the shape ranking, one K11 launch over the six precision
+    groups, then a strict-`<` fold over (K10, K11) from (inf, zero words).
+    Every piece runs where px lies (kernel or plain twin). px [48, NB]
+    int32 F16-ints -> (err [NB] f32, words [4, NB] int32).
 
-    The nested folds (within a row, across a group's rows, across the
+    The nested folds (within a row, across the groups' rows, across the
     launches) pick the first least error in (row, candidate) order, which
-    is the jnp path's one flat fold. A launch whose every candidate reads
-    inf on a block hands its first candidate's words to this fold, which
+    is the jnp path's one flat fold. Where every two-region row reads inf
+    on a block, K11 hands its first candidate's words to this fold, which
     never takes an infinite error: where every row reads inf the words
     stay zero, as in the jnp path."""
     _check_px48(px)
     s_blks = bc6h_shape_picks(px)
-    return _fold_launches([bc6h_1region_words(px, signed)] + [
-        bc6h_2region_words(px, s_blks, g, signed)
-        for g in range(len(_bc6h_row_groups()))])
+    return _fold_launches([
+        bc6h_1region_words(px, signed),
+        bc6h_2region_groups_words(px, s_blks,
+                                  range(len(_bc6h_row_groups())), signed)])
 
 
 def _fold_launches(results):

@@ -16,7 +16,8 @@ live in bc67.py, and bc67's wrappers call these only for CUDA tensors.
        (variants: bc7_encode.cu the default tier, bc7_encode_quick.cu
        mode 6 alone, bc7_encode_maxq.cu the maxq tier; with mode 7 the
        search of the tier, then bc7_alpha_list and bc7_mode7, both in
-       csrc/bc7_mode7.cu)
+       csrc/bc7_mode7.cu; mode 7's launch a team of four warps per 32
+       listed blocks, one candidate a warp)
     K3 bc7_refine  csrc/bc7_refine.cuh replaces pallas_kernels.py:2667
        (a bucket pass, bc7_mode_buckets in bc7_refine.cu, then one launch
        per mode in scope of bc7_refine_mode_kernel, mode M's instances
@@ -45,6 +46,7 @@ live in bc67.py, and bc67's wrappers call these only for CUDA tensors.
        pallas_kernels.py:1714
     K10 bc6h_1region csrc/bc6h_1region.cu replaces pallas_kernels.py:3789
     K11 bc6h_2region csrc/bc6h_2region.cu replaces pallas_kernels.py:3811
+       (lane jobs: one launch covers the precision groups of a mask)
     bc6h_shapes csrc/bc6h_shapes.cu, the BC6H shape ranking as a launch
        of its own (partition_shapes_pallas at 32 shapes, axis_w 0,
        pallas_kernels.py:1850), for K11's candidates
@@ -269,7 +271,8 @@ def bc7_mode7(px: torch.Tensor, picks: torch.Tensor, blocks: torch.Tensor,
               count: torch.Tensor, err: torch.Tensor, words: torch.Tensor,
               aw: float = 1.0) -> None:
     """Mode 7 of the listed blocks (bc7_alpha_list's blocks and count) on
-    their four shapes (picks [4, NB] int32), each fitted on its own, folded
+    their four shapes (picks [4, NB] int32, one a warp of a team of four
+    per 32 listed blocks), the first of least error in rank order, folded
     in place into a (1, 3, 5, 6, 4) search's err [NB] f32 and words
     [4, NB] int32 as the fold over (1, 3, 5, 6, 7, 4) would: mode 7 takes
     a block where its error is below the search's, or equal to it where
@@ -518,12 +521,15 @@ def bc6h_shapes(px: torch.Tensor) -> torch.Tensor:
     return s_blks
 
 
-def bc6h_2region(px: torch.Tensor, s_blks: torch.Tensor, group: int,
+def bc6h_2region(px: torch.Tensor, s_blks: torch.Tensor, groups,
                  signed: bool):
     """K11: px [48, NB] int32 F16-ints, s_blks [C, NB] int32 shapes 0..31
-    -> (err [NB] f32, words [4, NB] int32), the rows of precision group
-    `group` (0-5: rows (0,) (1,) (2, 3, 4) (5,) (6, 7, 8) (9,)) over the
-    candidates, each evaluated in full once for the group."""
+    -> (err [NB] f32, words [4, NB] int32), the rows of the precision
+    groups `groups` (indices 0-5: rows (0,) (1,) (2, 3, 4) (5,) (6, 7, 8)
+    (9,)) over the candidates in one launch, each candidate evaluated in
+    full once per group; the least error, the first in (row, candidate)
+    order, and where no row fits the first group's first row's first
+    candidate's words."""
     _check(px, "px", 48)
     nb = px.shape[1]
     if s_blks.dim() != 2 or s_blks.shape[0] < 1:
@@ -532,14 +538,18 @@ def bc6h_2region(px: torch.Tensor, s_blks: torch.Tensor, group: int,
     _check(s_blks, "s_blks", s_blks.shape[0], nb)
     if px.device != s_blks.device:
         raise ValueError(f"px on {px.device}, s_blks on {s_blks.device}")
-    if group not in range(6):
-        raise ValueError(f"K11 launches precision groups 0-5; got {group}")
+    groups = tuple(groups)
+    if not groups or any(g not in range(6) for g in groups) \
+            or len(set(groups)) != len(groups):
+        raise ValueError(f"K11 takes precision groups 0-5, each once; got "
+                         f"{groups}")
     err = torch.empty(nb, dtype=torch.float32, device=px.device)
     words = torch.empty((4, nb), dtype=torch.int32, device=px.device)
     if nb:
         KERNELS["bc6h_2region"].launch(
             (px, s_blks, err, words),
-            (nb, s_blks.shape[0], group, int(bool(signed))), px.device)
+            (nb, s_blks.shape[0], sum(1 << g for g in groups),
+             int(bool(signed))), px.device)
     return err, words
 
 

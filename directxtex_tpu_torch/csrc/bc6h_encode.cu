@@ -165,42 +165,6 @@ __device__ __forceinline__ float rescore_subset(const P& px, unsigned msk,
 // Both regions of a two-region candidate in one pass over the 16 pixels:
 // pixel i takes region (m1 >> i) & 1's state and adds only to its sums
 // ---------------------------------------------------------------------------
-// mag_cap of each region
-template <class P>
-__device__ __forceinline__ void mag_cap_pair(const P& px, unsigned m1,
-                                             float mi[2][3], float ma[2][3],
-                                             float cap[2][3]) {
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      mi[s][c] = 1e9f;
-      ma[s][c] = -1e9f;
-    }
-  }
-#pragma unroll 4
-  for (int i = 0; i < 16; ++i) {
-    const bool s1 = (m1 >> i) & 1u;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float x = px.f(c, i);
-      if (s1) {
-        mi[1][c] = fminf(mi[1][c], x);
-        ma[1][c] = fmaxf(ma[1][c], x);
-      } else {
-        mi[0][c] = fminf(mi[0][c], x);
-        ma[0][c] = fmaxf(ma[0][c], x);
-      }
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      cap[s][c] = fmaxf(fabsf(mi[s][c]), fabsf(ma[s][c])) + 1024.0f;
-  }
-}
-
 // float_assign of each region; writes every entry of the plane
 template <int K, class P>
 __device__ __forceinline__ unsigned long long float_assign_pair(
@@ -237,75 +201,6 @@ __device__ __forceinline__ unsigned long long float_assign_pair(
     idx_set(idx, i, (int)(up ? kf + 1.0f : (dn ? kf - 1.0f : kf)));
   }
   return idx;
-}
-
-// ls_refit of each region (a pixel of the other region adds exact zeros
-// to the one-region sums, so leaving it out changes no bit)
-template <int K, bool INT_W, class P>
-__device__ __forceinline__ void ls_refit_pair(const P& px, unsigned m1,
-                                              unsigned long long idx,
-                                              const float cap[2][3],
-                                              bool sgn, float e0[2][3],
-                                              float e1[2][3]) {
-  float A[2] = {0.0f, 0.0f}, B[2] = {0.0f, 0.0f}, C[2] = {0.0f, 0.0f};
-#pragma unroll 4
-  for (int i = 0; i < 16; ++i) {
-    const bool s1 = (m1 >> i) & 1u;
-    const float x = (INT_W ? (float)pal_weight<K>(idx_at(idx, i))
-                           : pal_weight_f<K>((float)idx_at(idx, i)))
-                    * (1.0f / 64.0f);
-    const float a = 1.0f - x, b = x;
-    if (s1) {
-      A[1] = A[1] + a * a;
-      B[1] = B[1] + a * b;
-      C[1] = C[1] + b * b;
-    } else {
-      A[0] = A[0] + a * a;
-      B[0] = B[0] + a * b;
-      C[0] = C[0] + b * b;
-    }
-  }
-  float inv[2];
-  bool ok[2];
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const float det = A[s] * C[s] - B[s] * B[s];
-    ok[s] = fabsf(det) > 1e-6f;
-    inv[s] = 1.0f / (ok[s] ? det : 1.0f);
-  }
-  const float lim = (float)kF16Max, lo = sgn ? -lim : 0.0f;
-#pragma unroll 1
-  for (int c = 0; c < 3; ++c) {
-    float r0[2] = {0.0f, 0.0f}, r1[2] = {0.0f, 0.0f};
-#pragma unroll 4
-    for (int i = 0; i < 16; ++i) {
-      const bool s1 = (m1 >> i) & 1u;
-      const float x = (INT_W ? (float)pal_weight<K>(idx_at(idx, i))
-                             : pal_weight_f<K>((float)idx_at(idx, i)))
-                      * (1.0f / 64.0f);
-      const float a = 1.0f - x, b = x;
-      const float p = px.f(c, i);
-      if (s1) {
-        r0[1] = r0[1] + a * p;
-        r1[1] = r1[1] + b * p;
-      } else {
-        r0[0] = r0[0] + a * p;
-        r1[0] = r1[0] + b * p;
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const float lo_c = fmaxf(-cap[s][c], lo), hi_c = fminf(cap[s][c], lim);
-      const float n0 =
-          fminf(fmaxf((C[s] * r0[s] - B[s] * r1[s]) * inv[s], lo_c), hi_c);
-      const float n1 =
-          fminf(fmaxf((A[s] * r1[s] - B[s] * r0[s]) * inv[s], lo_c), hi_c);
-      if (ok[s]) {
-        e0[s][c] = n0;
-        e1[s][c] = n1;
-      }
-    }
-  }
 }
 
 // shared_fit of each region
@@ -382,18 +277,6 @@ __device__ __forceinline__ void rescore_pair(const P& px, unsigned m1,
       err[s] = fminf(err_r[s], err[s]);
     }
   }
-}
-
-struct Best {
-  float err;
-  int order;   // position of the candidate in the twin's fold order
-  Bits128 w;
-};
-
-// the twin's strict-`<` fold, independent of visiting order
-__device__ __forceinline__ bool beats(const Best& best, float err,
-                                      int order) {
-  return err < best.err || (err == best.err && order < best.order);
 }
 
 // The one-region job: rows 10-13 off one trajectory over the whole block

@@ -5,10 +5,14 @@
 //   1. bc7_alpha_list: the blocks with some alpha below 255, listed (one
 //      __ballot_sync + __popc per warp, a shared-memory atomic per warp,
 //      one global atomicAdd per CTA; the count stays on the card);
-//   2. bc7_mode7: per listed block, mode 7 on the search's four shapes,
-//      each candidate fitted on its own (one subset at a time,
-//      eval_partition<7>, the best by a strict `<` in rank order), folded
-//      into the search's result in place.
+//   2. bc7_mode7: mode 7 on the search's four shapes over the list, as
+//      K7's team (bc7_partition.cuh): a CTA of four warps takes 32
+//      consecutive list entries, one a lane, and stages their blocks'
+//      pixels in shared memory through the list; candidate rank k runs
+//      on warp k, both subsets of the candidate fitted in one pass
+//      (eval_partition_ns<7>, pixels read from shared memory at each
+//      pass); warp 0 folds the four candidates in rank order with a
+//      strict `<` and folds the result into the search's in place.
 // A block not listed keeps the search's result: its mode-7 error is inf
 // (pallas_kernels.py:1952-1956), which never wins.
 //
@@ -33,10 +37,15 @@
 // Bound: operations for mode 7 (about 2.3 x 10^4 a block with alpha,
 // tests/test_torch_op_counts.py), bytes for the list pass (a block's 16
 // alpha texels in, one list entry out). The list gives mode 7's launch
-// only blocks that need it, so a warp's lanes all evaluate; mode 7's
-// state no longer shares a thread with the other modes' (the one-thread
-// alpha variants spilled up to 4.4 KB a thread at 255 registers).
-#include "bc7_encode.cuh"
+// only blocks that need it, so a warp's lanes all evaluate. The one-thread
+// launch this replaces held 255 registers and spilled (8 warps an SM),
+// fitted a block's four candidates one after another, and each candidate's
+// two subsets one at a time over all 16 pixels with the other subset
+// masked off. Here a warp holds one candidate's fit state (16 warps an SM
+// at 128 registers) and a pass issues each pixel's work once. The grid is
+// sized from NB, so the count never comes to the host; a CTA whose first
+// entry is past the count returns at once.
+#include "bc7_partition.cuh"
 
 namespace bc7 {
 
@@ -75,26 +84,59 @@ __global__ void __launch_bounds__(kListThreads)
   if (has_alpha) list[cta_base + pos] = b;
 }
 
+// Phase 1: pixel j of list entry t0 + l into pix[j][l] (team_stage_pixels
+// through the list); an entry past the count stages zeros (its results
+// are never stored)
+__device__ __forceinline__ void stage_listed_pixels(
+    PartitionSmem& sm, const int32_t* __restrict__ px,
+    const int32_t* __restrict__ list, int n, int nb, int t0, int tid) {
+#pragma unroll
+  for (int r = 0; r < 16 * kTeamBlocks / kThreads; ++r) {
+    const int slot = r * kThreads + tid;
+    const int i = slot / kTeamBlocks, l = slot % kTeamBlocks;
+    uint32_t v = 0;
+    if (t0 + l < n) {
+      const int b = list[t0 + l];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        v |= ((uint32_t)px[(size_t)(i * 4 + c) * nb + b] & 0xFFu) << (8 * c);
+    }
+    sm.pix[i][l] = v;
+  }
+}
+
 // mode 7 of the listed blocks on their picks [4, NB], folded into
-// (err, words) in place by the take7 rule above
+// (err, words) in place by the take7 rule above: a CTA of four warps takes
+// list entries t0..t0+31 (one a lane), candidate rank k runs on warp k
 template <bool W>
-__global__ void __launch_bounds__(kThreads)
-    bc7_mode7_kernel(const int32_t* __restrict__ px,
-                     const int32_t* __restrict__ picks,
-                     const int32_t* __restrict__ list,
-                     const int32_t* __restrict__ count,
-                     float* __restrict__ err, uint32_t* __restrict__ words,
-                     int nb, float aw) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= *count) return;
-  const int b = list[t];
-  uint32_t pix[16];
-  load_pixels(px, nb, b, pix);
-  Best best7{INFINITY, {0ull, 0ull}};
-#pragma unroll 1
-  for (int k = 0; k < 4; ++k) {
-    const int shape = picks[(size_t)k * nb + b];
-    eval_partition<7, W>(pix, shape, subset1_mask(shape), aw, best7);
+__global__ void __launch_bounds__(kThreads, 4)
+    bc7_mode7_team_kernel(const int32_t* __restrict__ px,
+                          const int32_t* __restrict__ picks,
+                          const int32_t* __restrict__ list,
+                          const int32_t* __restrict__ count,
+                          float* __restrict__ err,
+                          uint32_t* __restrict__ words, int nb, float aw) {
+  __shared__ PartitionSmem sm;
+  const int n = *count, t0 = blockIdx.x * kTeamBlocks;
+  if (t0 >= n) return;                          // the whole CTA
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  stage_listed_pixels(sm, px, list, n, nb, t0, tid);
+  const bool listed = t0 + lane < n;
+  const int b = listed ? list[t0 + lane] : 0;
+  __syncthreads();
+  const PixShared pxs{&sm.pix[0][lane], 0};
+  Best best{INFINITY, {0ull, 0ull}};
+  const int shape = listed ? picks[(size_t)warp * nb + b] : 0;
+  eval_partition_ns<7, W>(pxs, shape, subset1_mask(shape), aw, best);
+  team_put(sm, warp, lane, best);
+  __syncthreads();
+  if (warp != 0 || !listed) return;
+  // rank order with a strict `<`: the first candidate of least error
+  Best best7 = team_get(sm, 0, lane);
+#pragma unroll
+  for (int w = 1; w < kTeamWarps; ++w) {
+    const Best r = team_get(sm, w, lane);
+    keep_if_better(best7, r.err, r.w);
   }
   const float e_f = err[b];
   const bool after4 = block_mode(load_words(words, nb, b)) == 4;
@@ -128,14 +170,15 @@ extern "C" int bc7_mode7_launch(const void* px, const void* picks,
   float aw;
   std::memcpy(&aw, &aw_bits, sizeof aw);
   const cudaStream_t s = (cudaStream_t)stream;
-  const int grid = (nb + bc7::kThreads - 1) / bc7::kThreads;
+  // sized from NB: the count stays on the card, and a CTA past it returns
+  const int grid = (nb + bc7::kTeamBlocks - 1) / bc7::kTeamBlocks;
   const int32_t *p = (const int32_t*)px, *k = (const int32_t*)picks,
                 *l = (const int32_t*)list, *c = (const int32_t*)count;
   if (aw != 1.0f)
-    bc7::bc7_mode7_kernel<true><<<grid, bc7::kThreads, 0, s>>>(
+    bc7::bc7_mode7_team_kernel<true><<<grid, bc7::kThreads, 0, s>>>(
         p, k, l, c, (float*)err, (uint32_t*)words, nb, aw);
   else
-    bc7::bc7_mode7_kernel<false><<<grid, bc7::kThreads, 0, s>>>(
+    bc7::bc7_mode7_team_kernel<false><<<grid, bc7::kThreads, 0, s>>>(
         p, k, l, c, (float*)err, (uint32_t*)words, nb, aw);
   return (int)cudaGetLastError();
 }

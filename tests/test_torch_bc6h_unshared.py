@@ -144,11 +144,11 @@ def test_k11_twin_matches_jnp(ref, signed, rows):
 
 @pytest.mark.parametrize("signed", SIGNED)
 def test_fold_equals_jnp_search_at_jax_picks(ref, signed, monkeypatch):
-    """The search's fold over (K10, group 0, ..., group 5) equals the jnp
-    path's flat fold word for word at the JAX picks, on a batch with
-    blocks where every candidate of a K11 launch reads inf (the launch
-    then hands its first candidate's words to the fold, which must not
-    take them)."""
+    """The search's fold over (K10, K11's one launch over groups 0-5)
+    equals the jnp path's flat fold word for word at the JAX picks, on a
+    batch with blocks where every candidate of a group reads inf (that
+    group's twin keeps its first candidate's words there, which the
+    search must not take)."""
     pre = _pre(signed)
     px = ref[pre + "px"]
     picks = torch.from_numpy(ref[pre + "picks"])
