@@ -26,7 +26,9 @@ Mode 7's launch (on the default and maxq searches' picks of the image
 with alpha, at alpha weights 1.0 and 2.0) and K11 over the six precision
 groups (one launch where the checkout has it, else its six launches) on
 config 4's faces, unsigned and signed, with the BC6H_SHARED_FIT=False
-search and config-4 path; nvcc's registers and spills of both kernels.
+search (both signs) and config-4 path; K8 (alpha weights 1.0 and 2.0, on
+both 2048^2 images) and the BC6H shape ranking (config 4's faces, both
+signs); nvcc's registers and spills of those four kernels.
 It prints one JSON line of median CUDA-event times in ms of the checkout
 at ROOT, with the card's name and power limit and sums of
 the words, so that two checkouts can be seen to agree. To compare two
@@ -38,8 +40,11 @@ A):
     python3 chip_ab.py . change
     python3 chip_ab.py PARENT_ROOT parent
 
-With a third argument, `focus`, it times only mode 7's launch, K11 and
-the paths and searches that run them (`focus` in the output).
+With a third argument, `focus`, it times only mode 7's launch, K11, K8,
+the ranking and the paths and searches that run them (`focus` in the
+output, with sums of their words and picks in `focus_sums` and the
+kernels' device times, each call in a torch.profiler record of its own,
+in `focus_device_ms`).
 
 The checkout at ROOT provides directxtex_tpu_torch and chip_smoke.py's
 bench_image; both must have the same entry points as this one's.
@@ -78,7 +83,9 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     # nvcc's log of this build (a later call finds the library built)
     ptxas = {k: v for k, v in chip_smoke.ptxas_summary(
-        _build.build_info["log"]).items() if "mode7" in k or "2region" in k}
+        _build.build_info["log"]).items()
+        if any(p in k for p in ("mode7", "2region", "single_modes",
+                                "bc6h_shapes"))}
     dev = torch.device("cuda", 0)
 
     def med(fn) -> float:
@@ -189,6 +196,13 @@ def main() -> None:
         "k11": k11(px4, sb4, False),
         "k11_signed": k11(px4s, sb4s, True),
         "search_unshared": lambda: bc6h._search_unshared(px4, False),
+        "search_unshared_signed": lambda: bc6h._search_unshared(px4s, True),
+        "ranking": lambda: ck.bc6h_shapes(px4),
+        "ranking_signed": lambda: ck.bc6h_shapes(px4s),
+        **{f"k8{sfx}{'_aw2' if aw == 2.0 else ''}": (
+            lambda px=px, aw=aw: ck.bc7_single_modes(px, aw))
+           for px, sfx in ((px_o, ""), (px_a, "_alpha_image"))
+           for aw in (1.0, 2.0)},
         "path_config4_unshared": unshared(lambda: pipe(eq)),
         "path_default_alpha": path(img_a),
         "path_maxq_alpha": path(img_a, 0x200000),
@@ -201,6 +215,14 @@ def main() -> None:
         focus_calls["k11_six_launches_unfolded"] = lambda: [
             ck.bc6h_2region(px4, sb4, g, False) for g in range(6)]
     focus = {k: med(fn) for k, fn in focus_calls.items()}
+    # the kernels' device time: each call in a torch.profiler record of
+    # its own, the CUDA kernels it ran summed (a parent's six K11 launches)
+    prof = chip_smoke.profile_calls(torch, {
+        k: fn for k, fn in focus_calls.items()
+        if k.startswith(("mode7", "k11", "k8", "ranking"))
+        and k != "k11_six_launches_unfolded"})
+    focus_device_ms = {k: sum(t for _, t in v) * 1e-3
+                       for k, v in prof.items()}
     for fn in (mode7(t, aw) for t, aw in fold7):
         fn()
     focus_sums = {
@@ -210,15 +232,26 @@ def main() -> None:
         "k11_signed": int(k11(px4s, sb4s, True)()[1].to(torch.int64).sum()),
         "search_unshared": int(bc6h._search_unshared(px4, False)[1]
                                .to(torch.int64).sum()),
+        "search_unshared_signed": int(bc6h._search_unshared(px4s, True)[1]
+                                      .to(torch.int64).sum()),
+        "ranking": int(sb4.to(torch.int64).sum()),
+        "ranking_signed": int(sb4s.to(torch.int64).sum()),
     }
+    for px, sfx in ((px_o, ""), (px_a, "_alpha_image")):
+        for aw in (1.0, 2.0):
+            err, words = ck.bc7_single_modes(px, aw)
+            key = f"k8{sfx}_aw{aw:g}"
+            focus_sums[key] = int(words.to(torch.int64).sum())
+            focus_sums[key + "_err"] = float(err.to(torch.float64).sum())
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     if only_focus:
         print(json.dumps({"tag": tag, "card": smi, "build_s": build_s,
-                          "focus": focus, "focus_sums": focus_sums,
-                          "ptxas": ptxas}), flush=True)
+                          "focus": focus, "focus_device_ms": focus_device_ms,
+                          "focus_sums": focus_sums, "ptxas": ptxas}),
+              flush=True)
         return
 
     # decode: the bench image's final words and random mixed words (every
@@ -342,7 +375,8 @@ def main() -> None:
                                     ("maxq_opaque", img_o, 0x280000),
                                     ("maxq_alpha", img_a, 0x280000))}}
     print(json.dumps({"tag": tag, "card": smi, "build_s": build_s,
-                      "focus": focus, "focus_sums": focus_sums,
+                      "focus": focus, "focus_device_ms": focus_device_ms,
+                      "focus_sums": focus_sums,
                       "ptxas": ptxas, "ms": ms, "decode_ms": decode_ms,
                       "decode_sums": decode_sums, "full_words_sum": digest,
                       "words_sums": digests}), flush=True)

@@ -32,10 +32,14 @@ every kernel against its plain PyTorch twin on the card:
   launches;
 - BC6H with bc6h.BC6H_SHARED_FIT = False (encode_bc6h in every tier, and
   so config 4): K10 (rows 10-13, each evaluated in full), the BC6H shape
-  ranking, one K11 launch of lane jobs for the six precision groups, a
+  ranking (a team of four warps per 32 blocks, one slice of the 32
+  shapes a warp, the slices' lists merged), one K11 launch of lane jobs
+  for the six precision groups, a
   strict-`<` fold of the two results in torch, then K6 for the mid and
   maxq tiers;
-- K8, bc67.bc7_single_modes: modes 4, 5 and 6 in one pass.
+- K8, bc67.bc7_single_modes: modes 4, 5 and 6 in one pass (a team of
+  five warps per 32 blocks, one job a warp: a rotation's modes 4 and 5,
+  or mode 6).
 
 Phases:
 
@@ -149,7 +153,11 @@ Phases:
      tests/golden/bc6h_unshared.npz (there also at the JAX package's
      picks, and against K11's lane jobs in plain form), and on config 4's
      98,304 face-512 blocks (the twins on the first 16,384), unsigned and
-     signed: picks, words and errors equal;
+     signed: picks, words and errors equal (the ranking's picks also equal
+     its team in plain form, bc6h._bc6h_shapes_slices_plain, and on
+     config 4 on every block; on bc6h_unshared.npz they meet the JAX
+     package's frozen picks on every block but the two recorded
+     summation-order near-ties, 462 unsigned and 18 signed);
  22. the BC6H_SHARED_FIT=False paths: config 4 at face 512 with its launch
      counts (one K10, one ranking, one K11, one K4) and its words held
      against the plain twins' fold, CUDA-event times of the path, of the
@@ -163,12 +171,15 @@ Phases:
      floors are the shipped search's);
  24. K8 on the 2048^2 bench image and on that image with alpha, at alpha
      weights 1.0 and 2.0, through bc67.bc7_single_modes with its launch
-     count: each mode's words and errors equal the twins', and the errors
+     count: each mode's words and errors equal the twins' and the team's
+     plain form's (bc67._single_modes_jobs_plain, folded), and the errors
      equal the decoded (K1) squared error at weight 1.0;
  25. the kernels line: every kernel's launches, error against its twin,
      time, plain time and bound (bytes or operations, whichever is
      larger, at the H100's published peaks, for the work each block of
-     the run needs).
+     the run needs), and for mode 7's launch, K11, K8 and the ranking the
+     device time of a call in a torch.profiler record of its own (phase
+     kernel_profile, after phase 6).
 
 Each phase prints one JSON line; any failure raises, so the script exits
 nonzero without the final ok line. Run from the repository root:
@@ -366,12 +377,16 @@ BC7_SINGLE_MODES_OPS = 51970
 UNSHARED_PLAIN_BLOCKS = 16384  # face-512 blocks of the K10 / K11 twins
 # (registers, spill stores, spill loads in bytes) of kernel instances, by a
 # piece of each instance's mangled name (NVIDIA H100 80GB HBM3 build;
-# PERF.md section 6): the K9 and K7 teams, mode 7's team and K11's lane
-# jobs as first built, and the instances whose code the K9 / K7 redesign
-# moved or templated but did not change. K2's teams are not held here:
-# its fits were templated on the subset count, so its maxq team's spill
-# moved (PERF.md).
+# PERF.md section 6): the K9 and K7 teams, mode 7's team, K11's lane
+# jobs, the K8 and ranking teams as first built, and the instances whose
+# code a redesign moved or templated but did not change (K2's teams and
+# K5 since the K8 / ranking redesign).
 PTXAS_RECORDED = {
+    "bc7_encode_opaque_kernelILb0": (128, 424, 812),
+    "bc7_encode_opaque_kernelILb1": (128, 440, 840),
+    "bc7_encode_maxq_kernelILb0": (128, 32, 36),
+    "bc7_encode_maxq_kernelILb1": (128, 20, 28),
+    "bc6h_encode_kernel": (123, 0, 0),
     "bc7_partition_team_kernelILi0ELb0": (128, 116, 96),
     "bc7_partition_team_kernelILi1ELb0": (128, 36, 28),
     "bc7_partition_team_kernelILi2ELb0": (128, 88, 64),
@@ -379,7 +394,8 @@ PTXAS_RECORDED = {
     "bc7_partition_team_kernelILi7ELb0": (128, 176, 176),
     "bc7_shapes_team_kernelILi2E": (56, 0, 0),
     "bc7_shapes_team_kernelILi3E": (64, 0, 0),
-    "bc7_single_modes_kernelILb0": (255, 0, 0),
+    "bc7_single_modes_team_kernelILb0": (96, 36, 28),
+    "bc7_single_modes_team_kernelILb1": (96, 32, 24),
     "bc7_mode7_team_kernelILb0": (128, 92, 112),
     "bc7_mode7_team_kernelILb1": (128, 92, 112),
     "bc6h_refine_unit_kernelILi0ELb0": (72, 0, 0),
@@ -387,7 +403,7 @@ PTXAS_RECORDED = {
     "bc6h_refine_unit_kernelILi1ELb1": (80, 304, 320),
     "bc6h_1region_kernel": (62, 0, 0),
     "bc6h_2region_jobs_kernel": (117, 0, 0),
-    "bc6h_shapes_kernel": (53, 0, 0),
+    "bc6h_shapes_team_kernel": (56, 0, 0),
 }
 
 
@@ -824,7 +840,8 @@ def main() -> None:
     packed4 = torch.cat(pipelines.hdr_cubemap_pipeline()(eq4))
     words4 = packed4.view(torch.int32).t().contiguous()
     # mode 7's launch (on both tiers' picks, in place: a second fold over
-    # a folded result keeps it) and K11's one launch at the paths' shapes
+    # a folded result keeps it), K11's one launch and the ranking at the
+    # paths' shapes, K8 at phase 24's
     px_a = px_of(image_to_blocks(to_dev(bench_image(size, alpha=True)))[0])
     list_a, count_a = cuda_kernels.bc7_alpha_list(px_a)
     fold_a = {t: cuda_kernels.bc7_search_picks(px_a, 1.0, t)
@@ -841,7 +858,10 @@ def main() -> None:
             px_a, fold_a[bc67.TIER_MAXQ][2], list_a, count_a,
             *fold_a[bc67.TIER_MAXQ][:2]),
         "bc6h_2region": lambda: cuda_kernels.bc6h_2region(
-            px4, sb4, range(6), False)}
+            px4, sb4, range(6), False),
+        "bc6h_shapes": lambda: cuda_kernels.bc6h_shapes(px4),
+        "bc7_single_modes": lambda: cuda_kernels.bc7_single_modes(px2k,
+                                                                  1.0)}
     prof = profile_calls(torch, {**teams,
         "decode_bc7": lambda: bc67.decode_bc7(enc),
         "k1_f32": lambda: cuda_kernels.bc7_decode_blocks(enc),
@@ -928,6 +948,7 @@ def main() -> None:
         d.update(r[key])
 
     lines = []
+    device_ms = {k: prof[k][0][1] * 1e-3 for k in teams if k in SOURCES}
     for k in SOURCES:
         n_bytes = BYTES_PER_BLOCK[k] * nb_of[k] + extra_bytes.get(k, 0.0)
         b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -940,7 +961,8 @@ def main() -> None:
             "bound_by": "bytes" if b_ms > o_ms else "operations",
             "library_ms": None, "blocks": nb_of[k],
             "plain_blocks": plain_nb[k], "ops": ops_of[k],
-            "bytes": n_bytes})
+            "bytes": n_bytes,
+            **({"device_ms": device_ms[k]} if k in device_ms else {})})
     print(smi)
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -2185,6 +2207,8 @@ def bc6h_unshared_phases(torch, to_dev, event_ms, smi) -> dict:
         t["bc6h_shapes"] = event_ms(lambda: out.update(
             sh=bc6h._bc6h_shapes_plain(pp)))[0]
         same(sb[:, :n], out["sh"], f"ranking picks {what}")
+        same(sb[:, :n], bc6h._bc6h_shapes_slices_plain(pp),
+             f"ranking picks against its team's plain form {what}")
         same(w1[:, :n], out["k10"][1], f"K10 words {what}")
         same(e1[:n], out["k10"][0], f"K10 errors {what}")
         max_err["bc6h_1region"] = max(max_err["bc6h_1region"],
@@ -2255,7 +2279,14 @@ def bc6h_unshared_phases(torch, to_dev, event_ms, smi) -> dict:
                 same(e_k, e_g, f"K11 errors at the JAX picks {what}")
                 same(w_j, w_g, f"K11 jobs (plain form) words {what}")
                 same(e_j, e_g, f"K11 jobs (plain form) errors {what}")
-                extra = {"jax_picks_equal": True, "jobs_plain_equal": True}
+                # the ranking against the JAX package's frozen picks: all
+                # but the recorded summation-order near-tie of each sign
+                moved = torch.nonzero((cuda_kernels.bc6h_shapes(px) != picks)
+                                      .any(dim=0)).flatten().tolist()
+                check(moved == [18 if signed else 462],
+                      f"ranking picks moved against JAX {what}: {moved}")
+                extra = {"jax_picks_equal": True, "jobs_plain_equal": True,
+                         "ranking_picks_moved_against_jax": moved}
             emit({"phase": "K10_K11", "content": label, "signed": signed,
                   "blocks": px.shape[1], "picks_words_errors_equal": True,
                   "search_words_equal": True, **extra, **inf})
@@ -2272,12 +2303,15 @@ def bc6h_unshared_phases(torch, to_dev, event_ms, smi) -> dict:
         px = bc6h.px_of_blocks(blocks4, signed)
         what = f"face {FACE} signed={signed}"
         t, k10, sb, k11, (fe, fw), inf = hold(px, signed, what, n_plain)
+        # the ranking's picks on every block
+        same(sb, bc6h._bc6h_shapes_plain(px), f"ranking picks all {what}")
         e_s, w_s = bc6h._search_unshared(px, signed)
         same(w_s[:, :n_plain], fw, f"unshared search words {what}")
         same(e_s[:n_plain], fe, f"unshared search errors {what}")
         held[signed] = (px, t, k10, sb, k11, e_s, w_s)
         emit({"phase": "K10_K11", "content": f"face{FACE}", "signed": signed,
               "blocks": nb4, "plain_blocks": n_plain,
+              "ranking_plain_blocks": nb4,
               "picks_words_errors_equal": True, "search_words_equal": True,
               **inf})
 
@@ -2433,11 +2467,16 @@ def bc7_single_modes_phase(torch, to_dev, event_ms, smi, img_opaque,
                 r=bc67._single_modes_plain(px, aw)))[0]
             key = f"{name}_aw{aw:g}"
             plain_ms[key] = t
+            # the team's jobs in plain form, folded
+            team = bc67._single_modes_fold_plain(
+                bc67._single_modes_jobs_plain(px, aw))
             sse = {}
             for m in (4, 5, 6):
                 err, words = out[m]
                 same(words, plain["r"][m][1], f"K8 mode {m} words {key}")
                 same(err, plain["r"][m][0], f"K8 mode {m} errors {key}")
+                same(words, team[m][1], f"K8 mode {m} words {key} (jobs)")
+                same(err, team[m][0], f"K8 mode {m} errors {key} (jobs)")
                 check(bool(torch.isfinite(err).all()), f"K8 {m} {key} inf")
                 max_err = max(max_err, float(
                     (err - plain["r"][m][0]).abs().max()))
@@ -2455,7 +2494,8 @@ def bc7_single_modes_phase(torch, to_dev, event_ms, smi, img_opaque,
                 m: int((best == k).sum()) for k, m in enumerate((4, 5, 6))}}
     nb = px.shape[1]
     emit({"phase": "K8_2k", "card": smi, "blocks": nb, "ms": ms,
-          "plain_ms": plain_ms, "runs": runs, "words_errors_equal": True})
+          "plain_ms": plain_ms, "runs": runs, "words_errors_equal": True,
+          "jobs_plain_equal": True})
     return {"launches": {"bc7_single_modes": launches},
             "k_ms": {"bc7_single_modes": ms["opaque_aw1"]},
             "plain_ms": {"bc7_single_modes": plain_ms["opaque_aw1"]},

@@ -1385,6 +1385,57 @@ def bc7_single_modes(px: torch.Tensor, aw: float = 1.0) -> dict:
     return _single_modes_plain(px, aw)
 
 
+# K8's team's nine evaluations of a block, in the order of their result
+# slots (bc7_single_modes.cu's SingleSlot): (mode, rotation). The kernel
+# runs them as five jobs: one per rotation (its mode 4 at index mode 0,
+# then mode 5), and mode 6.
+SINGLE_MODES_JOBS = (tuple((4, r) for r in _MODE45_ROTS)
+                     + tuple((5, r) for r in _MODE45_ROTS) + ((6, 0),))
+
+
+def _single_modes_jobs_plain(px: torch.Tensor, aw: float = 1.0):
+    """Plain twin of K8's team jobs: px [64, NB] int32 (0..255) -> [(err
+    [NB] f32, words [4, NB] int32)] in SINGLE_MODES_JOBS order: mode 4 at
+    index mode 0 and mode 5 per rotation, and mode 6, each candidate
+    fitted on its own."""
+    jobs = [([], []) for _ in SINGLE_MODES_JOBS]
+    for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE):
+        px_i = px[:, s:s + _PLAIN_SEARCH_SLICE].reshape(16, 4, -1)
+        px_f = px_i.to(torch.float32)
+        for j, (mode_id, rot) in enumerate(SINGLE_MODES_JOBS):
+            if mode_id == 6:
+                err, w = _try_mode6(px_i, px_f, aw)
+            else:
+                err, w = _mode45_candidate(px_i, px_f, mode_id, rot, 0, aw)
+            jobs[j][0].append(err)
+            jobs[j][1].append(_words_i32(w))
+    return [(torch.cat(e), torch.cat(w, dim=1)) for e, w in jobs]
+
+
+def _fold_strict(pairs):
+    """[(err [NB], words [4, NB])] folded in order from (inf, zero words),
+    each taken where its error is strictly below the best so far: a tie
+    keeps the earlier entry, as the kernels' keep_if_better does."""
+    best_err = torch.full_like(pairs[0][0], float("inf"))
+    best_words = torch.zeros_like(pairs[0][1])
+    for err, words in pairs:
+        better = err < best_err
+        best_err = torch.where(better, err, best_err)
+        best_words = torch.where(better[None, :], words, best_words)
+    return best_err, best_words
+
+
+def _single_modes_fold_plain(jobs) -> dict:
+    """Plain twin of K8's team fold: results in SINGLE_MODES_JOBS order ->
+    {mode: (err [NB] f32, words [4, NB] int32)}: modes 4 and 5 each over
+    rotations 0-3 in order with a strict `<` from (inf, zero words), mode
+    6 as it is. Equals _single_modes_plain."""
+    out = {m: _fold_strict([jobs[j] for j, job in enumerate(SINGLE_MODES_JOBS)
+                            if job[0] == m]) for m in (4, 5)}
+    out[6] = jobs[SINGLE_MODES_JOBS.index((6, 0))]
+    return out
+
+
 def _check_search(modes, tier: str) -> tuple:
     modes = tuple(modes)
     if tier not in (TIER_DEFAULT, TIER_MAXQ):
@@ -1760,18 +1811,9 @@ def _maxq_fold_plain(jobs):
     slot order (candidates in rank order; mode 4 rotation-major, index
     mode 0 before 1), then the modes in the order (1, 3, 5, 6, 4), each a
     strict `<`."""
-    def fold(pairs):
-        best_err = torch.full_like(pairs[0][0], float("inf"))
-        best_words = torch.zeros_like(pairs[0][1])
-        for err, words in pairs:
-            better = err < best_err
-            best_err = torch.where(better, err, best_err)
-            best_words = torch.where(better[None, :], words, best_words)
-        return best_err, best_words
-
-    per_mode = {m: fold([jobs[j] for j, job in enumerate(MAXQ_JOBS)
-                         if job[0] == m]) for m in (1, 3, 5, 6, 4)}
-    return fold([per_mode[m] for m in (1, 3, 5, 6, 4)])
+    per_mode = {m: _fold_strict([jobs[j] for j, job in enumerate(MAXQ_JOBS)
+                                 if job[0] == m]) for m in (1, 3, 5, 6, 4)}
+    return _fold_strict([per_mode[m] for m in (1, 3, 5, 6, 4)])
 
 
 def _shape_lists_of_table(ests, n_slices: int = 4):

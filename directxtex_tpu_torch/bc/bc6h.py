@@ -41,8 +41,8 @@ from . import cuda_kernels
 from .bc67 import (BC7_SHAPE_CANDIDATES, _check_words, _div, _gb_t,
                    _index_layout, _on_cuda, _pal_weight, _pal_weight_f,
                    _put_dynamic, _put_static, _read_indices,
-                   _shape_estimates_table, _sum0, _tables, _top_k_shapes,
-                   _words_i32, _words_i64)
+                   _shape_estimates_table, _sum0, _tables, _top4_merge_plain,
+                   _top_k_shapes, _words_i32, _words_i64)
 from .bc67_tables import BC6H_DESC, BC6H_MODE_INFO, BC6H_MODE_TO_INFO
 
 __all__ = ["decode_bc6h", "encode_bc6h", "refine_bc6h_words",
@@ -916,6 +916,15 @@ def _bc6h_2region_plain(px: torch.Tensor, s_blks: torch.Tensor, rows,
         px, lambda p, sb: _two_region_slice(p, sb, rows, signed), s_blks)
 
 
+def _bc6h_shape_table(px: torch.Tensor) -> torch.Tensor:
+    """The ranking's table: px [48, NB] int32 F16-ints -> [32, NB] f32,
+    the off-axis estimate (axis_w 0, RGB and a zero alpha plane) of each
+    of the 32 two-region shapes."""
+    px_f = _px_lane_major(px).to(torch.float32)
+    px4 = torch.cat([px_f, torch.zeros_like(px_f[:, :1, :])], dim=1)
+    return _shape_estimates_table(px4, n_shapes=32, axis_w=0.0)
+
+
 def _bc6h_shapes_plain(px: torch.Tensor) -> torch.Tensor:
     """Plain twin of the BC6H shape ranking: px [48, NB] int32 F16-ints ->
     s_blks [4, NB] int32, the BC7_SHAPE_CANDIDATES shapes of least
@@ -923,11 +932,22 @@ def _bc6h_shapes_plain(px: torch.Tensor) -> torch.Tensor:
     two-region shapes, in rank order (a tie keeps the lower shape)."""
     out = []
     for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE):
-        px_f = _px_lane_major(px[:, s:s + _PLAIN_SEARCH_SLICE]) \
-            .to(torch.float32)
-        px4 = torch.cat([px_f, torch.zeros_like(px_f[:, :1, :])], dim=1)
-        ests = _shape_estimates_table(px4, n_shapes=32, axis_w=0.0)
+        ests = _bc6h_shape_table(px[:, s:s + _PLAIN_SEARCH_SLICE])
         out.append(torch.stack(_top_k_shapes(ests, BC7_SHAPE_CANDIDATES)))
+    return torch.cat(out, dim=1).to(torch.int32)
+
+
+def _bc6h_shapes_slices_plain(px: torch.Tensor,
+                              n_slices: int = 4) -> torch.Tensor:
+    """Plain form of the ranking's team: warp w ranks shapes w, w +
+    n_slices, ... of the same table into a local top 4 and the slices'
+    lists are merged by (estimate, shape), the lower shape first on an
+    equal estimate (_top4_merge_plain). px [48, NB] -> s_blks [4, NB]
+    int32, equal to _bc6h_shapes_plain."""
+    out = []
+    for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE):
+        ests = _bc6h_shape_table(px[:, s:s + _PLAIN_SEARCH_SLICE])
+        out.append(torch.stack(_top4_merge_plain(ests, n_slices)))
     return torch.cat(out, dim=1).to(torch.int32)
 
 

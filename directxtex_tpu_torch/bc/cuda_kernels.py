@@ -43,13 +43,15 @@ live in bc67.py, and bc67's wrappers call these only for CUDA tensors.
        USE_3SUBSETS path one launch gives both modes' candidates,
        bc7_partition_shapes_3sub)
     K8 bc7_single_modes csrc/bc7_single_modes.cu replaces
-       pallas_kernels.py:1714
+       pallas_kernels.py:1714 (a team of five warps per 32 blocks, one
+       job a warp: a rotation's modes 4 and 5, or mode 6)
     K10 bc6h_1region csrc/bc6h_1region.cu replaces pallas_kernels.py:3789
     K11 bc6h_2region csrc/bc6h_2region.cu replaces pallas_kernels.py:3811
        (lane jobs: one launch covers the precision groups of a mask)
     bc6h_shapes csrc/bc6h_shapes.cu, the BC6H shape ranking as a launch
        of its own (partition_shapes_pallas at 32 shapes, axis_w 0,
-       pallas_kernels.py:1850), for K11's candidates
+       pallas_kernels.py:1850), for K11's candidates (a team of four
+       warps per 32 blocks, one slice of the shapes a warp, merged)
 
 Words cross the C interface as int32 tensors read as uint32_t*; `signed`
 crosses as an int, alpha_weight as the int holding its f32 bit pattern,

@@ -28,8 +28,9 @@
 // ... of every block (rank_slice) into local top-4 lists, while warp 3
 // runs the one-region jobs. Phase 3, warp k merges the three lists by
 // (estimate, shape), the lower shape first on an equal estimate, which
-// gives shape_top4's cand[k] exactly (each estimate is computed by the
-// same operations whichever warp computes it), and runs candidate job k.
+// gives a one-thread ranking's cand[k] exactly (merged_candidate:
+// each estimate is computed by the same operations whichever warp
+// computes it), and runs candidate job k.
 // A candidate job scores both regions in one pass over the 16 pixels
 // (shared_fit_pair, rescore_pair with palette_err_pair): pixel i takes
 // its own region's state and adds only to that region's sums, in pixel
@@ -58,7 +59,6 @@
 
 namespace bc6h {
 
-constexpr int kGroup = 32;          // blocks a CTA, one per lane
 constexpr int kRankWarps = 3;       // warps of the ranking slices
 constexpr int kJobs = 5;            // one-region job, candidate jobs 0-3
 using PxG = PxT<kGroup>;
@@ -393,41 +393,11 @@ __device__ __forceinline__ void rank_or_one_region(SearchSmem& sm, int warp,
   }
 }
 
-// The merged rank `k` shape of lane `lane`'s block: the slices' lists by
-// (estimate, shape)
-__device__ __forceinline__ int merged_candidate(const SearchSmem& sm, int k,
-                                                int lane) {
-  float bv[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
-  int bi[4] = {32, 32, 32, 32};
-#pragma unroll
-  for (int w = 0; w < kRankWarps; ++w) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float e = sm.top_est[w][j][lane];
-      const int s = sm.top_shape[w][j][lane];
-      if (e < bv[3] || (e == bv[3] && s < bi[3])) {
-        bv[3] = e;
-        bi[3] = s;
-#pragma unroll
-        for (int t = 2; t >= 0; --t) {
-          if (bv[t + 1] < bv[t] || (bv[t + 1] == bv[t] && bi[t + 1] < bi[t])) {
-            const float f = bv[t];
-            bv[t] = bv[t + 1];
-            bv[t + 1] = f;
-            bc7::swap_ints(bi[t], bi[t + 1]);
-          }
-        }
-      }
-    }
-  }
-  return k == 0 ? bi[0] : k == 1 ? bi[1] : k == 2 ? bi[2] : bi[3];
-}
-
 // Phase 3: warp k's candidate job
 __device__ __forceinline__ void candidate_phase(SearchSmem& sm, int warp,
                                                 int lane, bool sgn) {
   const PxG px{sm.px + lane};
-  const int shape = merged_candidate(sm, warp, lane);
+  const int shape = merged_candidate(sm.top_est, sm.top_shape, warp, lane);
   put_job(sm, 1 + warp, lane, candidate_job(px, shape, warp, sgn));
 }
 

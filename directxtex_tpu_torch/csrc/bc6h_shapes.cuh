@@ -1,14 +1,17 @@
 // The BC6H shape ranking shared by K5 (bc6h_encode.cu) and its launch of
 // its own (bc6h_shapes.cu): the off-axis estimate of each of the 32
 // two-region shapes at axis_w = 0 and the top 4 by (estimate, shape).
-// shape_top4 ranks every shape of a block in one thread (the launch of its
-// own); K5 ranks slices of them on several warps (rank_slice) and merges
-// the slices' lists by the same order.
+// Both are teams of 32 blocks a CTA, one per lane, whose pixels are
+// staged once in shared memory; each ranks slices of the shapes on
+// several warps (rank_slice) and merges the slices' lists by the same
+// order (merged_candidate): K5 three slices, the ranking's launch four.
 #pragma once
 
 #include "bc6h_common.cuh"
 
 namespace bc6h {
+
+constexpr int kGroup = 32;          // blocks a CTA, one per lane
 
 // the block's mean per channel, summed in pixel order
 template <class P>
@@ -105,16 +108,38 @@ __device__ __forceinline__ void rank_slice(const P& px, const float mu[3],
   }
 }
 
-// The 4 shapes of least (estimate, shape) of the 32, in that order
-template <class P>
-__device__ __forceinline__ void shape_top4(const P& px, int cand[4]) {
-  float mu[3];
-  block_mean(px, mu);
+// The merged rank `k` shape of lane `lane`'s block: the S slices' lists
+// by (estimate, shape), the lower shape first on an equal estimate, which
+// is the rank k of all 32 shapes by the same order (each estimate is
+// computed by the same operations whichever warp computes it)
+template <int S>
+__device__ __forceinline__ int merged_candidate(
+    const float (&est)[S][4][kGroup], const int (&shape)[S][4][kGroup],
+    int k, int lane) {
   float bv[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
-  int bi[4] = {0, 0, 0, 0};
-  rank_slice(px, mu, 0, 1, bv, bi);
+  int bi[4] = {32, 32, 32, 32};
 #pragma unroll
-  for (int k = 0; k < 4; ++k) cand[k] = bi[k];
+  for (int w = 0; w < S; ++w) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float e = est[w][j][lane];
+      const int s = shape[w][j][lane];
+      if (e < bv[3] || (e == bv[3] && s < bi[3])) {
+        bv[3] = e;
+        bi[3] = s;
+#pragma unroll
+        for (int t = 2; t >= 0; --t) {
+          if (bv[t + 1] < bv[t] || (bv[t + 1] == bv[t] && bi[t + 1] < bi[t])) {
+            const float f = bv[t];
+            bv[t] = bv[t + 1];
+            bv[t + 1] = f;
+            bc7::swap_ints(bi[t], bi[t + 1]);
+          }
+        }
+      }
+    }
+  }
+  return k == 0 ? bi[0] : k == 1 ? bi[1] : k == 2 ? bi[2] : bi[3];
 }
 
 }  // namespace bc6h

@@ -588,65 +588,6 @@ __device__ __forceinline__ void rot_data(const uint32_t pix[16], int rot,
   e1[3] = amax;
 }
 
-// Mode 4 or 5 at index mode IM, one rotation's candidate fitted on its own
-// (_dual_eval_ref + _try_single_mode's anchor fixes, bc67.py:1387-1502):
-// quantize, assign colour at CP and alpha at AP bits, one LS refit per
-// group from the integer indices, re-evaluate, keep the better (strict
-// `<`), independent colour / alpha anchor fixes, emit
-template <int M, int IM, bool W>
-__device__ __forceinline__ void eval_45_own(const uint32_t prp[16], int rot,
-                                            const float e0f[4],
-                                            const float e1f[4], float aw,
-                                            Best& best) {
-  constexpr int P1 = index_prec(M), P2 = index_prec2(M);
-  constexpr int CP = IM ? P2 : P1, AP = IM ? P1 : P2;
-  const int wch = rot ? rot - 1 : 3;
-  int q0[1][4], q1[1][4], p0[1], p1[1], u0[4], u1[4], ci[16], ai[16];
-  quantize_endpoints<M>(e0f, e1f, q0[0], q1[0], p0[0], p1[0]);
-  unquantize_endpoints<M>(q0[0], q1[0], p0[0], p1[0], u0, u1);
-  float err = assign_indices<CP, 0, 3, W>(prp, u0, u1, 0xFFFFu, ci, aw, wch);
-  err = err + assign_indices<AP, 3, 4, W>(prp, u0, u1, 0xFFFFu, ai, aw, wch);
-
-  float e0[4], e1[4], x[16];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    e0[c] = e0f[c];
-    e1[c] = e1f[c];
-  }
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    x[i] = (float)pal_weight<1 << CP>(ci[i]) * (1.0f / 64.0f);
-  ls_refit<0, 3>(prp, x, 0xFFFFu, e0, e1);
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    x[i] = (float)pal_weight<1 << AP>(ai[i]) * (1.0f / 64.0f);
-  ls_refit<3, 4>(prp, x, 0xFFFFu, e0, e1);
-  int qb0[4], qb1[4], pb0, pb1, cb[16], ab[16];
-  quantize_endpoints<M>(e0, e1, qb0, qb1, pb0, pb1);
-  unquantize_endpoints<M>(qb0, qb1, pb0, pb1, u0, u1);
-  float err_b = assign_indices<CP, 0, 3, W>(prp, u0, u1, 0xFFFFu, cb, aw,
-                                            wch);
-  err_b = err_b + assign_indices<AP, 3, 4, W>(prp, u0, u1, 0xFFFFu, ab, aw,
-                                              wch);
-  if (err_b < err) {
-    err = err_b;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      q0[0][c] = qb0[c];
-      q1[0][c] = qb1[c];
-    }
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      ci[i] = cb[i];
-      ai[i] = ab[i];
-    }
-  }
-  int* w1 = IM ? ai : ci;
-  int* w2 = IM ? ci : ai;
-  anchor_swaps_45<P1, P2>(IM == 0, w1, w2, q0[0], q1[0]);
-  keep_if_better(best, err, emit_block<M>(0, rot, IM, q0, q1, p0, p1, w1, w2));
-}
-
 // Modes 1/3's shared float trajectory on one shape candidate
 // (_eval_2sub_shared, bc67.py:1128): per subset an axis fit, a K=8 float
 // assignment and an LS refit; m1 the pixel mask of subset 1
@@ -682,8 +623,8 @@ __device__ __forceinline__ void trajectory_45(const uint32_t pix[16],
 // Packed fits: the maxq team's and K7's evaluation jobs
 // ---------------------------------------------------------------------------
 // The functions below compute what minmax_axis, assign_indices, ls_refit,
-// fit_subset, eval_partition, eval_mode6, rot_data and eval_45_own
-// compute, with two changes that keep a job within 128 registers:
+// fit_subset, eval_partition, eval_mode6 and rot_data compute, and a mode
+// 4 or 5 candidate fitted on its own (eval_45_packed), with two changes that keep a job within 128 registers:
 //   - an index plane is 4-bit fields of one 64-bit word (pixel i at bits
 //     4i), not 16 ints;
 //   - a fit of NS subsets runs them all in one pass over the 16 pixels:
@@ -1099,7 +1040,12 @@ __device__ __forceinline__ void rot_data_ns(const PX& prp, float e0[4],
   e1[3] = amax;
 }
 
-// eval_45_own with packed colour and alpha index planes
+// Mode 4 or 5 at index mode IM, one rotation's candidate fitted on its own
+// (_dual_eval_ref + _try_single_mode's anchor fixes, bc67.py:1387-1502),
+// with packed colour and alpha index planes: quantize, assign colour at CP
+// and alpha at AP bits, one LS refit per group from the integer indices,
+// re-evaluate, keep the better (strict `<`), independent colour / alpha
+// anchor fixes, emit
 template <int M, int IM, bool W, class PX>
 __device__ __forceinline__ void eval_45_packed(const PX& prp,
                                                int rot, const float e0f[4],
