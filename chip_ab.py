@@ -62,11 +62,202 @@ import time
 import numpy as np
 
 REPS = 11
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+# The issued-instruction count of a kernel (sass_path_count): one entry a
+# warp of a CTA's 32 blocks, each its loops' trip counts in sass_loops
+# order and whether its conditional EXIT is taken. K10's emit loop visits
+# a row's header runs and the zero entry that ends them (rows 10-12: 7,
+# 10 and 13 runs; row 13's 25 fill the table).
+EMIT_TRIPS = {10: 8, 11: 11, 12: 14, 13: 25}
+SASS_SPECS = {
+    # one thread a block: staging (48 pixels, 4 a pass), rows 10-13, per
+    # row mag_cap (16 pixels, 4 a pass), palette_err, the two refit
+    # rounds (ls_refit's A/B/C loop, its channel loop and pixel loop,
+    # palette_err), emit's runs (the rows' mean) and indices
+    "bc6h_1region_kernel": [((12, 4, 4, 4, 2, 4, 3, 4, 4,
+                              sum(EMIT_TRIPS.values()) / 4, 4), False)],
+    # K2 quick, one thread a block: no loop
+    "bc7_encode_kernelILi1E": [((), False)],
+    # Designs tried and not shipped (PERF.md): K10 as four row warps per
+    # 32 blocks (staging's remainder and main loops, then one row as
+    # above, the first palette_err in two copies, by sign; warps 1-3 leave
+    # before the fold), K10 as two warps of two rows each, and K2 quick as
+    # the maxq team's mode-6 job from staged pixels (no loop)
+    "bc6h_1region_rows_kernel": [
+        ((0, 3, 4, 4, 4, 2, 4, 3, 4, 4, EMIT_TRIPS[10 + r], 4), r != 0)
+        for r in range(4)],
+    "bc6h_1region_rows2_kernel": [
+        ((0, 3, 2, 4, 4, 2, 4, 3, 4, 4,
+          (EMIT_TRIPS[10 + 2 * h] + EMIT_TRIPS[11 + 2 * h]) / 2, 4), h != 0)
+        for h in range(2)],
+    "bc7_encode_quick_kernel": [((), False)],
+}
+
+
+def sass_functions(text: str) -> dict:
+    """{mangled kernel name: [SASS lines]} of `cuobjdump -sass` output."""
+    funcs, name = {}, None
+    for ln in text.splitlines():
+        if "Function : " in ln:
+            name = ln.split("Function : ")[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(ln)
+    return funcs
+
+
+def sass_instructions(lines) -> list:
+    """[(offset, instruction text)] of one kernel's SASS lines, in order."""
+    import re
+
+    out = []
+    for ln in lines:
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if m:
+            out.append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def _sass_flow(ins):
+    """Per instruction: ("op" | "fwd" | "back" | "exit", target index or
+    None, conditional?)."""
+    import re
+
+    index = {pc: i for i, (pc, _) in enumerate(ins)}
+    flow = []
+    for k, (_, t) in enumerate(ins):
+        m = re.match(r"(@!?U?P\w+\s+)?([A-Z0-9_]+)", t)
+        op = m.group(2)
+        cond = m.group(1) is not None
+        if op == "BRA":
+            tgt = index[int(re.search(r"0x([0-9a-f]+)\s*$", t).group(1), 16)]
+            cond = cond or re.search(r"BRA\s+!?P\w+,", t) is not None
+            flow.append(("back" if tgt <= k else "fwd", tgt, cond))
+        elif op == "EXIT":
+            flow.append(("exit", None, cond))
+        else:
+            flow.append(("op", None, False))
+    return flow
+
+
+def sass_loops(ins) -> list:
+    """[(first, last)] instruction indices of each loop (a backward branch
+    and its target) before the kernel's unconditional EXIT, by first."""
+    flow = _sass_flow(ins)
+    end = min(k for k, (kind, _, cond) in enumerate(flow)
+              if kind == "exit" and not cond)
+    return sorted((tgt, k) for k, (kind, tgt, _) in enumerate(flow)
+                  if kind == "back" and tgt < end)
+
+
+def sass_path_count(ins, trips, longest: bool = True,
+                    take_cond_exit: bool = False) -> float:
+    """Instructions one thread issues from the kernel's entry to its
+    unconditional EXIT: each loop of sass_loops (in that order) runs its
+    `trips` entry times, the path through each loop body and through the
+    straight code is the longest (or the shortest) over its forward
+    branches, a branch out of a loop body is not taken, a subroutine
+    call (the IEEE slow paths) counts as its one instruction, and a
+    conditional EXIT is taken where take_cond_exit. Trips may be
+    fractional: a loop whose trip count differs from one pass of an
+    enclosing loop to the next takes its mean, which gives the sum (the
+    path is linear in the trips)."""
+    flow = _sass_flow(ins)
+    loops = sass_loops(ins)
+    if len(loops) != len(trips):
+        raise ValueError(f"{len(loops)} loops, {len(trips)} trip counts")
+    by_first = {}
+    for (first, last), t in zip(loops, trips):
+        by_first.setdefault(first, []).append((last, t))
+    pick = max if longest else min
+    end = min(k for k, (kind, _, cond) in enumerate(flow)
+              if kind == "exit" and not cond)
+
+    def region(lo, hi, own):
+        """cost[k]: instructions from k to leaving [lo, hi]."""
+        cost = {hi + 1: 0.0}
+        for k in range(hi, lo - 1, -1):
+            inner = [(last, t) for last, t in by_first.get(k, ())
+                     if last <= hi and (k, last) != own]
+            if inner:
+                last, t = max(inner)
+                body = region(k, last, (k, last))[k]
+                cost[k] = t * body + cost[last + 1]
+                continue
+            kind, tgt, cond = flow[k]
+            nxt = cost[k + 1]
+            if kind == "fwd":
+                out = tgt > hi + 1
+                if cond:
+                    cost[k] = 1 + (nxt if out else pick(nxt, cost[tgt]))
+                else:
+                    cost[k] = 1 + (0.0 if out else cost[tgt])
+            elif kind == "exit":
+                cost[k] = 1 + (0.0 if not cond or take_cond_exit else nxt)
+            else:
+                cost[k] = 1 + nxt
+        return cost
+
+    return region(0, end, None)[0]
+
+
+def dump_sass(build, pieces) -> dict:
+    """Write the SASS of the built library's kernels whose names hold one
+    of `pieces` to chiprun_out/sass_<library>.txt beside this script;
+    return the file's path and its sass_report."""
+    import pathlib
+
+    lib = build.build_info["path"]
+    tool = pathlib.Path(build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    keep = {k: v for k, v in sass_functions(text).items()
+            if any(p in k for p in pieces)}
+    out = os.path.join(HERE, "chiprun_out",
+                       f"sass_{pathlib.Path(lib).stem}.txt")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        for k, v in keep.items():
+            f.write(f"\t\tFunction : {k}\n" + "\n".join(v) + "\n")
+    with open(out) as f:
+        return {"file": out, "report": sass_report(f.read())}
+
+
+def sass_report(text: str) -> dict:
+    """{kernel: its loops and, for a kernel of SASS_SPECS, the issued
+    instructions a thread (longest and shortest path) and a CTA's warp
+    instructions per 32 blocks} of `cuobjdump -sass` text."""
+    out = {}
+    for name, lines in sass_functions(text).items():
+        ins = sass_instructions(lines)
+        rep = {"instructions": len(ins), "loops": sass_loops(ins)}
+        for piece, warps in SASS_SPECS.items():
+            if piece not in name:
+                continue
+            try:
+                per_warp = [{"longest": sass_path_count(ins, t, True, x),
+                             "shortest": sass_path_count(ins, t, False, x)}
+                            for t, x in warps]
+            except ValueError as e:   # a build whose loops differ
+                rep["error"] = str(e)
+                continue
+            rep.update(per_warp=per_warp, per_32_blocks={
+                k: sum(w[k] for w in per_warp) for k in per_warp[0]})
+        out[name] = rep
+    return out
 
 
 def main() -> None:
+    if sys.argv[1] == "--sass":
+        with open(sys.argv[2]) as f:
+            print(json.dumps(sass_report(f.read()), indent=1))
+        return
     root, tag = os.path.abspath(sys.argv[1]), sys.argv[2]
-    only_focus = sys.argv[3:] == ["focus"]
+    only_focus = sys.argv[3:4] == ["focus"]
+    # focus KEY...: only the focus calls whose names start with a KEY
+    keep = tuple(sys.argv[4:])
     sys.path.insert(0, root)
     import torch
 
@@ -85,7 +276,10 @@ def main() -> None:
     ptxas = {k: v for k, v in chip_smoke.ptxas_summary(
         _build.build_info["log"]).items()
         if any(p in k for p in ("mode7", "2region", "single_modes",
-                                "bc6h_shapes"))}
+                                "bc6h_shapes", "1region", "quick"))}
+    # the SASS of K10 and K2 quick, for their issued-instruction counts
+    # (sass_report)
+    sass = dump_sass(_build, ("1region", "quick", "bc7_encode_kernel"))
     dev = torch.device("cuda", 0)
 
     def med(fn) -> float:
@@ -109,6 +303,7 @@ def main() -> None:
     px_a = bc67._quantize_ldr(image_to_blocks(img_a)[0]).reshape(64, -1) \
         .contiguous()
     opaque, alpha = bc67.SEARCH_MODES, bc67.SEARCH_MODES_ALPHA
+    quick = bc67.SEARCH_MODES_QUICK
     maxq, full = bc67.TIER_MAXQ, bc67.LADDER_FULL
     w_d = ck.bc7_encode(px_o)[1]
     w_a = ck.bc7_encode(px_a, alpha)[1]
@@ -199,6 +394,14 @@ def main() -> None:
         "search_unshared_signed": lambda: bc6h._search_unshared(px4s, True),
         "ranking": lambda: ck.bc6h_shapes(px4),
         "ranking_signed": lambda: ck.bc6h_shapes(px4s),
+        "k10": lambda: ck.bc6h_1region(px4, False),
+        "k10_signed": lambda: ck.bc6h_1region(px4s, True),
+        **{f"k2_quick{sfx}{'_aw2' if aw == 2.0 else ''}": (
+            lambda px=px, aw=aw: ck.bc7_encode(px, quick, aw))
+           for px, sfx in ((px_o, ""), (px_a, "_alpha_image"))
+           for aw in (1.0, 2.0)},
+        "path_quick_opaque": path(img_o, 0x100000),
+        "path_quick_alpha": path(img_a, 0x100000),
         **{f"k8{sfx}{'_aw2' if aw == 2.0 else ''}": (
             lambda px=px, aw=aw: ck.bc7_single_modes(px, aw))
            for px, sfx in ((px_o, ""), (px_a, "_alpha_image"))
@@ -210,7 +413,10 @@ def main() -> None:
         "k2_maxq_alpha_search": lambda: ck.bc7_encode(px_a, alpha, 1.0,
                                                       maxq),
     }
-    if not one_launch:
+    if keep:
+        focus_calls = {k: v for k, v in focus_calls.items()
+                       if k.startswith(keep)}
+    if not one_launch and not keep:
         # each of the six launches is its own kernel call
         focus_calls["k11_six_launches_unfolded"] = lambda: [
             ck.bc6h_2region(px4, sb4, g, False) for g in range(6)]
@@ -219,7 +425,8 @@ def main() -> None:
     # its own, the CUDA kernels it ran summed (a parent's six K11 launches)
     prof = chip_smoke.profile_calls(torch, {
         k: fn for k, fn in focus_calls.items()
-        if k.startswith(("mode7", "k11", "k8", "ranking"))
+        if k.startswith(("mode7", "k11", "k8", "ranking", "k10",
+                         "k2_quick"))
         and k != "k11_six_launches_unfolded"})
     focus_device_ms = {k: sum(t for _, t in v) * 1e-3
                        for k, v in prof.items()}
@@ -237,6 +444,18 @@ def main() -> None:
         "ranking": int(sb4.to(torch.int64).sum()),
         "ranking_signed": int(sb4s.to(torch.int64).sum()),
     }
+    for signed, px in ((False, px4), (True, px4s)):
+        err, words = ck.bc6h_1region(px, signed)
+        key = "k10_signed" if signed else "k10"
+        focus_sums[key] = int(words.to(torch.int64).sum())
+        focus_sums[key + "_err"] = float(
+            err[torch.isfinite(err)].to(torch.float64).sum())
+    for px, sfx in ((px_o, ""), (px_a, "_alpha_image")):
+        for aw in (1.0, 2.0):
+            err, words = ck.bc7_encode(px, quick, aw)
+            key = f"k2_quick{sfx}_aw{aw:g}"
+            focus_sums[key] = int(words.to(torch.int64).sum())
+            focus_sums[key + "_err"] = float(err.to(torch.float64).sum())
     for px, sfx in ((px_o, ""), (px_a, "_alpha_image")):
         for aw in (1.0, 2.0):
             err, words = ck.bc7_single_modes(px, aw)
@@ -250,7 +469,8 @@ def main() -> None:
     if only_focus:
         print(json.dumps({"tag": tag, "card": smi, "build_s": build_s,
                           "focus": focus, "focus_device_ms": focus_device_ms,
-                          "focus_sums": focus_sums, "ptxas": ptxas}),
+                          "focus_sums": focus_sums, "ptxas": ptxas,
+                          "sass": sass}),
               flush=True)
         return
 
@@ -377,7 +597,8 @@ def main() -> None:
     print(json.dumps({"tag": tag, "card": smi, "build_s": build_s,
                       "focus": focus, "focus_device_ms": focus_device_ms,
                       "focus_sums": focus_sums,
-                      "ptxas": ptxas, "ms": ms, "decode_ms": decode_ms,
+                      "ptxas": ptxas, "sass": sass, "ms": ms,
+                      "decode_ms": decode_ms,
                       "decode_sums": decode_sums, "full_words_sum": digest,
                       "words_sums": digests}), flush=True)
 

@@ -95,7 +95,8 @@ Phases:
      search errors equal, and each step alone (K2's search and its picks,
      mode 7's list pass and its launch) equal to its twin (mode 7's
      launch also to its team in plain form, bc67._mode7_jobs_plain);
- 12. K2 quick against its twin on bench512.npz and both 2048^2 images;
+ 12. K2 quick against its twin on bench512.npz and both 2048^2 images,
+     at alpha weights 1.0 and 2.0;
  13. BC7 gates on the card: the alphagrad corpus floor and the frozen
      reference parity of albedo, tworegion, normal and alphagrad;
  14. the 2048^2 image with alpha through the default path and the QUICK
@@ -153,7 +154,9 @@ Phases:
      tests/golden/bc6h_unshared.npz (there also at the JAX package's
      picks, and against K11's lane jobs in plain form), and on config 4's
      98,304 face-512 blocks (the twins on the first 16,384), unsigned and
-     signed: picks, words and errors equal (the ranking's picks also equal
+     signed: picks, words and errors equal (K10's twin folds its rows'
+     results, bc6h._bc6h_1region_rows_plain, row 10 first; the ranking's
+     picks also equal
      its team in plain form, bc6h._bc6h_shapes_slices_plain, and on
      config 4 on every block; on bc6h_unshared.npz they meet the JAX
      package's frozen picks on every block but the two recorded
@@ -177,9 +180,10 @@ Phases:
  25. the kernels line: every kernel's launches, error against its twin,
      time, plain time and bound (bytes or operations, whichever is
      larger, at the H100's published peaks, for the work each block of
-     the run needs), and for mode 7's launch, K11, K8 and the ranking the
-     device time of a call in a torch.profiler record of its own (phase
-     kernel_profile, after phase 6).
+     the run needs), and for mode 7's launch, K11, K8, the ranking, K10
+     and K2 quick the device time of a call in a torch.profiler record of
+     its own (phase kernel_profile, after phase 6, which also checks the
+     CUDA kernel each of them runs by name).
 
 Each phase prints one JSON line; any failure raises, so the script exits
 nonzero without the final ok line. Run from the repository root:
@@ -378,9 +382,10 @@ UNSHARED_PLAIN_BLOCKS = 16384  # face-512 blocks of the K10 / K11 twins
 # (registers, spill stores, spill loads in bytes) of kernel instances, by a
 # piece of each instance's mangled name (NVIDIA H100 80GB HBM3 build;
 # PERF.md section 6): the K9 and K7 teams, mode 7's team, K11's lane
-# jobs, the K8 and ranking teams as first built, and the instances whose
-# code a redesign moved or templated but did not change (K2's teams and
-# K5 since the K8 / ranking redesign).
+# jobs, the K8 and ranking teams as first built, K10 and K2 quick (one
+# thread a block), and the instances whose code a redesign moved or
+# templated but did not change (K2's teams and K5 since the K8 / ranking
+# redesign).
 PTXAS_RECORDED = {
     "bc7_encode_opaque_kernelILb0": (128, 424, 812),
     "bc7_encode_opaque_kernelILb1": (128, 440, 840),
@@ -402,6 +407,8 @@ PTXAS_RECORDED = {
     "bc6h_refine_unit_kernelILi1ELb0": (80, 224, 248),
     "bc6h_refine_unit_kernelILi1ELb1": (80, 304, 320),
     "bc6h_1region_kernel": (62, 0, 0),
+    "bc7_encode_kernelILi1ELb0": (168, 0, 0),
+    "bc7_encode_kernelILi1ELb1": (168, 0, 0),
     "bc6h_2region_jobs_kernel": (117, 0, 0),
     "bc6h_shapes_team_kernel": (56, 0, 0),
 }
@@ -840,8 +847,8 @@ def main() -> None:
     packed4 = torch.cat(pipelines.hdr_cubemap_pipeline()(eq4))
     words4 = packed4.view(torch.int32).t().contiguous()
     # mode 7's launch (on both tiers' picks, in place: a second fold over
-    # a folded result keeps it), K11's one launch and the ranking at the
-    # paths' shapes, K8 at phase 24's
+    # a folded result keeps it), K11's one launch, the ranking and K10 at
+    # the paths' shapes, K8 at phase 24's, K2 quick at phase 14's
     px_a = px_of(image_to_blocks(to_dev(bench_image(size, alpha=True)))[0])
     list_a, count_a = cuda_kernels.bc7_alpha_list(px_a)
     fold_a = {t: cuda_kernels.bc7_search_picks(px_a, 1.0, t)
@@ -861,7 +868,13 @@ def main() -> None:
             px4, sb4, range(6), False),
         "bc6h_shapes": lambda: cuda_kernels.bc6h_shapes(px4),
         "bc7_single_modes": lambda: cuda_kernels.bc7_single_modes(px2k,
-                                                                  1.0)}
+                                                                  1.0),
+        "bc6h_1region": lambda: cuda_kernels.bc6h_1region(px4, False),
+        "bc7_encode_quick": lambda: cuda_kernels.bc7_encode(
+            px_a, bc67.SEARCH_MODES_QUICK)}
+    # the CUDA kernel K10's and K2 quick's launchers run, by name
+    kernel_names = {"bc6h_1region": "bc6h_1region_kernel",
+                    "bc7_encode_quick": "bc7_encode_kernel<1,"}
     prof = profile_calls(torch, {**teams,
         "decode_bc7": lambda: bc67.decode_bc7(enc),
         "k1_f32": lambda: cuda_kernels.bc7_decode_blocks(enc),
@@ -875,6 +888,8 @@ def main() -> None:
                                                                  True)})
     for path in ("decode_bc7", "decode_bc6h", *teams):
         check(len(prof[path]) == 1, f"{path} runs {prof[path]}")
+    for k, piece in kernel_names.items():
+        check(piece in prof[k][0][0], f"{k} ran {prof[k][0][0]}")
     emit({"phase": "kernel_profile", "card": smi,
           "alpha_blocks": int(count_a),
           "kernels": {k: prof[k][0][0] for k in teams},
@@ -1391,18 +1406,21 @@ def bc7_alpha_phases(torch, to_dev, event_ms, smi, b512, corpus, img_opaque,
                         (r_k.to(torch.int64)
                          - plain["refine"].to(torch.int64)).abs().max())}
 
-    # 12. K2 quick against its twin ----------------------------------------
-    for label, px in (("bench512", px_of(image_to_blocks(
-            to_dev(b512["img"]))[0])), (f"opaque{size}", px_o),
-            (f"alpha{size}", px_a)):
-        e_k, w_k = cuda_kernels.bc7_encode(px, quick)
+    # 12. K2 quick against its twin, at both alpha weights ----------------
+    quick_contents = (("bench512", px_of(image_to_blocks(
+        to_dev(b512["img"]))[0])), (f"opaque{size}", px_o),
+        (f"alpha{size}", px_a))
+    for (label, px), aw in ((c, aw) for c in quick_contents
+                            for aw in ALPHA_WEIGHTS):
+        e_k, w_k = cuda_kernels.bc7_encode(px, quick, aw)
         t_q = event_ms(lambda: plain.update(
-            quick=bc67._bc7_search_plain(px, quick)))[0]
-        same(w_k, plain["quick"][1], f"K2 quick words {label}")
-        same(e_k, plain["quick"][0], f"K2 quick errors {label}")
-        emit({"phase": "K2_quick", "content": label, "blocks": px.shape[1],
-              "words_equal": True, "errors_equal": True})
-        if label == f"alpha{size}":
+            quick=bc67._bc7_search_plain(px, quick, aw)))[0]
+        same(w_k, plain["quick"][1], f"K2 quick words {label} aw={aw}")
+        same(e_k, plain["quick"][0], f"K2 quick errors {label} aw={aw}")
+        emit({"phase": "K2_quick", "content": label, "aw": aw,
+              "blocks": px.shape[1], "words_equal": True,
+              "errors_equal": True})
+        if label == f"alpha{size}" and aw == 1.0:
             plain_ms["bc7_encode_quick"] = t_q
             max_err["bc7_encode_quick"] = float(
                 (e_k - plain["quick"][0]).abs().max())

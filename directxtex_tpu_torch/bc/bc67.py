@@ -1766,6 +1766,28 @@ def _eval_partition_ns_plain(px_i, px_f, s_blk, mode_id: int,
                             None, px_i.shape[2], px_i.device)
 
 
+def _mode6_job_plain(px: torch.Tensor, aw: float = 1.0):
+    """Plain form of the mode-6 job of K2's maxq team and K8's team
+    (eval_mode6_packed, bc7_encode.cuh): mode 6 by the fit in one pass at
+    one subset (_fit_ns_plain), then the anchor swap and the emit. px [64,
+    NB] int32 (0..255) -> (err [NB] f32, words [4, NB] int32), equal to
+    _bc7_search_plain(px, SEARCH_MODES_QUICK, aw) bit for bit."""
+    errs, words = [], []
+    for s in range(0, px.shape[1], _PLAIN_SEARCH_SLICE):
+        px_i = px[:, s:s + _PLAIN_SEARCH_SLICE].reshape(16, 4, -1)
+        px_f = px_i.to(torch.float32)
+        nb = px_i.shape[2]
+        sid = torch.zeros((16, nb), dtype=torch.int64, device=px.device)
+        err, q0s, q1s, p0s, p1s, idx = _fit_ns_plain(px_i, px_f, sid, 1, 6,
+                                                     aw)
+        idx = _anchor_swaps(idx, [sid == 0], [0], _BC7_MODES[6].index_prec,
+                            q0s, q1s, p0s, p1s)
+        errs.append(err[0])
+        words.append(_words_i32(_emit_bc7(6, 0, 0, 0, q0s, q1s, p0s, p1s,
+                                          idx, None, nb, px.device)))
+    return torch.cat(errs), torch.cat(words, dim=1)
+
+
 # K2's maxq team's 21 evaluations of a block, in the order of their result
 # slots (bc7_encode.cuh's MaxqSlot): (mode, candidate rank or rotation,
 # index mode). The kernel runs them as 13 jobs: one per candidate and

@@ -852,23 +852,37 @@ def _fold_first(best, err, words):
             torch.where(better[None, :], words, best[1]))
 
 
-def _one_region_slice(px_int, signed: bool):
+# the one-region rows, in K10's fold order
+ONE_REGION_ROWS = (10, 11, 12, 13)
+
+
+def _one_region_row(px_int, row: int, signed: bool):
+    """One-region row `row` of every block evaluated in full, its anchor
+    swap, delta fit and emit: (err [NB], words [4, NB] int64)."""
     nb = px_int.shape[2]
     ones = torch.ones((16, nb), dtype=torch.bool, device=px_int.device)
-    best = None
-    for row in range(10, 14):
-        err, pairs, idx = _bc6h_eval_candidate(px_int, [ones], [0], row,
-                                               signed)
-        best = _fold_first(best, err, _bc6h_emit(row, 0, pairs, idx, nb,
-                                                 px_int.device))
-    return best
+    err, pairs, idx = _bc6h_eval_candidate(px_int, [ones], [0], row, signed)
+    return err, _bc6h_emit(row, 0, pairs, idx, nb, px_int.device)
+
+
+def _bc6h_1region_rows_plain(px: torch.Tensor, signed: bool):
+    """K10's rows, each evaluated in full: px [48, NB] int32 F16-ints ->
+    [(err [NB] f32, words [4, NB] int32)] in ONE_REGION_ROWS order."""
+    _check_px48(px)
+    return [_plain_slices(px, lambda p, row=row: _one_region_row(p, row,
+                                                                 signed))
+            for row in ONE_REGION_ROWS]
 
 
 def _bc6h_1region_plain(px: torch.Tensor, signed: bool):
     """Plain twin of K10 (_k_bc6h_1region): px [48, NB] int32 F16-ints ->
-    (err [NB] f32, words [4, NB] int32), rows 10-13 each evaluated in full,
-    folded in row order with a strict `<` from row 10's result."""
-    return _plain_slices(px, lambda p: _one_region_slice(p, signed))
+    (err [NB] f32, words [4, NB] int32), rows 10-13 each evaluated in full
+    (_bc6h_1region_rows_plain), folded in row order: row 10 taken as it
+    is (an infinite error included), then a strict `<`."""
+    best = None
+    for err, words in _bc6h_1region_rows_plain(px, signed):
+        best = _fold_first(best, err, words)
+    return best
 
 
 def _check_rows(rows) -> tuple:

@@ -15,11 +15,18 @@
 // takes an infinite error).
 //
 // Bound: operations. A block needs 96 bytes in (48 halves; read here as
-// int32) and 20 out, against about 10^4 elementwise operations per row
-// (tests/test_torch_op_counts.py), in per-thread dependence chains
-// (16-pixel sums in order, LS solves). The design is K5's: the 48 pixels
-// staged in shared memory as int16, one row's state live at a time in a
-// loop that is not unrolled, indices packed 4 bits a pixel.
+// int32) and 20 out, against about 2.3 * 10^4 elementwise operations for
+// its four rows (tests/test_torch_op_counts.py), in per-thread dependence
+// chains (16-pixel sums in order, LS solves). The design is K5's: the 48
+// pixels staged in shared memory as int16, one row's state live at a time
+// in a loop that is not unrolled, indices packed 4 bits a pixel.
+//
+// Why one thread a block: the kernel is bound by issue. Its SASS issues
+// about 3.7 * 10^4 instructions a block (chip_ab.py --sass), which fill
+// most of the issue slots of its time on the card; a team of four warps
+// per 32 blocks, warp r on row 10 + r from pixels staged once, issued 5%
+// more (staging, shared-memory results, the fold) and ran 8% longer, and
+// two warps of two rows each ran no faster (PERF.md).
 //
 // Built with --fmad=false: every float step rounds as the plain twin's
 // separate torch ops do, so kernel and twin pick the same words.

@@ -1100,7 +1100,12 @@ __device__ __forceinline__ void eval_45_packed(const PX& prp,
   keep_if_better(best, err, emit_block<M>(0, rot, IM, q0, q1, p0, p1, w1, w2));
 }
 
-// The quick variant: one thread per block, mode 6 alone
+// The quick variant: one thread per block, mode 6 alone. It issues fewer
+// instructions a block (about 4.1 * 10^3, chip_ab.py --sass) than the
+// twin's operation count. The maxq team's mode-6 job (eval_mode6_packed)
+// run alone, a lane a block from pixels staged in shared memory at 64 to
+// 80 registers, issued 15% more (a byte and a nibble picked out of packed
+// words at each pass) and ran 8-9% longer (PERF.md).
 template <int V, bool W>
 __global__ void __launch_bounds__(kThreads)
     bc7_encode_kernel(const int32_t* __restrict__ px, float* __restrict__ err,
