@@ -39,7 +39,11 @@ every kernel against its plain PyTorch twin on the card:
   maxq tiers;
 - K8, bc67.bc7_single_modes: modes 4, 5 and 6 in one pass (a team of
   five warps per 32 blocks, one job a warp: a rotation's modes 4 and 5,
-  or mode 6).
+  or mode 6);
+- BC1-BC5 and BASELINE configs 1, 2 and 5 (models.pipelines): the
+  codecs, sRGB conversion, the box mips and the normal map are plain
+  torch ops on the card, held against the port on the CPU; config 5's
+  BC7 runs K2's default team and K3's MOMENT launches.
 
 Phases:
 
@@ -177,7 +181,30 @@ Phases:
      count: each mode's words and errors equal the twins' and the team's
      plain form's (bc67._single_modes_jobs_plain, folded), and the errors
      equal the decoded (K1) squared error at weight 1.0;
- 25. the kernels line: every kernel's launches, error against its twin,
+ 25. BC1-BC5 gates on the card: the bc1-bc5 golden decode vectors bit
+     for bit (BC4/BC5 signed and unsigned), the corpus PSNR floors and
+     the frozen reference parity of tests/test_golden.py, the card's
+     words equal to the CPU port's on those contents;
+ 26. config 1 (benchmarks/run_all.py:61-84): the 1024^2 image (rng 0),
+     srgb off, through mipped_compress_pipeline("bc1"), 11 levels and
+     87,383 blocks, no hand kernel launched, the words equal to the CPU
+     port's; CUDA-event times of the path, the mip glue and the BC1
+     encode with their spread, device time and kernel count from a
+     profiler record; srgb on once, its words equal to the CPU port's
+     wherever the encoder input is;
+ 27. config 2 (run_all.py:86-112): 64 x 256^2 (rng 1), sRGB -> linear
+     and premultiply, then BC3, BC4U and BC5U over 262,144 blocks each;
+     the count of linearised values that differ from the CPU port's,
+     the words equal to the CPU port's on images 0, 9, ..., 63; times of
+     the step and of each piece, device times of the encoders;
+ 28. config 5 (run_all.py:156-170): 16 x 512^2 height maps (rng 3)
+     through asset_pipeline, its launches (one K2, K3's bucket pass and
+     four launches), the normal maps equal to the CPU port's, the words
+     equal to the plain path's on the card (K2's and K3's twins); times
+     of the path, the normal map, image_to_blocks, encode_bc7 and K2 and
+     K3 at its shapes beside the main path's encode, PSNR through
+     decode_bc7 (K1), the winners' modes;
+ 29. the kernels line: every kernel's launches, error against its twin,
      time, plain time and bound (bytes or operations, whichever is
      larger, at the H100's published peaks, for the work each block of
      the run needs), and for mode 7's launch, K11, K8, the ranking, K10
@@ -362,6 +389,22 @@ REF_PARITY_MARGINS = {"albedo": 0.04, "tworegion": 0.28, "normal": 2.65,
 EARLIER_OPAQUE_MS = {"path": 3.497, "bc7_encode": 1.923,
                      "bc7_refine": 0.840, "bc7_refine_ladder": 5.721}
 MAXQ = 0x200000            # encode_bc7's MAXQUALITY flag
+# BC1-BC5 (tests/test_golden.py): the corpus PSNR floors, scored over
+# the codec's channels, and the frozen reference parity margins
+BC12345_FLOORS = {"bc1_albedo": 31.05, "bc1_tworegion": 38.77,
+                  "bc2_alphagrad": 31.76, "bc3_alphagrad": 32.29,
+                  "bc4_normal": 44.97, "bc5_normal": 45.01,
+                  "bc1_photo_china": 29.29, "bc1_photo_flower": 30.18}
+BC12345_REF_MARGINS = {"bc1_albedo": -0.03, "bc1_tworegion": -0.02,
+                       "bc2_alphagrad": -0.03, "bc3_alphagrad": -0.03,
+                       "bc4_normal": -0.02, "bc5_normal": -0.02}
+CONFIG1_SIZE = 1024        # benchmarks/run_all.py:61-84 (rng 0)
+CONFIG2_SHAPE = (64, 256)  # run_all.py:86-112: 64 images of 256^2 (rng 1)
+CONFIG2_CPU_IMAGES = tuple(range(0, 64, 9))  # held against the CPU port
+CONFIG5_SHAPE = (16, 512)  # run_all.py:156-170: 16 height maps (rng 3)
+# the main path's encode at 2048^2 (PERF.md section 5; NVIDIA H100 80GB
+# HBM3, 700 W), printed beside config 5's
+MAIN_PATH_ENCODE_MS = 2.626
 MAXQ_GATE_SLACK = 0.001    # dB below the default tier (test_bc7.py:211)
 USE3 = 0x80000             # encode_bc7's USE_3SUBSETS flag
 USE3_FLOOR = 36.0          # img_blocks with USE_3SUBSETS (test_bc7.py:240)
@@ -961,6 +1004,8 @@ def main() -> None:
                    (plain_ms, "plain_ms"), (max_err, "max_err"),
                    (nb_of, "nb"), (plain_nb, "nb"), (ops_of, "ops")):
         d.update(r[key])
+
+    bc12345_phases(torch, to_dev, event_ms, smi, enc_ms)
 
     lines = []
     device_ms = {k: prof[k][0][1] * 1e-3 for k in teams if k in SOURCES}
@@ -2520,6 +2565,247 @@ def bc7_single_modes_phase(torch, to_dev, event_ms, smi, img_opaque,
             "max_err": {"bc7_single_modes": max_err},
             "nb": {"bc7_single_modes": nb},
             "ops": {"bc7_single_modes": BC7_SINGLE_MODES_OPS * float(nb)}}
+
+
+def config1_image(size: int) -> np.ndarray:
+    """benchmarks/run_all.py:61-69's config 1 content."""
+    rng = np.random.default_rng(0)
+    x = np.linspace(0, 1, size, dtype=np.float32)
+    gx, gy = np.meshgrid(x, x)
+    return np.clip(np.stack([gx, gy, gx * gy, np.ones_like(gx)], -1)
+                   + rng.normal(0, .02, (size, size, 4)), 0, 1
+                   ).astype(np.float32)
+
+
+def psnr_of(dec, src, ch: int = 4) -> float:
+    """PSNR over the first ch channels, in f64."""
+    d = dec[..., :ch].double() - src[..., :ch].double()
+    return float(10 * np.log10(1.0 / max(float((d * d).mean()), 1e-30)))
+
+
+def bc12345_phases(torch, to_dev, event_ms, smi, main_encode_ms) -> None:
+    """Phases 25-28: the BC1-BC5 golden checks on the card, and BASELINE
+    configs 1, 2 and 5 at benchmarks/run_all.py's sizes, each driven with
+    the launch counts set to 0 just before it and read just after, its
+    words held against the CPU port's, and timed (CUDA events, median of
+    7 after a warm-up, with the spread)."""
+    from directxtex_tpu_torch.bc import bc45, bc67, bc123, cuda_kernels
+    from directxtex_tpu_torch.bc.common import image_to_blocks
+    from directxtex_tpu_torch.models import pipelines
+    from directxtex_tpu_torch.ops.colorspace import apply_srgb_to_linear
+
+    def timed(fn) -> dict:
+        fn()
+        t = event_ms(fn, 7)
+        return {"median": float(np.median(t)), "min": float(min(t)),
+                "max": float(max(t))}
+
+    def counts_of(fn):
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in cuda_kernels.launch_counts().items()
+                     if v}
+
+    def cpu(t):
+        return t.detach().to("cpu")
+
+    def device_of(calls: dict) -> dict:
+        """Each call's CUDA kernels and their summed device time (one
+        torch.profiler record a call): the device's busy share of the
+        call's event time."""
+        prof = profile_calls(torch, calls)
+        return {k: {"cuda_kernels": len(v),
+                    "device_ms": sum(t for _, t in v) * 1e-3}
+                for k, v in prof.items()}
+
+    # 25. golden checks: decode vectors, corpus floors, reference parity --
+    vec = np.load(os.path.join(GOLDEN, "decode_vectors.npz"))
+    for codec in ("bc1", "bc2", "bc3"):
+        got = getattr(bc123, f"decode_{codec}")(to_dev(vec[codec + "_blocks"]))
+        check(np.array_equal(got.cpu().numpy(), vec[codec + "_rgba"]),
+              f"{codec} golden decode")
+    b4, b5 = to_dev(vec["bc4_blocks"]), to_dev(vec["bc5_blocks"])
+    for got, key in ((bc45.decode_bc4u(b4)[..., 0], "bc4u_r"),
+                     (bc45.decode_bc4s(b4)[..., 0], "bc4s_r"),
+                     (bc45.decode_bc5u(b5)[..., 0], "bc5u_r"),
+                     (bc45.decode_bc5u(b5)[..., 1], "bc5u_g"),
+                     (bc45.decode_bc5s(b5)[..., 0], "bc5s_r"),
+                     (bc45.decode_bc5s(b5)[..., 1], "bc5s_g")):
+        check(np.array_equal(got.cpu().numpy(), vec[key]),
+              f"{key} golden decode")
+    corpus = np.load(os.path.join(GOLDEN, "corpus.npz"))
+    ref = np.load(os.path.join(GOLDEN, "ref_encodes.npz"))
+    codecs = {"bc1": (lambda b: bc123.encode_bc1(b, 0.5, 0),
+                      bc123.decode_bc1, 3),
+              "bc2": (lambda b: bc123.encode_bc2(b, 0), bc123.decode_bc2, 4),
+              "bc3": (lambda b: bc123.encode_bc3(b, 0), bc123.decode_bc3, 4),
+              "bc4": (bc45.encode_bc4u, bc45.decode_bc4u, 1),
+              "bc5": (bc45.encode_bc5u, bc45.decode_bc5u, 2)}
+    gates = {}
+    for name, floor in BC12345_FLOORS.items():
+        codec, content = name.split("_", 1)
+        enc, dec, ch = codecs[codec]
+        blocks = image_to_blocks(to_dev(corpus[content]))[0]
+        words = enc(blocks)
+        same_cpu = torch.equal(cpu(words), enc(cpu(blocks)))
+        check(same_cpu, f"{name}: the card's words differ from the CPU's")
+        # tests/test_golden.py's PSNR: a float32 mean in numpy
+        d = dec(words).cpu().numpy()[..., :ch] - blocks.cpu().numpy()[..., :ch]
+        p = float(10 * np.log10(1.0 / max(float(np.mean(d ** 2)), 1e-30)))
+        check(p >= floor and p >= float(corpus[f"psnr_{name}"]) - 0.05,
+              f"{name}: {p} dB below its floor")
+        want = None
+        if name in BC12345_REF_MARGINS:
+            want = float(ref[f"{name}_psnr"]) + BC12345_REF_MARGINS[name]
+            check(p >= want, f"{name}: {p} dB below the reference's")
+        gates[name] = {"psnr": p, "floor": floor, "reference_floor": want}
+    emit({"phase": "bc12345_gates", "golden_decode_bit_exact": True,
+          "corpus_words_equal_cpu": True, "gates": gates})
+
+    # 26. config 1: 1024^2 -> full box mip chain -> BC1 ------------------
+    img1 = config1_image(CONFIG1_SIZE)
+    img1_d = to_dev(img1)
+    run1 = pipelines.mipped_compress_pipeline("bc1", srgb=False)
+    levels, counts = counts_of(lambda: run1(img1_d))
+    check(counts == {}, f"config 1 launched hand kernels {counts}")
+    words1 = torch.cat(levels)
+    n_levels = CONFIG1_SIZE.bit_length()      # 1024^2 ... 1^2: 11
+    want_nb = sum(((max(1, CONFIG1_SIZE >> k) + 3) // 4) ** 2
+                  for k in range(n_levels))   # 87,383 at 1024^2
+    check(words1.shape[0] == want_nb and len(levels) == n_levels,
+          f"config 1: {words1.shape[0]} blocks in {len(levels)} levels")
+    cpu1 = pipelines.mipped_compress_pipeline("bc1", srgb=False,
+                                              device="cpu")(img1)
+    n1 = int((cpu(words1) != torch.cat(cpu1)).any(dim=1).sum())
+    check(n1 == 0, f"config 1: {n1} blocks differ from the CPU port")
+    blocks1, _ = pipelines._mip_chain_blocks(img1_d, 0, False)
+    ms1 = {"path": timed(lambda: run1(img1_d)),
+           "mip_glue": timed(lambda: pipelines._mip_chain_blocks(
+               img1_d, 0, False)),
+           "bc1_encode": timed(lambda: bc123.encode_bc1(blocks1, 0.5, 0))}
+    dev1 = device_of({"path": lambda: run1(img1_d),
+                      "bc1_encode": lambda: bc123.encode_bc1(blocks1, 0.5,
+                                                             0)})
+    top = image_to_blocks(img1_d)[0]
+    psnr1 = psnr_of(bc123.decode_bc1(bc123.encode_bc1(top, 0.5, 0)), top)
+    # srgb=True once: sRGB -> linear, the chain in linear light
+    levels_s = pipelines.mipped_compress_pipeline("bc1", srgb=True)(img1_d)
+    blocks_s, _ = pipelines._mip_chain_blocks(img1_d, 0, True)
+    cpu_blocks_s, _ = pipelines._mip_chain_blocks(torch.from_numpy(img1),
+                                                  0, True)
+    same_in = (cpu(blocks_s) == cpu_blocks_s).reshape(
+        blocks_s.shape[0], -1).all(dim=1)
+    cpu_s = torch.cat(pipelines.mipped_compress_pipeline(
+        "bc1", srgb=True, device="cpu")(img1))
+    n_s = int(((cpu(torch.cat(levels_s)) != cpu_s).any(dim=1)
+               & same_in).sum())
+    check(n_s == 0, f"config 1 srgb: {n_s} blocks differ from the CPU port")
+    texels1 = CONFIG1_SIZE * CONFIG1_SIZE * 4 // 3
+    emit({"phase": "config1", "card": smi, "size": CONFIG1_SIZE,
+          "levels": len(levels), "blocks": int(words1.shape[0]),
+          "launches": counts, "words_equal_cpu": True, "ms": ms1,
+          "device": dev1,
+          "mtexels_per_s": texels1 / (ms1["path"]["median"] * 1e-3) / 1e6,
+          "top_level_psnr": psnr1,
+          "srgb": {"inputs_differ_from_cpu": int((~same_in).sum()),
+                   "words_differ_from_cpu_on_equal_inputs": n_s}})
+
+    # 27. config 2: sRGB -> linear, premultiply, BC3 / BC4U / BC5U -------
+    n_img, size = CONFIG2_SHAPE
+    batch = np.random.default_rng(1).random(
+        (n_img, size, size, 4)).astype(np.float32)
+    batch_d = to_dev(batch)
+
+    def glue(b):
+        lin = apply_srgb_to_linear(b)
+        return torch.cat([lin[..., :3] * lin[..., 3:4], lin[..., 3:4]], -1)
+
+    def blocks_of(pm):
+        return torch.cat([image_to_blocks(im)[0] for im in pm])
+
+    def step2(b):
+        blocks = blocks_of(glue(b))
+        return (bc123.encode_bc3(blocks, 0), bc45.encode_bc4u(blocks),
+                bc45.encode_bc5u(blocks))
+
+    out2, counts2 = counts_of(lambda: step2(batch_d))
+    check(counts2 == {}, f"config 2 launched hand kernels {counts2}")
+    lin_cpu = apply_srgb_to_linear(torch.from_numpy(batch))
+    lin_differ = int((cpu(apply_srgb_to_linear(batch_d)) != lin_cpu).sum())
+    nb_img = (size // 4) ** 2
+    sel = list(CONFIG2_CPU_IMAGES)
+    out_cpu = step2(torch.from_numpy(batch[sel]))
+    for name, got, want in zip(("bc3", "bc4", "bc5"), out2, out_cpu):
+        got = cpu(got).reshape(n_img, nb_img, -1)[sel].reshape(want.shape)
+        n = int((got != want).any(dim=1).sum())
+        check(n == 0, f"config 2 {name}: {n} blocks differ from the CPU port")
+    pm_d = glue(batch_d)
+    blocks2 = blocks_of(pm_d)
+    ms2 = {"path": timed(lambda: step2(batch_d)),
+           "srgb_premultiply": timed(lambda: glue(batch_d)),
+           "image_to_blocks": timed(lambda: blocks_of(pm_d)),
+           "bc3": timed(lambda: bc123.encode_bc3(blocks2, 0)),
+           "bc4u": timed(lambda: bc45.encode_bc4u(blocks2)),
+           "bc5u": timed(lambda: bc45.encode_bc5u(blocks2))}
+    dev2 = device_of({"bc3": lambda: bc123.encode_bc3(blocks2, 0),
+                      "bc4u": lambda: bc45.encode_bc4u(blocks2),
+                      "bc5u": lambda: bc45.encode_bc5u(blocks2)})
+    texels2 = n_img * size * size * 3
+    emit({"phase": "config2", "card": smi, "images": n_img, "size": size,
+          "blocks_per_codec": int(blocks2.shape[0]), "launches": counts2,
+          "cpu_images": sel, "words_equal_cpu": True,
+          "linearised_values_differ_from_cpu": lin_differ, "ms": ms2,
+          "device": dev2,
+          "mtexels_per_s": texels2 / (ms2["path"]["median"] * 1e-3) / 1e6})
+
+    # 28. config 5: height maps -> normal maps -> BC7 (K2, K3) ------------
+    n_img, size = CONFIG5_SHAPE
+    lib = np.random.default_rng(3).random(
+        (n_img, size, size, 4)).astype(np.float32)
+    lib_d = to_dev(lib)
+    run5 = pipelines.asset_pipeline()
+    words5, counts5 = counts_of(lambda: run5(lib_d))
+    check(counts5 == {"bc7_encode": 1, "bc7_mode_buckets": 1,
+                      "bc7_refine": 4}, f"config 5 launches {counts5}")
+    nm_d = pipelines._normal_map(lib_d)
+    nm_cpu = pipelines._normal_map(torch.from_numpy(lib))
+    check(torch.equal(cpu(nm_d), nm_cpu),
+          "config 5: the card's normal maps differ from the CPU port's")
+    blocks5 = torch.cat([image_to_blocks(im)[0] for im in nm_d])
+    px5 = bc67._quantize_ldr(blocks5).reshape(64, -1).contiguous()
+    plain = {}
+    plain_ms = event_ms(lambda: plain.update(words=bc67._bc7_refine_plain(
+        px5, bc67._bc7_search_plain(px5)[1], bc67.REFINE_MODES)))[0]
+    plain_words = plain["words"].t().contiguous().view(torch.uint8)
+    check(torch.equal(words5.reshape(-1, 16), plain_words.reshape(-1, 16)),
+          "config 5: the kernels' words differ from the plain path's")
+    _, w_search = cuda_kernels.bc7_encode(px5)
+    ms5 = {"path": timed(lambda: run5(lib_d)),
+           "normal_map": timed(lambda: pipelines._normal_map(lib_d)),
+           "image_to_blocks": timed(lambda: torch.cat(
+               [image_to_blocks(im)[0] for im in nm_d])),
+           "encode_bc7": timed(lambda: bc67.encode_bc7(blocks5)),
+           "bc7_encode": timed(lambda: cuda_kernels.bc7_encode(px5)),
+           "bc7_refine": timed(lambda: cuda_kernels.bc7_refine(
+               px5, w_search, bc67.REFINE_MODES))}
+    dev5 = device_of({"path": lambda: run5(lib_d),
+                      "normal_map": lambda: pipelines._normal_map(lib_d)})
+    dec5 = bc67.decode_bc7(words5.reshape(-1, 16))
+    modes = bc67._mode_of(bc67._words_i64(
+        words5.reshape(-1, 16).view(torch.int32).t().contiguous()))
+    emit({"phase": "config5", "card": smi, "images": n_img, "size": size,
+          "blocks": int(blocks5.shape[0]), "launches": counts5,
+          "words_equal_plain_path": True, "normal_map_equal_cpu": True,
+          "plain_path_ms": plain_ms, "ms": ms5, "device": dev5,
+          "main_path_encode_ms": main_encode_ms,
+          "recorded_main_path_encode_ms": MAIN_PATH_ENCODE_MS,
+          "mtexels_per_s": n_img * size * size
+          / (ms5["path"]["median"] * 1e-3) / 1e6,
+          "psnr": psnr_of(dec5, blocks5),
+          "winner_modes": {m: int((modes == m).sum()) for m in range(8)
+                           if int((modes == m).sum())}})
 
 
 if __name__ == "__main__":

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from . import cuda_kernels
+from ..numerics import rdiv as _div, sqrt as _sqrt, sum0 as _sum0
 from .bc67_tables import (BC6H_DESC, BC6H_MODE_INFO, BC6H_MODE_TO_INFO,
                           FIXUPS, PARTITIONS, WEIGHTS2, WEIGHTS3, WEIGHTS4)
 
@@ -215,20 +216,6 @@ def _est_tables(device: torch.device, n_shapes: int, partitions: int = 1):
     n_inv = 1.0 / np.maximum(m_host.sum(axis=1), 1.0)
     return (torch.tensor(m_host, device=device),
             torch.tensor(n_inv, dtype=torch.float32, device=device))
-
-
-def _sum0(x: torch.Tensor) -> torch.Tensor:
-    """Sum over dim 0 in index order (the kernels' order)."""
-    s = x[0]
-    for i in range(1, x.shape[0]):
-        s = s + x[i]
-    return s
-
-
-def _div(num: float, den: torch.Tensor) -> torch.Tensor:
-    """IEEE `num / den` for a python scalar numerator (torch computes
-    `scalar / tensor` as `reciprocal(tensor) * scalar`)."""
-    return torch.div(torch.full_like(den, num), den)
 
 
 # ---------------------------------------------------------------------------
@@ -894,7 +881,7 @@ def _shape_estimates_table(px_f, n_shapes: int = 64,
         for _ in range(_POWER_ITERS):
             w = [cov[a, 0] * v[0] + cov[a, 1] * v[1] + cov[a, 2] * v[2]
                  for a in range(3)]
-            nrm = torch.sqrt(w[0] * w[0] + w[1] * w[1] + w[2] * w[2])
+            nrm = _sqrt(w[0] * w[0] + w[1] * w[1] + w[2] * w[2])
             inv = _div(1.0, nrm.clamp(min=1e-20))
             v = [x * inv for x in w]
         lam = sum((v[a] * (cov[a, 0] * v[0] + cov[a, 1] * v[1]

@@ -1556,8 +1556,8 @@ def encode_bc6h(blocks: torch.Tensor, signed: bool, flags: int = 0,
 
     The default tier is the shared-fit search (K5 on a CUDA tensor), or
     with BC6H_SHARED_FIT off (read at each call) the full evaluation per
-    (row, candidate) (_search_unshared: K10, the shape ranking and six K11
-    launches on a CUDA tensor). The
+    (row, candidate) (_search_unshared: K10, the shape ranking and one
+    K11 launch for all six precision groups on a CUDA tensor). The
     mid tier (_BC6H_MID, texconv -bc b) adds one re-mapping ladder round at
     the winner's own precision (BC6H_LADDER_MID); the maxq tier
     (_BC7_MAXQUALITY) the full re-mapping ladder over every two-region

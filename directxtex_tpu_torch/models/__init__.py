@@ -1,5 +1,7 @@
 """End-to-end texture pipelines (BASELINE.md configs)."""
 
-from .pipelines import bc_encode_pipeline, hdr_cubemap_pipeline
+from .pipelines import (asset_pipeline, bc_encode_pipeline,
+                        hdr_cubemap_pipeline, mipped_compress_pipeline)
 
-__all__ = ["bc_encode_pipeline", "hdr_cubemap_pipeline"]
+__all__ = ["asset_pipeline", "bc_encode_pipeline", "hdr_cubemap_pipeline",
+           "mipped_compress_pipeline"]

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from directxtex_tpu_torch.bc import bc6h, bc67, cuda_kernels
+from directxtex_tpu_torch.bc import bc45, bc6h, bc67, bc123, cuda_kernels
+from directxtex_tpu_torch.bc.common import image_to_blocks
 from directxtex_tpu_torch.models import pipelines
 
 
@@ -26,9 +27,11 @@ def test_package_imports_no_jax():
     code = (
         "import sys\n"
         "import directxtex_tpu_torch, directxtex_tpu_torch._build\n"
-        "from directxtex_tpu_torch.bc import bc6h, bc67, common, "
-        "cuda_kernels\n"
+        "from directxtex_tpu_torch import numerics\n"
+        "from directxtex_tpu_torch.bc import bc45, bc6h, bc67, bc123, "
+        "common, cuda_kernels\n"
         "from directxtex_tpu_torch.models import pipelines\n"
+        "from directxtex_tpu_torch.ops import colorspace, normalmaps\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'directxtex_tpu']\n"
         "assert not bad, bad\n")
@@ -212,10 +215,24 @@ def test_unsupported_bc6h_settings_raise(kwargs):
         bc6h.encode_bc6h(_blocks(4), False, **kwargs)
 
 
-@pytest.mark.parametrize("kind", ["bc1", "bc3", "bc4", "bc5"])
-def test_unported_pipeline_kinds_raise(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipelines.bc_encode_pipeline(kind)
+@pytest.mark.parametrize("kind,encode", [
+    ("bc1", lambda b: bc123.encode_bc1(b, 0.5, 0)),
+    ("bc3", lambda b: bc123.encode_bc3(b, 0)),
+    ("bc4", bc45.encode_bc4u), ("bc5", bc45.encode_bc5u)])
+def test_unported_pipeline_kinds_raise(kind, encode):
+    """The BC1-BC5 kinds (refused until the codecs were ported) run on a
+    CPU tensor and are the direct encoder calls, as in the JAX package's
+    _encode."""
+    img = torch.from_numpy(np.random.default_rng(6).random(
+        (8, 12, 4), dtype=np.float32))
+    got = pipelines.bc_encode_pipeline(kind)(img)
+    assert got.device.type == "cpu" and got.dtype == torch.uint8
+    assert torch.equal(got, encode(image_to_blocks(img)[0]))
+
+
+def test_unknown_pipeline_kind_raises():
+    with pytest.raises(ValueError):
+        pipelines.bc_encode_pipeline("bc8")(torch.zeros((4, 4, 4)))
 
 
 def test_unsupported_refine_settings_raise():
