@@ -43,7 +43,13 @@ every kernel against its plain PyTorch twin on the card:
 - BC1-BC5 and BASELINE configs 1, 2 and 5 (models.pipelines): the
   codecs, sRGB conversion, the box mips and the normal map are plain
   torch ops on the card, held against the port on the CPU; config 5's
-  BC7 runs K2's default team and K3's MOMENT launches.
+  BC7 runs K2's default team and K3's MOMENT launches;
+- the format core and the compress driver (formats, texture, ops.convert,
+  ops.compress, io.dds): a DDS file -> load -> compress -> DDS -> reload
+  -> decompress on the card, BC7 over a 2048^2 mip chain (K2, K3, with
+  alpha mode 7's launches, K1) and BC6H over a 512^2 HDR image (K5, K6,
+  K4), and convert / pack / unpack as plain torch ops on the card, held
+  against the CPU port.
 
 Phases:
 
@@ -204,7 +210,32 @@ Phases:
      of the path, the normal map, image_to_blocks, encode_bc7 and K2 and
      K3 at its shapes beside the main path's encode, PSNR through
      decode_bc7 (K1), the winners' modes;
- 29. the kernels line: every kernel's launches, error against its twin,
+ 29. the format core and the compress driver (phase ldr_dds): the 2048^2
+     bench image's full 12-level chain (numpy 2 x 2 box averages) saved
+     as an R8G8B8A8_UNORM DDS on the card (its bytes equal the CPU
+     port's), loaded onto the card, compress(BC7_UNORM) (one encode_bc7
+     over the chain's 349,527 blocks: K2's default team, K3 MOMENT),
+     saved and reloaded (byte-exact), decompress (K1); level 0's words
+     equal encode_bc7 of the same image, every level's equal its own
+     encode_bc7, decompress equals decode_bc7 bit for bit; again with
+     alpha (mode 7's list pass and launch); launch counts, the host
+     syncs of each step, CUDA-event times of the DDS load, compress, save,
+     reload and decompress, and the kernels' device time from a profiler
+     record;
+ 30. the 512^2 HDR gate (phase hdr_dds; tests/golden/
+     generate_compress_dds.py builds it from corpus.npz's hdr_china and
+     hdr_flower): saved as R16G16B16A16_FLOAT, loaded, compress
+     (BC6H_UF16: K5; BC6H_MID: K5 + K6), DDS round trip, decompress (K4,
+     bit-equal to decode_bc6h), held to the JAX package's frozen
+     aggregate F16-int error (at most 1.005x), log-PSNR beside it;
+ 31. convert on the card (phase convert_pack): the 2048^2 chain as
+     R8G8B8A8_UNORM_SRGB -> R16G16B16A16_FLOAT -> R10G10B10A2_UNORM ->
+     B5G6R5_UNORM with the ordered dither, each step against the CPU
+     port on the same input (bit for bit; the sRGB step lists its
+     differences), and pack / unpack of all 75 packable formats on a
+     64^2 patch with NaN, +-inf and out-of-range values, bit-equal to the
+     CPU port;
+ 32. the kernels line: every kernel's launches, error against its twin,
      time, plain time and bound (bytes or operations, whichever is
      larger, at the H100's published peaks, for the work each block of
      the run needs), and for mode 7's launch, K11, K8, the ranking, K10
@@ -603,13 +634,15 @@ def decode_equal(torch, blocks, what: str, signed=None) -> None:
         f"{what}: f32 vs plain")
 
 
-def profile_calls(torch, calls: dict, tries: int = 3) -> dict:
+def profile_calls(torch, calls: dict, tries: int = 6) -> dict:
     """{label: [(kernel name, device µs)]}: the CUDA kernels each call of
     `calls` ({label: fn}) runs, each call in a torch.profiler record of its
     own (CUPTI sees the kernels launched through ctypes too), so that an
     offset between the host's and the device's clocks cannot put a kernel
     under a neighbouring call. A record that holds no device activity
-    (CUPTI delivered none) is taken again, up to `tries` records."""
+    (CUPTI delivered none; three records in a row have come back empty on
+    a call that ran kernels) is taken again after a pause, up to `tries`
+    records."""
     from torch.profiler import ProfilerActivity, profile
 
     for fn in calls.values():
@@ -629,6 +662,7 @@ def profile_calls(torch, calls: dict, tries: int = 3) -> dict:
             if device:
                 out[label] = device
                 break
+            time.sleep(0.5)
         else:
             raise RuntimeError(f"no device activity for {label} in {tries} "
                                f"profiler records")
@@ -1006,6 +1040,7 @@ def main() -> None:
         d.update(r[key])
 
     bc12345_phases(torch, to_dev, event_ms, smi, enc_ms)
+    format_core_phases(torch, dev, to_dev, event_ms, smi)
 
     lines = []
     device_ms = {k: prof[k][0][1] * 1e-3 for k in teams if k in SOURCES}
@@ -2806,6 +2841,356 @@ def bc12345_phases(torch, to_dev, event_ms, smi, main_encode_ms) -> None:
           "psnr": psnr_of(dec5, blocks5),
           "winner_modes": {m: int((modes == m).sum()) for m in range(8)
                            if int((modes == m).sum())}})
+
+
+def box_chain(img: np.ndarray) -> list:
+    """A full mip chain of a square power-of-two image by 2 x 2 box
+    averages in numpy ([1, s, s, 4] f32 levels, s down to 1)."""
+    levels = [img[None].astype(np.float32)]
+    while levels[-1].shape[1] > 1:
+        p = levels[-1][0]
+        s = p.shape[0] // 2
+        levels.append((p.reshape(s, 2, s, 2, 4).mean(axis=(1, 3))
+                       .astype(np.float32))[None])
+    return levels
+
+
+def hdr512_module():
+    """tests/golden/generate_compress_dds.py (its module level imports
+    numpy only), for the 512^2 HDR gate image."""
+    import importlib.util
+
+    path = os.path.join(GOLDEN, "generate_compress_dds.py")
+    spec = importlib.util.spec_from_file_location("generate_compress_dds",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def format_core_phases(torch, dev, to_dev, event_ms, smi,
+                       size: int = SLICE_SIZE, hdr_size: int = 512) -> None:
+    """Phases 29-31: the format core and the compress driver on the card,
+    through the entry points a user calls. 29: the 2048^2 bench image's
+    full 12-level chain as an R8G8B8A8_UNORM DDS -> load_from_dds_memory
+    -> compress(BC7_UNORM) (one encode_bc7 over all 349,527 blocks: K2's
+    default team and K3 MOMENT; with alpha also mode 7's list pass and
+    launch) -> save_to_dds_memory -> reload -> decompress (K1); 30: the
+    512^2 HDR gate image as an R16G16B16A16_FLOAT DDS -> compress
+    (BC6H_UF16, K5; BC6H_MID, K5 + K6) -> decompress (K4), held to the
+    JAX package's frozen aggregate F16-int error; 31: convert over the
+    2048^2 chain (sRGB -> f16 -> R10G10B10A2 -> B5G6R5 with the ordered
+    dither) and pack / unpack of every packable format on a 64^2 patch
+    with NaN, +-inf and out-of-range values, each against the CPU port.
+    Each path is driven with the launch counts set to 0 just before it
+    and read just after; times are CUDA-event medians of 7 after a
+    warm-up, with min and max."""
+    import warnings
+
+    from directxtex_tpu_torch.bc import bc6h, bc67, cuda_kernels
+    from directxtex_tpu_torch.bc.common import blocks_to_image, image_to_blocks
+    from directxtex_tpu_torch.formats import FMT, packing
+    from directxtex_tpu_torch.io import dds
+    from directxtex_tpu_torch.ops.compress import compress, decompress
+    from directxtex_tpu_torch.ops.convert import convert
+    from directxtex_tpu_torch.ops.flags import TEX_FILTER_FLAGS as TF
+    from directxtex_tpu_torch.texture import (CompressedTexture, TexMetadata,
+                                              Texture)
+
+    def spread(t) -> dict:
+        return {"median": float(np.median(t)), "min": float(min(t)),
+                "max": float(max(t))}
+
+    def timed(fn) -> dict:
+        fn()
+        return spread(event_ms(fn, 7))
+
+    def host_timed(fn) -> dict:
+        """Host-clock ms of fn(), which touches no device (7 runs)."""
+        fn()
+        t = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            fn()
+            t.append((time.perf_counter() - t0) * 1e3)
+        return spread(t)
+
+    def counts_of(fn):
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in cuda_kernels.launch_counts().items()
+                     if v}
+
+    def host_syncs(fn) -> int:
+        """The synchronizing calls fn() makes (torch's sync debug mode)."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    def cpu_tex(tex):
+        return type(tex)(tex.metadata, [lvl.cpu() for lvl in tex.levels])
+
+    def need(counts: dict, names, what: str) -> None:
+        missing = [k for k in names if not counts.get(k)]
+        check(not missing, f"{what}: {missing} never launched ({counts})")
+
+    def share(prof_events, names, total_ms) -> dict:
+        dev_ms = {n: sum(t for k, t in prof_events if n in k) * 1e-3
+                  for n in names}
+        all_ms = sum(t for _, t in prof_events) * 1e-3
+        return {"device_ms": dev_ms, "device_all_ms": all_ms,
+                "share_of_call": {n: v / total_ms for n, v in dev_ms.items()}}
+
+    # 29. LDR through DDS ---------------------------------------------------
+    for alpha in (False, True):
+        chain = box_chain(bench_image(size, alpha=alpha))
+        n_levels = len(chain)
+        meta = TexMetadata(width=size, height=size,
+                           mip_levels=n_levels, format=FMT.R8G8B8A8_UNORM)
+        src = Texture.from_levels(meta, chain, dev)
+        raw = dds.save_to_dds_memory(src)
+        check(raw == dds.save_to_dds_memory(cpu_tex(src)),
+              "RGBA8 DDS bytes written on the card differ from the CPU's")
+        tex = dds.load_from_dds_memory(raw, device=dev)
+        check(tex.device == dev and tex.mip_levels == n_levels, "DDS load")
+        ct, counts_c = counts_of(lambda: compress(tex, FMT.BC7_UNORM))
+        want = ["bc7_encode", "bc7_mode_buckets"] + (
+            ["bc7_alpha_list", "bc7_mode7", "bc7_refine_alpha"] if alpha
+            else ["bc7_refine"])
+        need(counts_c, want, f"compress alpha={alpha}")
+        check(counts_c.get("bc7_encode") == 1,
+              f"compress: {counts_c} (one encode_bc7 over every level)")
+        nb = sum(int(lvl.numel()) // 16 for lvl in ct.levels)
+        check(nb == sum(((max(1, size >> m) + 3) // 4) ** 2
+                        for m in range(n_levels)), f"{nb} blocks")
+        # level 0 equals the main path's own call on the same unpacked
+        # image; every level equals a separate encode_bc7 of its blocks
+        main = bc67.encode_bc7(image_to_blocks(tex.image(0))[0])
+        check(torch.equal(ct.levels[0].reshape(-1, 16), main),
+              "compress level 0 differs from encode_bc7 (main path)")
+        for m in range(n_levels):
+            one = bc67.encode_bc7(image_to_blocks(tex.image(m))[0])
+            check(torch.equal(ct.levels[m].reshape(-1, 16), one),
+                  f"compress level {m} differs from its own encode_bc7")
+        bc_raw = dds.save_to_dds_memory(ct)
+        back = dds.load_from_dds_memory(bc_raw, device=dev)
+        check(isinstance(back, CompressedTexture) and all(
+            torch.equal(a, b) for a, b in zip(back.levels, ct.levels))
+            and dds.save_to_dds_memory(back) == bc_raw,
+            "BC7 DDS round trip not byte-exact")
+        dec, counts_d = counts_of(lambda: decompress(back))
+        need(counts_d, ["bc7_decode"], "decompress")
+        words = torch.cat([lvl.reshape(-1, 16) for lvl in back.levels])
+        texels = bc67.decode_bc7(words)
+        off = 0
+        for m in range(n_levels):
+            h = w = max(1, size >> m)
+            k = ((h + 3) // 4) * ((w + 3) // 4)
+            check(torch.equal(dec.levels[m][0],
+                              blocks_to_image(texels[off:off + k], h, w)),
+                  f"decompress level {m} differs from decode_bc7")
+            off += k
+        syncs = {"load": host_syncs(lambda: dds.load_from_dds_memory(
+                     raw, device=dev)),
+                 "compress": host_syncs(lambda: compress(tex,
+                                                         FMT.BC7_UNORM)),
+                 "save_bc7": host_syncs(lambda: dds.save_to_dds_memory(ct)),
+                 "decompress": host_syncs(lambda: decompress(back)),
+                 "save_rgba8": host_syncs(
+                     lambda: dds.save_to_dds_memory(src))}
+        ms = {"dds_load_chain": timed(
+                  lambda: dds.load_from_dds_memory(raw, device=dev)),
+              "compress": timed(lambda: compress(tex, FMT.BC7_UNORM)),
+              "dds_save_bc7": timed(lambda: dds.save_to_dds_memory(ct)),
+              "dds_reload_bc7": timed(
+                  lambda: dds.load_from_dds_memory(bc_raw, device=dev)),
+              "decompress": timed(lambda: decompress(back)),
+              "dds_save_rgba8": timed(lambda: dds.save_to_dds_memory(src))}
+
+        # the RGBA8 save in its parts, as save_to_dds_memory runs them: the
+        # pack of every level on the card, the payload's one D2H copy, and
+        # the host's bytes (the header and the payload joined in one copy)
+        def pack_levels():
+            return torch.cat([packing.pack(src.metadata.format,
+                                           lvl[0].reshape(-1, 4))
+                              for lvl in src.levels])
+        payload = pack_levels()
+        host_payload = payload.cpu()
+        check(b"".join((dds.encode_dds_header(src.metadata),
+                        host_payload.numpy())) == raw,
+              "the RGBA8 save's parts do not make its bytes")
+        save_parts = {
+            "pack": timed(pack_levels), "d2h": timed(lambda: payload.cpu()),
+            "host_bytes": host_timed(lambda: b"".join((
+                dds.encode_dds_header(src.metadata),
+                host_payload.numpy())))}
+        prof = profile_calls(torch, {
+            "compress": lambda: compress(tex, FMT.BC7_UNORM),
+            "decompress": lambda: decompress(back),
+            "dds_save_rgba8": lambda: dds.save_to_dds_memory(src)})
+        emit({"phase": "ldr_dds", "card": smi, "size": size, "alpha": alpha,
+              "levels": n_levels, "blocks": nb, "dds_bytes": len(raw),
+              "bc7_dds_bytes": len(bc_raw),
+              "launches": {"compress": counts_c, "decompress": counts_d},
+              "rgba8_bytes_equal_cpu": True,
+              "level0_equals_main_path": True,
+              "levels_equal_per_level_encode": True,
+              "dds_round_trip_byte_exact": True,
+              "decompress_equals_decode_bc7": True, "ms": ms,
+              "compress_kernels": share(prof["compress"],
+                                        ("bc7_encode", "bc7_refine",
+                                         "bc7_mode7", "bc7_mode_buckets",
+                                         "bc7_alpha_list"),
+                                        ms["compress"]["median"]),
+              "decompress_kernels": share(prof["decompress"],
+                                          ("bc7_decode",),
+                                          ms["decompress"]["median"]),
+              "dds_save_rgba8_parts": {
+                  **save_parts,
+                  "kernels": len(prof["dds_save_rgba8"]),
+                  "device_ms": sum(t for _, t in prof["dds_save_rgba8"])
+                  * 1e-3},
+              "host_syncs": syncs})
+        if not alpha:
+            tex_ldr = tex
+
+    # 30. HDR through DDS: the 512^2 BC6H gate ------------------------------
+    gen = hdr512_module()
+    frozen = np.load(os.path.join(GOLDEN, "compress_dds.npz"))
+    corpus = np.load(os.path.join(GOLDEN, "corpus.npz"))
+    img = np.ascontiguousarray(gen.hdr512_image(corpus)[:hdr_size,
+                                                        :hdr_size])
+    src = Texture.from_array(img, FMT.R16G16B16A16_FLOAT, device=dev)
+    raw = dds.save_to_dds_memory(src)
+    check(raw == dds.save_to_dds_memory(cpu_tex(src)),
+          "RGBA16F DDS bytes written on the card differ from the CPU's")
+    tex = dds.load_from_dds_memory(raw, device=dev)
+    check(torch.equal(tex.levels[0][0].cpu(), torch.from_numpy(img)),
+          "the f16 DDS does not hold the gate image")
+    blocks = image_to_blocks(tex.image(0))[0]
+    px = bc6h._f16_to_int(blocks[..., :3].permute(1, 2, 0), False)
+
+    def int_err(words_u8):
+        dec = bc6h.decode_bc6h(words_u8, False)
+        di = bc6h._f16_to_int(dec[..., :3].permute(1, 2, 0), False)
+        return float(((di - px).to(torch.float64) ** 2).sum())
+
+    hdr = {}
+    for key, flags, want in (
+            ("hdr512", 0, ["bc6h_encode"]),
+            ("hdr512_mid", bc6h._BC6H_MID,
+             ["bc6h_encode", "bc6h_unit_buckets", "bc6h_refine"])):
+        ct, counts_c = counts_of(lambda: compress(tex, FMT.BC6H_UF16,
+                                                  flags))
+        need(counts_c, want, key)
+        back = dds.load_from_dds_memory(dds.save_to_dds_memory(ct),
+                                        device=dev)
+        check(torch.equal(back.levels[0], ct.levels[0]),
+              f"{key}: BC6H DDS round trip")
+        dec, counts_d = counts_of(lambda: decompress(back))
+        need(counts_d, ["bc6h_decode"], f"{key} decompress")
+        words = ct.levels[0].reshape(-1, 16)
+        check(torch.equal(dec.levels[0][0], blocks_to_image(
+            bc6h.decode_bc6h(words, False), hdr_size, hdr_size)),
+            f"{key}: decompress differs from decode_bc6h")
+        nbs = hdr_size // 4
+        ref = torch.from_numpy(np.ascontiguousarray(
+            frozen[key + "_words"].reshape(128, 128, 16)[:nbs, :nbs]
+            .reshape(-1, 16))).to(dev)
+        err, err_jax = int_err(words), int_err(ref)
+        psnr = log_psnr(dec.levels[0][0].cpu().numpy(), img)
+        psnr_jax = log_psnr(blocks_to_image(bc6h.decode_bc6h(
+            ref, False), hdr_size, hdr_size).cpu().numpy(), img)
+        if hdr_size == 512:
+            check(abs(err_jax / float(frozen[key + "_int_err"]) - 1) < 1e-9
+                  and abs(psnr_jax - float(frozen[key + "_log_psnr"]))
+                  < 1e-6, f"{key}: the frozen JAX words' metrics")
+        check(err <= err_jax * 1.005,
+              f"{key}: aggregate F16-int error {err} > 1.005 x JAX's "
+              f"{err_jax}")
+        hdr[key] = {"launches": {"compress": counts_c,
+                                 "decompress": counts_d},
+                    "int_err": err, "jax_int_err": err_jax,
+                    "int_err_ratio": err / err_jax, "log_psnr": psnr,
+                    "jax_log_psnr": psnr_jax,
+                    "words_differ_from_jax": int(
+                        (words != ref).any(dim=1).sum()),
+                    "ms": {"compress": timed(lambda: compress(
+                        tex, FMT.BC6H_UF16, flags)),
+                           "decompress": timed(lambda: decompress(back))}}
+    emit({"phase": "hdr_dds", "card": smi, "size": hdr_size,
+          "blocks": int(blocks.shape[0]), "gate": "aggregate F16-int error "
+          "<= 1.005 x the JAX package's (frozen)", **hdr,
+          "ms_dds_load": timed(lambda: dds.load_from_dds_memory(
+              raw, device=dev))})
+
+    # 31. convert and pack on the card --------------------------------------
+    steps = [(FMT.R16G16B16A16_FLOAT, TF.DEFAULT),
+             (FMT.R10G10B10A2_UNORM, TF.DEFAULT),
+             (FMT.B5G6R5_UNORM, TF.DITHER)]
+    cur = Texture(tex_ldr.metadata.with_format(FMT.R8G8B8A8_UNORM_SRGB),
+                  tex_ldr.levels)
+    conv = {}
+    for fmt, flags in steps:
+        out, counts_v = counts_of(lambda: convert(cur, fmt, flags))
+        check(counts_v == {}, f"convert launched hand kernels {counts_v}")
+        want = convert(cpu_tex(cur), fmt, flags)
+        got = [lvl.cpu() for lvl in out.levels]
+        n_diff = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                     for a, b in zip(got, want.levels))
+        max_diff = max(float((a - b).abs().max()) for a, b in
+                       zip(got, want.levels))
+        # the sRGB step: f64 pow on the card and on the host may round
+        # apart on a value; any other step is held bit for bit
+        srgb = fmt == steps[0][0]
+        check(n_diff == 0 or (srgb and max_diff <= 1e-3),
+              f"convert -> {fmt.name}: {n_diff} values differ from the "
+              f"CPU port's (max {max_diff})")
+        events = profile_calls(torch, {"convert": lambda: convert(
+            cur, fmt, flags)})["convert"]
+        conv[fmt.name] = {"values_differ_from_cpu": n_diff,
+                          "max_abs_diff": max_diff,
+                          "ms": timed(lambda: convert(cur, fmt, flags)),
+                          "cuda_kernels": len(events),
+                          "device_ms": sum(t for _, t in events) * 1e-3}
+        cur = out
+    rng = np.random.default_rng(31)
+    patch = rng.uniform(-1.5, 2.5, (64 * 64, 4)).astype(np.float32)
+    special = np.array([np.nan, -np.nan, np.inf, -np.inf, -0.0, 1e-40,
+                        3e-8, 65520.0, 7e4, -3e9, 5e9, 300.4, -200.7,
+                        1.2529412, 0.49999997], np.float32)
+    patch.reshape(-1)[rng.choice(patch.size, 4 * special.size,
+                                 replace=False)] = np.tile(special, 4)
+    patch_d, patch_c = to_dev(patch), torch.from_numpy(patch)
+    fmts = [f for f in FMT if packing.is_packable(f)]
+    check(len(fmts) == 75, f"{len(fmts)} packable formats")
+    packed_differ, unpacked_differ = [], []
+    for f in fmts:
+        if f in packing._SPECIAL_UNPACK and f not in packing._SPECIAL_PACK:
+            raw_c = torch.from_numpy(rng.integers(
+                0, 256, 64 * 64 * 8, dtype=np.uint8))
+        else:
+            raw_c = packing.pack(f, patch_c)
+            if not torch.equal(packing.pack(f, patch_d).cpu(), raw_c):
+                packed_differ.append(f.name)
+        got = packing.unpack(f, raw_c.to(dev), 64 * 64).cpu()
+        want = packing.unpack(f, raw_c, 64 * 64)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            unpacked_differ.append(f.name)
+    check(not packed_differ and not unpacked_differ,
+          f"pack differs from the CPU port on {packed_differ}, unpack on "
+          f"{unpacked_differ}")
+    emit({"phase": "convert_pack", "card": smi, "convert": conv,
+          "packable_formats": len(fmts), "pack_bit_equal_cpu": True,
+          "unpack_bit_equal_cpu": True})
 
 
 if __name__ == "__main__":

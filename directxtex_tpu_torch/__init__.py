@@ -12,8 +12,21 @@ BC1-BC5 (bc.bc123, bc.bc45, as plain torch ops), sRGB conversion
 (ops.colorspace) and the five BASELINE pipelines (models.pipelines:
 bc_encode_pipeline, mipped_compress_pipeline for config 1,
 hdr_cubemap_pipeline for config 4, asset_pipeline for config 5; config
-2 is composed from the codecs, as benchmarks/run_all.py does). It
-imports torch and numpy only, never jax.
+2 is composed from the codecs, as benchmarks/run_all.py does).
+
+Above the codecs it has the format core and the compress driver: the
+DXGI format space and its traits (formats), the wire-format pack / unpack
+of every packable format (formats.packing), format conversion with the
+ordered dither (ops.convert), `Texture` / `CompressedTexture` over torch
+tensors on an explicit device (texture), compress / decompress
+(ops.compress) and DDS read / write (io.dds). A texture in a DDS file goes
+through load_from_dds_memory -> compress -> save_to_dds_memory on the
+card, with the BC kernels below. It imports torch and numpy only, never
+jax.
 """
+
+from .formats import DXGIFormat, FMT
+from .texture import (CompressedTexture, TexAlphaMode, TexDimension,
+                      TexMetadata, Texture)
 
 __version__ = "0.1.0"

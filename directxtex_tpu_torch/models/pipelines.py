@@ -23,6 +23,7 @@ from ..bc.common import image_to_blocks
 from ..numerics import fdiv, rdiv, sqrt
 from ..ops.colorspace import apply_linear_to_srgb, apply_srgb_to_linear
 from ..ops.normalmaps import _shift
+from ..utils.device import resolve
 
 __all__ = ["bc_encode_pipeline", "mipped_compress_pipeline", "cube_faces",
            "hdr_cubemap_pipeline", "asset_pipeline"]
@@ -32,7 +33,7 @@ def _as_tensor(x, device) -> torch.Tensor:
     if torch.is_tensor(x):
         return x
     return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
-        torch.device(device or "cuda"))
+        resolve(device))
 
 
 def _encode(kind: str, blocks: torch.Tensor, flags: int = 0):

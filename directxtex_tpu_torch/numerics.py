@@ -7,7 +7,8 @@ CUDA `tensor / scalar` as a multiply by the scalar's reciprocal; its f32
 to 1 ulp). The helpers below take the IEEE route on both devices: a
 tensor-by-tensor division, and `sqrt` / `power` evaluated in f64 and
 rounded once to f32. A per-block sum runs in index order, as the kernels
-and XLA's reduction loop add.
+and XLA's reduction loop add. `clip` is jnp.clip's value, which torch's
+clamp is not on a zero of the wrong sign.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["sum0", "sum_halves", "rdiv", "fdiv", "sqrt", "power"]
+__all__ = ["sum0", "sum_halves", "rdiv", "fdiv", "sqrt", "power",
+           "clip"]
 
 
 def sum0(x: torch.Tensor) -> torch.Tensor:
@@ -61,3 +63,18 @@ def power(x: torch.Tensor, exponent: float) -> torch.Tensor:
     from it by at most 1 ulp on a small share of values."""
     e = float(np.float32(exponent))
     return torch.pow(x.to(torch.float64), e).to(torch.float32)
+
+
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """jnp.clip(x, lo, hi): min(max(x, lo), hi) with XLA's IEEE maximum,
+    which takes +0 over -0, so a -0 clipped at a lower bound of 0 is +0
+    (torch's clamp keeps -0). NaN stays NaN. `lo` and `hi` are python
+    numbers or tensors that broadcast against x."""
+    y = torch.clamp(x, lo, hi)
+    if torch.is_tensor(lo):
+        plus_zero = (lo == 0) & ~torch.signbit(lo)
+    elif lo == 0 and np.copysign(1.0, lo) > 0:
+        plus_zero = True
+    else:
+        return y
+    return torch.where((y == 0) & plus_zero, torch.zeros_like(y), y)

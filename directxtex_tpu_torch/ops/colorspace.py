@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..numerics import power
+from ..numerics import clip, power
 
 __all__ = ["srgb_to_linear", "linear_to_srgb", "apply_srgb_to_linear",
            "apply_linear_to_srgb", "GRAYSCALE"]
@@ -22,7 +22,7 @@ GRAYSCALE = (0.2125, 0.7154, 0.0721)
 
 def srgb_to_linear(v: torch.Tensor) -> torch.Tensor:
     """Per-component sRGB -> linear (XMColorSRGBToRGB)."""
-    v = v.clamp(0.0, 1.0)
+    v = clip(v, 0.0, 1.0)
     linear = v * (1.0 / 12.92)
     exp = power((v + 0.055) * (1.0 / 1.055), 2.4)
     return torch.where(v < 0.04045, linear, exp)
@@ -30,7 +30,7 @@ def srgb_to_linear(v: torch.Tensor) -> torch.Tensor:
 
 def linear_to_srgb(v: torch.Tensor) -> torch.Tensor:
     """Per-component linear -> sRGB (XMColorRGBToSRGB)."""
-    v = v.clamp(0.0, 1.0)
+    v = clip(v, 0.0, 1.0)
     small = v * 12.92
     big = 1.055 * power(v, 1.0 / 2.4) - 0.055
     return torch.where(v < 0.0031308, small, big)
