@@ -49,7 +49,13 @@ every kernel against its plain PyTorch twin on the card:
   -> decompress on the card, BC7 over a 2048^2 mip chain (K2, K3, with
   alpha mode 7's launches, K1) and BC6H over a 512^2 HDR image (K5, K6,
   K4), and convert / pack / unpack as plain torch ops on the card, held
-  against the CPU port.
+  against the CPU port;
+- the image ops (ops.fliprotate, resize, mipmaps, pmalpha, misc,
+  normalmaps, rotatecolor, and the diffusion dither of ops.dither, which
+  runs on the host in directxtex_tpu_torch/native's C++): torch ops on
+  the card (resize and the filtered mips as cuBLAS products in f32),
+  held against the CPU port, and driven through texconv's chain into the
+  BC7 and BC6H kernels (K2 with mode 7, K3, K1; K5, K4).
 
 Phases:
 
@@ -235,7 +241,48 @@ Phases:
      differences), and pack / unpack of all 75 packable formats on a
      64^2 patch with NaN, +-inf and out-of-range values, bit-equal to the
      CPU port;
- 32. the kernels line: every kernel's launches, error against its twin,
+ 32. the image ops on the card (phase image_ops): flip_rotate (every
+     rotation and flip), premultiply_alpha (IGNORE_SRGB, REVERSE, SRGB),
+     resize (every filter with SEPARATE_ALPHA, WRAP with SRGB_IN, MIRROR;
+     down and up), generate_mipmaps (every filter, WRAP, MIRROR; box and
+     point on power-of-two sides), the alpha coverage and its scaling,
+     compute_normal_map (every channel, flag and target of
+     tests/golden/generate_image_ops.py), rotate_color (all eight, two
+     paper whites), the diffusion dither and convert with it,
+     compute_mse / compute_psnr, copy_rectangle, evaluate_image and
+     transform_image, on RGBA8 and sRGB textures of 2 x 24 x 40,
+     2 x 16 x 32, 1x1, 1x2, 3x5 and 6x10, and generate_mipmaps_3d on
+     that file's volumes, each against the CPU port on the same input:
+     bit for bit, or within 4 ulp / 1e-6 for the products (resize,
+     filtered mips, rotate_color) and sRGB's f64 pow, the values that
+     differ counted; TF32 asserted off;
+ 33. texconv's chain (phase texconv_chain) on the 2048^2 bench image with
+     alpha as R8G8B8A8_UNORM_SRGB: flip_rotate(ROTATE90 |
+     FLIP_HORIZONTAL) -> resize to 1536^2 (CUBIC | SEPARATE_ALPHA) ->
+     generate_mipmaps(LINEAR), 11 levels -> the alpha coverage at 0.5 ->
+     premultiply_alpha -> compress(BC7_UNORM_SRGB) (K2, mode 7's list
+     pass and launch, K3) -> decompress (K1) -> compute_psnr per level;
+     its launch counts, each step's CUDA-event time, CUDA kernels, device
+     time, busy share and host syncs; a 16,384-block sample of level 0's
+     words against the plain twins on the card; the same chain at 256^2,
+     each step against the CPU port on the same input, the words equal;
+ 34. a normal map (phase normal_map_2k): the bench image's luminance
+     through compute_normal_map(LUMINANCE | MIRROR_U | MIRROR_V |
+     COMPUTE_OCCLUSION, 2.0) -> compress(BC7_UNORM), 262,144 blocks (K2
+     with mode 7, K3), timed as phase 33, the map equal to the CPU port's
+     at 256^2;
+ 35. HDR and the diffusion dither (phase hdr_and_dither): phase 30's
+     512^2 image through rotate_color(709to2020) -> generate_mipmaps(
+     TRIANGLE) -> compress(BC6H_UF16) (K5) -> decompress (K4); through
+     rotate_color(709toHDR10) -> convert(R10G10B10A2_UNORM,
+     DITHER_DIFFUSION); phase 33's level 0 through convert(B5G6R5_UNORM)
+     with the diffusion and the ordered dither; the host pass and its two
+     copies timed apart; equal to the CPU port and, on a 64^2 crop, to
+     the numpy twin;
+ 36. 3D mips (phase mips_3d): a 128^3 R16G16B16A16_FLOAT volume through
+     generate_mipmaps_3d, LINEAR and BOX, timed, no hand kernel launched,
+     a 16^3 crop against the CPU port;
+ 37. the kernels line: every kernel's launches, error against its twin,
      time, plain time and bound (bytes or operations, whichever is
      larger, at the H100's published peaks, for the work each block of
      the run needs), and for mode 7's launch, K11, K8, the ranking, K10
@@ -634,15 +681,17 @@ def decode_equal(torch, blocks, what: str, signed=None) -> None:
         f"{what}: f32 vs plain")
 
 
-def profile_calls(torch, calls: dict, tries: int = 6) -> dict:
+def profile_calls(torch, calls: dict, tries: int = 6,
+                  required: bool = True) -> dict:
     """{label: [(kernel name, device µs)]}: the CUDA kernels each call of
     `calls` ({label: fn}) runs, each call in a torch.profiler record of its
     own (CUPTI sees the kernels launched through ctypes too), so that an
     offset between the host's and the device's clocks cannot put a kernel
     under a neighbouring call. A record that holds no device activity
-    (CUPTI delivered none; three records in a row have come back empty on
+    (CUPTI delivered none; six records in a row have come back empty on
     a call that ran kernels) is taken again after a pause, up to `tries`
-    records."""
+    records; then the label maps to None ("not measured") where the
+    record is not `required`, else this raises."""
     from torch.profiler import ProfilerActivity, profile
 
     for fn in calls.values():
@@ -664,9 +713,19 @@ def profile_calls(torch, calls: dict, tries: int = 6) -> dict:
                 break
             time.sleep(0.5)
         else:
-            raise RuntimeError(f"no device activity for {label} in {tries} "
-                               f"profiler records")
+            if required:
+                raise RuntimeError(f"no device activity for {label} in "
+                                   f"{tries} profiler records")
+            out[label] = None
     return out
+
+
+def kernels_and_ms(events) -> tuple:
+    """(CUDA kernels, summed device ms) of a profile_calls record, or
+    (None, None) where CUPTI delivered none (not measured)."""
+    if events is None:
+        return None, None
+    return len(events), sum(t for _, t in events) * 1e-3
 
 
 def host_us(torch, fn, reps: int = 100) -> float:
@@ -1041,6 +1100,7 @@ def main() -> None:
 
     bc12345_phases(torch, to_dev, event_ms, smi, enc_ms)
     format_core_phases(torch, dev, to_dev, event_ms, smi)
+    image_ops_phases(torch, dev, to_dev, event_ms, smi)
 
     lines = []
     device_ms = {k: prof[k][0][1] * 1e-3 for k in teams if k in SOURCES}
@@ -2650,10 +2710,9 @@ def bc12345_phases(torch, to_dev, event_ms, smi, main_encode_ms) -> None:
         """Each call's CUDA kernels and their summed device time (one
         torch.profiler record a call): the device's busy share of the
         call's event time."""
-        prof = profile_calls(torch, calls)
-        return {k: {"cuda_kernels": len(v),
-                    "device_ms": sum(t for _, t in v) * 1e-3}
-                for k, v in prof.items()}
+        prof = profile_calls(torch, calls, required=False)
+        return {k: dict(zip(("cuda_kernels", "device_ms"),
+                            kernels_and_ms(v))) for k, v in prof.items()}
 
     # 25. golden checks: decode vectors, corpus floors, reference parity --
     vec = np.load(os.path.join(GOLDEN, "decode_vectors.npz"))
@@ -2855,17 +2914,96 @@ def box_chain(img: np.ndarray) -> list:
     return levels
 
 
-def hdr512_module():
-    """tests/golden/generate_compress_dds.py (its module level imports
-    numpy only), for the 512^2 HDR gate image."""
+def golden_module(name: str):
+    """tests/golden/<name>.py, a generator whose module level imports numpy
+    only: generate_compress_dds for the 512^2 HDR gate image,
+    generate_image_ops for the image-op phases' seeded inputs and cases."""
     import importlib.util
 
-    path = os.path.join(GOLDEN, "generate_compress_dds.py")
-    spec = importlib.util.spec_from_file_location("generate_compress_dds",
-                                                  path)
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(GOLDEN, name + ".py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+class Probe:
+    """What the format-core and image-op phases read around a call: CUDA-
+    event times (median, min, max of 7 after a warm-up), host-clock times,
+    the hand kernels' launch counts, the host syncs (torch's sync debug
+    mode), and the device time and busy share of a profiler record."""
+
+    def __init__(self, torch, event_ms):
+        self.torch = torch
+        self.event_ms = event_ms
+
+    @staticmethod
+    def spread(t) -> dict:
+        return {"median": float(np.median(t)), "min": float(min(t)),
+                "max": float(max(t))}
+
+    def timed(self, fn) -> dict:
+        fn()
+        return self.spread(self.event_ms(fn, 7))
+
+    def host_timed(self, fn) -> dict:
+        """Host-clock ms of fn(), which touches no device (7 runs)."""
+        fn()
+        t = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            fn()
+            t.append((time.perf_counter() - t0) * 1e3)
+        return self.spread(t)
+
+    def counts_of(self, fn):
+        """fn()'s result and the hand kernels it launched (counts set to 0
+        just before it, read just after)."""
+        from directxtex_tpu_torch.bc import cuda_kernels
+
+        self.torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        out = fn()
+        self.torch.cuda.synchronize()
+        return out, {k: v for k, v in cuda_kernels.launch_counts().items()
+                     if v}
+
+    def host_syncs(self, fn) -> int:
+        """The synchronizing calls fn() makes (torch's sync debug mode)."""
+        import warnings
+
+        self.torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            self.torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                self.torch.cuda.set_sync_debug_mode(0)
+        # the mode's own one-time notice ("... does not yet detect all
+        # synchronizing operations") is not a sync
+        return sum("synchroniz" in str(w.message)
+                   and "prototype" not in str(w.message) for w in caught)
+
+    @staticmethod
+    def cpu_tex(tex):
+        return type(tex)(tex.metadata, [lvl.cpu() for lvl in tex.levels])
+
+    @staticmethod
+    def need(counts: dict, names, what: str) -> None:
+        missing = [k for k in names if not counts.get(k)]
+        check(not missing, f"{what}: {missing} never launched ({counts})")
+
+    @staticmethod
+    def share(prof_events, names, total_ms) -> dict:
+        if prof_events is None:
+            return {"device_ms": None, "device_all_ms": None,
+                    "share_of_call": None}
+        dev_ms = {n: sum(t for k, t in prof_events if n in k) * 1e-3
+                  for n in names}
+        all_ms = sum(t for _, t in prof_events) * 1e-3
+        return {"device_ms": dev_ms, "device_all_ms": all_ms,
+                "share_of_call": {n: v / total_ms for n, v in dev_ms.items()}}
 
 
 def format_core_phases(torch, dev, to_dev, event_ms, smi,
@@ -2885,9 +3023,7 @@ def format_core_phases(torch, dev, to_dev, event_ms, smi,
     Each path is driven with the launch counts set to 0 just before it
     and read just after; times are CUDA-event medians of 7 after a
     warm-up, with min and max."""
-    import warnings
-
-    from directxtex_tpu_torch.bc import bc6h, bc67, cuda_kernels
+    from directxtex_tpu_torch.bc import bc6h, bc67
     from directxtex_tpu_torch.bc.common import blocks_to_image, image_to_blocks
     from directxtex_tpu_torch.formats import FMT, packing
     from directxtex_tpu_torch.io import dds
@@ -2897,57 +3033,10 @@ def format_core_phases(torch, dev, to_dev, event_ms, smi,
     from directxtex_tpu_torch.texture import (CompressedTexture, TexMetadata,
                                               Texture)
 
-    def spread(t) -> dict:
-        return {"median": float(np.median(t)), "min": float(min(t)),
-                "max": float(max(t))}
-
-    def timed(fn) -> dict:
-        fn()
-        return spread(event_ms(fn, 7))
-
-    def host_timed(fn) -> dict:
-        """Host-clock ms of fn(), which touches no device (7 runs)."""
-        fn()
-        t = []
-        for _ in range(7):
-            t0 = time.perf_counter()
-            fn()
-            t.append((time.perf_counter() - t0) * 1e3)
-        return spread(t)
-
-    def counts_of(fn):
-        torch.cuda.synchronize()
-        cuda_kernels.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {k: v for k, v in cuda_kernels.launch_counts().items()
-                     if v}
-
-    def host_syncs(fn) -> int:
-        """The synchronizing calls fn() makes (torch's sync debug mode)."""
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        return sum("synchroniz" in str(w.message) for w in caught)
-
-    def cpu_tex(tex):
-        return type(tex)(tex.metadata, [lvl.cpu() for lvl in tex.levels])
-
-    def need(counts: dict, names, what: str) -> None:
-        missing = [k for k in names if not counts.get(k)]
-        check(not missing, f"{what}: {missing} never launched ({counts})")
-
-    def share(prof_events, names, total_ms) -> dict:
-        dev_ms = {n: sum(t for k, t in prof_events if n in k) * 1e-3
-                  for n in names}
-        all_ms = sum(t for _, t in prof_events) * 1e-3
-        return {"device_ms": dev_ms, "device_all_ms": all_ms,
-                "share_of_call": {n: v / total_ms for n, v in dev_ms.items()}}
+    pr = Probe(torch, event_ms)
+    spread, timed, host_timed, counts_of, host_syncs, cpu_tex, need, share = (
+        pr.spread, pr.timed, pr.host_timed, pr.counts_of, pr.host_syncs,
+        pr.cpu_tex, pr.need, pr.share)
 
     # 29. LDR through DDS ---------------------------------------------------
     for alpha in (False, True):
@@ -3035,7 +3124,9 @@ def format_core_phases(torch, dev, to_dev, event_ms, smi,
         prof = profile_calls(torch, {
             "compress": lambda: compress(tex, FMT.BC7_UNORM),
             "decompress": lambda: decompress(back),
-            "dds_save_rgba8": lambda: dds.save_to_dds_memory(src)})
+            "dds_save_rgba8": lambda: dds.save_to_dds_memory(src)},
+            required=False)
+        save_kernels, save_ms = kernels_and_ms(prof["dds_save_rgba8"])
         emit({"phase": "ldr_dds", "card": smi, "size": size, "alpha": alpha,
               "levels": n_levels, "blocks": nb, "dds_bytes": len(raw),
               "bc7_dds_bytes": len(bc_raw),
@@ -3055,15 +3146,13 @@ def format_core_phases(torch, dev, to_dev, event_ms, smi,
                                           ms["decompress"]["median"]),
               "dds_save_rgba8_parts": {
                   **save_parts,
-                  "kernels": len(prof["dds_save_rgba8"]),
-                  "device_ms": sum(t for _, t in prof["dds_save_rgba8"])
-                  * 1e-3},
+                  "kernels": save_kernels, "device_ms": save_ms},
               "host_syncs": syncs})
         if not alpha:
             tex_ldr = tex
 
     # 30. HDR through DDS: the 512^2 BC6H gate ------------------------------
-    gen = hdr512_module()
+    gen = golden_module("generate_compress_dds")
     frozen = np.load(os.path.join(GOLDEN, "compress_dds.npz"))
     corpus = np.load(os.path.join(GOLDEN, "corpus.npz"))
     img = np.ascontiguousarray(gen.hdr512_image(corpus)[:hdr_size,
@@ -3154,13 +3243,13 @@ def format_core_phases(torch, dev, to_dev, event_ms, smi,
         check(n_diff == 0 or (srgb and max_diff <= 1e-3),
               f"convert -> {fmt.name}: {n_diff} values differ from the "
               f"CPU port's (max {max_diff})")
-        events = profile_calls(torch, {"convert": lambda: convert(
-            cur, fmt, flags)})["convert"]
+        n_kernels, dev_ms = kernels_and_ms(profile_calls(
+            torch, {"convert": lambda: convert(cur, fmt, flags)},
+            required=False)["convert"])
         conv[fmt.name] = {"values_differ_from_cpu": n_diff,
                           "max_abs_diff": max_diff,
                           "ms": timed(lambda: convert(cur, fmt, flags)),
-                          "cuda_kernels": len(events),
-                          "device_ms": sum(t for _, t in events) * 1e-3}
+                          "cuda_kernels": n_kernels, "device_ms": dev_ms}
         cur = out
     rng = np.random.default_rng(31)
     patch = rng.uniform(-1.5, 2.5, (64 * 64, 4)).astype(np.float32)
@@ -3191,6 +3280,446 @@ def format_core_phases(torch, dev, to_dev, event_ms, smi,
     emit({"phase": "convert_pack", "card": smi, "convert": conv,
           "packable_formats": len(fmts), "pack_bit_equal_cpu": True,
           "unpack_bit_equal_cpu": True})
+
+
+def close_count(torch, got, want, what: str, exact: bool) -> int:
+    """The card's `got` against the CPU port's `want` (f32 tensors): bit
+    for bit where `exact`, else each value within 4 ulp of the CPU's or
+    1e-6 absolute. Returns the count of values whose bits differ."""
+    got = got.detach().cpu()
+    check(tuple(got.shape) == tuple(want.shape),
+          f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    diff = got.view(torch.int32) != want.view(torch.int32)
+    diff &= ~(torch.isnan(got) & torch.isnan(want))
+    n = int(diff.sum())
+    if exact:
+        check(n == 0, f"{what}: {n} values differ from the CPU port's")
+        return 0
+    g, w = got.to(torch.float64), want.to(torch.float64)
+    ulp = torch.from_numpy(np.spacing(np.abs(want.numpy()))).to(
+        torch.float64)
+    bad = ~((g - w).abs() <= torch.maximum(4 * ulp, torch.full_like(
+        ulp, 1e-6))) & diff
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} values beyond "
+          f"4 ulp / 1e-6 of the CPU port's (max "
+          f"{float((g - w).abs()[bad].max()) if bad.any() else 0.0})")
+    return n
+
+
+def image_ops_phases(torch, dev, to_dev, event_ms, smi,
+                     size: int = SLICE_SIZE, small: int = 256,
+                     hdr_size: int = 512, vol: int = 128) -> None:
+    """Phases 32-36: the image ops on the card (ops.fliprotate, resize,
+    mipmaps, pmalpha, misc, normalmaps, rotatecolor and the diffusion
+    dither of ops.dither), through the entry points a user calls. 32:
+    every op on the card against the CPU port, at small and corner sizes,
+    every flag the tests cover; 33: texconv's chain on the bench image
+    with alpha (flip / rotate -> resize -> mips -> alpha coverage ->
+    premultiply -> compress BC7_UNORM_SRGB (K2, mode 7, K3) ->
+    decompress (K1) -> PSNR per level); 34: a normal map of the bench
+    image's luminance -> compress BC7_UNORM (K2, K3); 35: an HDR image
+    through rotate_color, TRIANGLE mips, BC6H (K5, K4), PQ and the
+    diffusion dither on the host; 36: a 128^3 volume's 3D mips. Each path
+    is driven with the launch counts set to 0 just before it and read just
+    after; times are CUDA-event medians of 7 after a warm-up, with min and
+    max, each step's CUDA kernels and device time from a profiler record
+    of one call and its host syncs."""
+    from directxtex_tpu_torch import native
+    from directxtex_tpu_torch.bc import bc6h, bc67
+    from directxtex_tpu_torch.bc.common import image_to_blocks
+    from directxtex_tpu_torch.formats import FMT
+    from directxtex_tpu_torch.ops import dither
+    from directxtex_tpu_torch.ops.compress import compress, decompress
+    from directxtex_tpu_torch.ops.convert import convert, convert_values
+    from directxtex_tpu_torch.ops.fliprotate import flip_rotate
+    from directxtex_tpu_torch.ops.flags import CMSE_FLAGS, CNMAP_FLAGS
+    from directxtex_tpu_torch.ops.flags import TEX_FILTER_FLAGS as TF
+    from directxtex_tpu_torch.ops.flags import TEX_FR_FLAGS as FR
+    from directxtex_tpu_torch.ops.flags import TEX_PMALPHA_FLAGS as PM
+    from directxtex_tpu_torch.ops.mipmaps import (
+        calculate_alpha_coverage, generate_mipmaps, generate_mipmaps_3d,
+        scale_mipmaps_alpha_for_coverage)
+    from directxtex_tpu_torch.ops.misc import (compute_mse, compute_psnr,
+                                               copy_rectangle, evaluate_image,
+                                               transform_image)
+    from directxtex_tpu_torch.ops.normalmaps import compute_normal_map
+    from directxtex_tpu_torch.ops.pmalpha import premultiply_alpha
+    from directxtex_tpu_torch.ops.resize import resize, resize_array
+    from directxtex_tpu_torch.ops.rotatecolor import (pq_decode, pq_encode,
+                                                      rotate_color)
+    from directxtex_tpu_torch.texture import TexDimension, Texture
+
+    pr = Probe(torch, event_ms)
+    cpu_tex = pr.cpu_tex
+    gen = golden_module("generate_image_ops")
+
+    def tex_of(data, fmt, device, dim=None):
+        return Texture.from_array(data, getattr(FMT, fmt), dimension=dim,
+                                  device=device)
+
+    differ = {}
+
+    def hold(key, got, want, exact):
+        """Card against CPU port, per level for textures; counts kept by
+        key."""
+        if isinstance(got, Texture):
+            check(got.mip_levels == want.mip_levels and
+                  got.metadata == want.metadata, f"{key}: metadata")
+            n = sum(close_count(torch, a, b, f"{key} level {m}", exact)
+                    for m, (a, b) in enumerate(zip(got.levels, want.levels)))
+        else:
+            n = close_count(torch, got, want, key, exact)
+        differ[key] = differ.get(key, 0) + n
+
+    # 32. every op on the card against the CPU port ------------------------
+    check(torch.backends.cuda.matmul.allow_tf32 is False
+          and torch.get_float32_matmul_precision() == "highest",
+          "resize would run in TF32")
+    shapes = [(2, 24, 40), (2, 16, 32), (1, 1, 1), (1, 1, 2), (1, 3, 5),
+              (1, 6, 10)]
+    t0 = time.perf_counter()
+    for k, shape in enumerate(shapes):
+        data = gen.image(3200 + k, shape)
+        for fmt in ("R8G8B8A8_UNORM", "R8G8B8A8_UNORM_SRGB"):
+            td, tc = tex_of(data, fmt, dev), tex_of(data, fmt, "cpu")
+            srgb = "SRGB" in fmt
+            for rot in range(4):
+                for flip in (0, 0x08, 0x10, 0x18):
+                    hold("flip_rotate", flip_rotate(td, FR(rot | flip)),
+                         flip_rotate(tc, FR(rot | flip)), True)
+            for flags in (0, 0x1, 0x2, 0x3, 0x3000000):
+                hold("premultiply_alpha", premultiply_alpha(td, PM(flags)),
+                     premultiply_alpha(tc, PM(flags)),
+                     not srgb and not flags & 0x3000000)
+            h, w = shape[1:]
+            for name, mode in gen.FILTERS.items():
+                for extra in (0, TF.SEPARATE_ALPHA, TF.WRAP | TF.SRGB_IN,
+                              TF.MIRROR | TF.SEPARATE_ALPHA):
+                    for ow, oh in ((max(1, w * 3 // 4), max(1, h * 3 // 4)),
+                                   (w * 2 + 1, h + 2)):
+                        f = TF(mode) | extra
+                        hold("resize", resize(td, ow, oh, f),
+                             resize(tc, ow, oh, f), False)
+                # box and point halve only power-of-two sides (mipmaps.py)
+                pow2 = all(s & (s - 1) == 0 for s in (h, w))
+                if pow2 or mode in (TF.LINEAR, TF.CUBIC, TF.TRIANGLE):
+                    for extra in (0, TF.WRAP, TF.MIRROR):
+                        f = TF(mode) | extra
+                        hold("generate_mipmaps", generate_mipmaps(td, f),
+                             generate_mipmaps(tc, f),
+                             mode in (TF.POINT, TF.BOX, 0) and not srgb)
+            # the coverage of one chain (its filtered levels may round
+            # apart between the devices)
+            chain_d = generate_mipmaps(td, TF.LINEAR)
+            chain_c = cpu_tex(chain_d)
+            for ref in (0.25, 0.5, 0.9):
+                hold("calculate_alpha_coverage",
+                     calculate_alpha_coverage(td.levels[0][..., 3], ref),
+                     calculate_alpha_coverage(tc.levels[0][..., 3], ref),
+                     True)
+                hold("scale_mipmaps_alpha_for_coverage",
+                     scale_mipmaps_alpha_for_coverage(chain_d, ref),
+                     scale_mipmaps_alpha_for_coverage(chain_c, ref),
+                     not srgb)
+        td = tex_of(data, "R8G8B8A8_UNORM", dev)
+        tc = tex_of(data, "R8G8B8A8_UNORM", "cpu")
+        for _, _, flags, amp, fmt in gen.normal_cases():
+            hold("compute_normal_map", compute_normal_map(
+                td, CNMAP_FLAGS(flags), amp, getattr(FMT, fmt)),
+                compute_normal_map(tc, CNMAP_FLAGS(flags), amp,
+                                   getattr(FMT, fmt)), True)
+        hdr = gen.image(3300 + k, shape, -0.25, 6.0)
+        for _, rot, nits in gen.rotate_cases():
+            hold("rotate_color", rotate_color(to_dev(hdr), rot, nits),
+                 rotate_color(torch.from_numpy(hdr), rot, nits), False)
+        for name in ("B5G6R5_UNORM", "R8G8B8A8_SNORM", "R10G10B10A2_UNORM"):
+            vals = gen.image(3400 + k, shape, -1.2, 1.3)
+            hold("diffusion_dither", dither.diffusion_dither(
+                to_dev(vals), getattr(FMT, name)), dither.diffusion_dither(
+                torch.from_numpy(vals), getattr(FMT, name)), True)
+            hold("convert_diffusion", convert(td, getattr(FMT, name),
+                                              TF.DITHER_DIFFUSION),
+                 convert(tc, getattr(FMT, name), TF.DITHER_DIFFUSION), True)
+        for case in gen.mse_cases():
+            _, ch, flags, f1, f2 = case
+            a, b = gen.mse_inputs(ch)
+            fa = getattr(FMT, f1) if f1 else None
+            fb = getattr(FMT, f2) if f2 else None
+            s_d, v_d = compute_mse(to_dev(a), to_dev(b), CMSE_FLAGS(flags),
+                                   fa, fb)
+            s_c, v_c = compute_mse(torch.from_numpy(a), torch.from_numpy(b),
+                                   CMSE_FLAGS(flags), fa, fb)
+            p_d = compute_psnr(to_dev(a), to_dev(b), CMSE_FLAGS(flags))
+            p_c = compute_psnr(torch.from_numpy(a), torch.from_numpy(b),
+                               CMSE_FLAGS(flags))
+            check(torch.allclose(v_d.cpu(), v_c, rtol=1e-6, atol=0)
+                  and torch.allclose(s_d.cpu(), s_c, rtol=1e-6, atol=0)
+                  and torch.allclose(p_d.cpu(), p_c, rtol=1e-6, atol=0),
+                  f"compute_mse {case[0]}: card {v_d.tolist()} vs CPU "
+                  f"{v_c.tolist()}")
+        img_d, img_c = to_dev(data[0]), torch.from_numpy(data[0])
+        h, w = shape[1:]
+        rect = (0, 0, max(1, w // 2), max(1, h // 2))
+        hold("copy_rectangle", copy_rectangle(img_d, rect, img_d.flip(0),
+                                              w - rect[2], h - rect[3]),
+             copy_rectangle(img_c, rect, img_c.flip(0), w - rect[2],
+                            h - rect[3]), True)
+        seen = []
+        evaluate_image(td, seen.append)
+        check(all(p.device == dev for p in seen), "evaluate_image device")
+        hold("transform_image", transform_image(
+            td, lambda p: p * 0.5 + p[..., 3:4]), transform_image(
+            tc, lambda p: p * 0.5 + p[..., 3:4]), True)
+    for k, (_, fmt, shp, flags, levels) in enumerate(gen.mip3d_cases()):
+        vol_np = gen.image(3500 + k, shp)
+        hold("generate_mipmaps_3d", generate_mipmaps_3d(
+            tex_of(vol_np, fmt, dev, TexDimension.TEXTURE3D), TF(flags),
+            levels), generate_mipmaps_3d(
+            tex_of(vol_np, fmt, "cpu", TexDimension.TEXTURE3D), TF(flags),
+            levels), False)
+    emit({"phase": "image_ops", "card": smi, "shapes": shapes,
+          "tf32": False, "values_differ_from_cpu": differ,
+          "seconds": time.perf_counter() - t0})
+
+    # 33. texconv's chain: the bench image with alpha ----------------------
+    out_side = size * 3 // 4
+
+    def chain_steps(side):
+        return [
+            ("flip_rotate", lambda t: flip_rotate(
+                t, FR.ROTATE90 | FR.FLIP_HORIZONTAL)),
+            ("resize", lambda t: resize(t, side, side,
+                                        TF.CUBIC | TF.SEPARATE_ALPHA)),
+            ("generate_mipmaps", lambda t: generate_mipmaps(t, TF.LINEAR)),
+            ("alpha_coverage", lambda t: scale_mipmaps_alpha_for_coverage(
+                t, 0.5)),
+            ("premultiply_alpha", premultiply_alpha),
+            ("compress", lambda t: compress(t, FMT.BC7_UNORM_SRGB)),
+            ("decompress", decompress)]
+
+    def psnr_levels(dec, ref):
+        return torch.stack([compute_psnr(a, b) for a, b in
+                            zip(dec.levels, ref.levels)])
+
+    def measure(steps, first):
+        """Each step on the output of the one before: its launches, time,
+        kernels, device time, busy share and host syncs."""
+        outs, rec = [first], {}
+        for name, fn in steps:
+            inp = outs[-1]
+            out, counts = pr.counts_of(lambda: fn(inp))
+            outs.append(out)
+            ms = pr.timed(lambda: fn(inp))
+            n_kernels, dev_ms = kernels_and_ms(profile_calls(
+                torch, {name: lambda: fn(inp)}, required=False)[name])
+            rec[name] = {"ms": ms, "launches": counts,
+                         "cuda_kernels": n_kernels, "device_ms": dev_ms,
+                         "busy": None if dev_ms is None
+                         else dev_ms / ms["median"],
+                         "host_syncs": pr.host_syncs(lambda: fn(inp))}
+        return outs, rec
+
+    img = bench_image(size, alpha=True)
+    src = tex_of(img, "R8G8B8A8_UNORM_SRGB", dev)
+    steps = chain_steps(out_side)
+    path = {}
+
+    def whole_chain():
+        t = src
+        for name, fn in steps:
+            t = fn(t)
+            path[name] = t
+        return psnr_levels(t, path["premultiply_alpha"])
+
+    torch.cuda.synchronize()
+    psnr, counts = pr.counts_of(whole_chain)
+    pr.need(counts, ["bc7_encode", "bc7_alpha_list", "bc7_mode7",
+                     "bc7_mode_buckets", "bc7_refine_alpha", "bc7_decode"],
+            "texconv chain")
+    mips = path["generate_mipmaps"]
+    check(mips.mip_levels == out_side.bit_length() and tuple(
+        mips.levels[-1].shape) == (1, 1, 1, 4), f"{mips.mip_levels} levels")
+    check(bool(torch.isfinite(psnr).all()) and float(psnr[0]) > 30.0,
+          f"chain PSNR per level {psnr.tolist()}")
+    outs, rec = measure(steps, src)
+    pm_tex, ct = outs[5], outs[6]
+    rec["compute_psnr"] = {"ms": pr.timed(lambda: psnr_levels(outs[7],
+                                                              pm_tex)),
+                           "host_syncs": pr.host_syncs(
+                               lambda: psnr_levels(outs[7], pm_tex))}
+    rec["chain"] = {"ms": pr.timed(whole_chain),
+                    "host_syncs": pr.host_syncs(whole_chain)}
+    # a sample of level 0's blocks against the plain twins on the card
+    blocks0 = image_to_blocks(pm_tex.image(0))[0]
+    pick = torch.arange(0, blocks0.shape[0], 9, device=dev)
+    px = bc67._quantize_ldr(blocks0[pick]).reshape(64, -1).contiguous()
+    _, w_p = bc67._bc7_search_plain(px, bc67.SEARCH_MODES_ALPHA)
+    w_p = bc67._bc7_refine_plain(px, w_p, bc67.REFINE_MODES_ALPHA)
+    words0 = ct.levels[0].reshape(-1, 16)[pick]
+    n_bad = int((w_p.t().contiguous().view(torch.uint8).reshape(-1, 16)
+                 != words0).any(dim=1).sum())
+    check(n_bad == 0, f"chain: {n_bad} sampled BC7 blocks differ from the "
+          f"plain twins")
+    # the same chain at 256^2, each step on the card and on the CPU port
+    # from the same input (the card's previous output)
+    small_src = tex_of(bench_image(small, alpha=True), "R8G8B8A8_UNORM_SRGB",
+                       dev)
+    cur = small_src
+    small_differ = {}
+    for name, fn in chain_steps(small * 3 // 4):
+        got, want = fn(cur), fn(cpu_tex(cur))
+        if name == "compress":
+            check(all(torch.equal(a.cpu(), b) for a, b in
+                      zip(got.levels, want.levels)),
+                  "256^2 chain: compress words differ from the CPU port's")
+        else:
+            n0 = sum(differ.values())
+            hold("chain_" + name, got, want,
+                 name in ("flip_rotate", "alpha_coverage", "decompress"))
+            small_differ[name] = sum(differ.values()) - n0
+        cur = got
+    emit({"phase": "texconv_chain", "card": smi, "size": size,
+          "resized": out_side, "levels": mips.mip_levels,
+          "blocks": sum(int(lvl.numel()) // 16 for lvl in ct.levels),
+          "launches": counts, "psnr_per_level": psnr.tolist(),
+          "steps": rec, "plain_sample_blocks": int(pick.numel()),
+          "plain_sample_equal": True, "small": small,
+          "small_values_differ_from_cpu": small_differ,
+          "small_words_equal_cpu": True})
+
+    # 34. a normal map of the bench image's luminance -> BC7 --------------
+    nm_flags = (CNMAP_FLAGS.CHANNEL_LUMINANCE | CNMAP_FLAGS.MIRROR_U
+                | CNMAP_FLAGS.MIRROR_V | CNMAP_FLAGS.COMPUTE_OCCLUSION)
+    height = tex_of(bench_image(size), "R8G8B8A8_UNORM", dev)
+    nm_steps = [("compute_normal_map", lambda t: compute_normal_map(
+                    t, nm_flags, 2.0, FMT.R8G8B8A8_UNORM)),
+                ("compress", lambda t: compress(t, FMT.BC7_UNORM))]
+    nm_out = {}
+
+    def nm_path():
+        nm_out["map"] = nm_steps[0][1](height)
+        nm_out["bc7"] = nm_steps[1][1](nm_out["map"])
+        return nm_out["bc7"]
+
+    nct, counts = pr.counts_of(nm_path)
+    # the occlusion term puts alpha below 1: the search with mode 7
+    refine = "bc7_refine_alpha" if counts.get("bc7_mode7") else "bc7_refine"
+    pr.need(counts, ["bc7_encode", "bc7_mode_buckets", refine],
+            "normal map path")
+    nb = int(nct.levels[0].numel()) // 16
+    check(nb == (size // 4) ** 2, f"normal map: {nb} blocks")
+    outs, nm_rec = measure(nm_steps, height)
+    nm_rec["path"] = {"ms": pr.timed(nm_path),
+                      "host_syncs": pr.host_syncs(nm_path)}
+    hs = tex_of(bench_image(small), "R8G8B8A8_UNORM", dev)
+    hold("normal_map_256", compute_normal_map(hs, nm_flags, 2.0),
+         compute_normal_map(cpu_tex(hs), nm_flags, 2.0), True)
+    emit({"phase": "normal_map_2k", "card": smi, "size": size,
+          "blocks": nb, "launches": counts, "steps": nm_rec,
+          "small_map_equal_cpu": True})
+
+    # 35. HDR: color rotation, mips, BC6H; PQ and the diffusion dither ----
+    hdr_img = np.ascontiguousarray(golden_module(
+        "generate_compress_dds").hdr512_image(np.load(os.path.join(
+            GOLDEN, "corpus.npz")))[:hdr_size, :hdr_size])
+    htex = tex_of(hdr_img, "R16G16B16A16_FLOAT", dev)
+    hdr_steps = [
+        ("rotate_color", lambda t: transform_image(
+            t, lambda p: rotate_color(p, "709to2020"))),
+        ("generate_mipmaps", lambda t: generate_mipmaps(t, TF.TRIANGLE)),
+        ("compress", lambda t: compress(t, FMT.BC6H_UF16)),
+        ("decompress", decompress)]
+    hdr_path = {}
+
+    def hdr_chain():
+        t = htex
+        for name, fn in hdr_steps:
+            t = fn(t)
+            hdr_path[name] = t
+        return t
+
+    _, counts = pr.counts_of(hdr_chain)
+    pr.need(counts, ["bc6h_encode", "bc6h_decode"], "HDR chain")
+    outs, hdr_rec = measure(hdr_steps, htex)
+    hold("hdr_rotate_color", outs[1], transform_image(
+        cpu_tex(htex), lambda p: rotate_color(p, "709to2020")), False)
+    hold("hdr_triangle_mips", outs[2], generate_mipmaps(cpu_tex(outs[1]),
+                                                        TF.TRIANGLE), False)
+    pq_steps = [("rotate_color_hdr10", lambda t: transform_image(
+                    t, lambda p: rotate_color(p, "709toHDR10", 200.0))),
+                ("convert_r10g10b10a2_diffusion", lambda t: convert(
+                    t, FMT.R10G10B10A2_UNORM, TF.DITHER_DIFFUSION))]
+    pq_outs, pq_rec = measure(pq_steps, htex)
+    hold("hdr10_rotate", pq_outs[1], transform_image(
+        cpu_tex(htex), lambda p: rotate_color(p, "709toHDR10", 200.0)),
+        False)
+    hold("hdr10_diffusion", pq_outs[2], convert(
+        cpu_tex(pq_outs[1]), FMT.R10G10B10A2_UNORM, TF.DITHER_DIFFUSION),
+        True)
+    lvl0 = pm_tex.replace_levels([pm_tex.levels[0]])
+    d_steps = [("convert_b5g6r5_diffusion", lambda t: convert(
+                   t, FMT.B5G6R5_UNORM, TF.DITHER_DIFFUSION)),
+               ("convert_b5g6r5_ordered", lambda t: convert(
+                   t, FMT.B5G6R5_UNORM, TF.DITHER))]
+    _, d_rec = measure(d_steps[:1], lvl0)
+    _, o_rec = measure(d_steps[1:], lvl0)
+    d_rec.update(o_rec)
+    got = convert(lvl0, FMT.B5G6R5_UNORM, TF.DITHER_DIFFUSION)
+    hold("b5g6r5_diffusion", got, convert(cpu_tex(lvl0), FMT.B5G6R5_UNORM,
+                                          TF.DITHER_DIFFUSION), True)
+    # the host pass and its two copies apart, on the values convert dithers
+    vals = convert_values(lvl0.levels[0], FMT.R8G8B8A8_UNORM_SRGB,
+                          FMT.B5G6R5_UNORM, TF.DITHER_DIFFUSION)
+    scales, clampzero = dither.dither_scales(FMT.B5G6R5_UNORM)
+    sc = np.asarray(scales, np.float32)
+    host_vals = vals.cpu().numpy()
+    host_ms = []
+    for _ in range(8):          # a warm-up, then 7, each on a fresh copy
+        buf = host_vals.copy()
+        t_0 = time.perf_counter()
+        for im in buf:
+            native.fs_dither(im, sc, clampzero)
+        host_ms.append((time.perf_counter() - t_0) * 1e3)
+    host_out = torch.from_numpy(buf)
+    parts = {"d2h": pr.timed(lambda: vals.cpu()),
+             "host_pass": pr.spread(host_ms[1:]),
+             "h2d": pr.timed(lambda: host_out.to(dev)),
+             "diffusion_dither": pr.timed(lambda: dither.diffusion_dither(
+                 vals, FMT.B5G6R5_UNORM)),
+             "host_syncs": pr.host_syncs(lambda: dither.diffusion_dither(
+                 vals, FMT.B5G6R5_UNORM)),
+             "copies": 2}
+    crop = vals[0, :64, :64].contiguous()
+    hold("diffusion_twin_64", dither.diffusion_dither(crop, FMT.B5G6R5_UNORM),
+         torch.from_numpy(dither._fs_dither_py(crop.cpu().numpy(), sc,
+                                               clampzero)), True)
+    emit({"phase": "hdr_and_dither", "card": smi, "size": hdr_size,
+          "launches": counts, "steps": {**hdr_rec, **pq_rec, **d_rec},
+          "dither_parts": parts, "dither_size": list(vals.shape),
+          "bc6h_blocks": sum(int(l.numel()) // 16 for l in
+                             hdr_path["compress"].levels),
+          "values_differ_from_cpu": {k: differ[k] for k in (
+              "hdr_rotate_color", "hdr_triangle_mips", "hdr10_rotate")}})
+
+    # 36. 3D mips of a 128^3 RGBA16F volume --------------------------------
+    rng = np.random.default_rng(36)
+    v_np = rng.random((vol, vol, vol, 4), np.float32).astype(
+        np.float16).astype(np.float32)
+    vtex = tex_of(v_np, "R16G16B16A16_FLOAT", dev, TexDimension.TEXTURE3D)
+    v_rec = {}
+    for name, f in (("linear", TF.LINEAR), ("box", TF.BOX)):
+        out, counts = pr.counts_of(lambda: generate_mipmaps_3d(vtex, f))
+        check(counts == {} and out.mip_levels == vol.bit_length(),
+              f"3D mips {name}: {out.mip_levels} levels, {counts}")
+        _, rec = measure([(name, lambda t: generate_mipmaps_3d(t, f))], vtex)
+        v_rec.update(rec)
+        small_v = tex_of(v_np[:16, :16, :16], "R16G16B16A16_FLOAT", dev,
+                         TexDimension.TEXTURE3D)
+        hold(f"mips_3d_{name}_16", generate_mipmaps_3d(small_v, f),
+             generate_mipmaps_3d(cpu_tex(small_v), f), name == "box")
+    emit({"phase": "mips_3d", "card": smi, "size": vol, "steps": v_rec,
+          "small_values_differ_from_cpu": {
+              k: differ[k] for k in ("mips_3d_linear_16", "mips_3d_box_16")}})
 
 
 if __name__ == "__main__":

@@ -21,8 +21,16 @@ ordered dither (ops.convert), `Texture` / `CompressedTexture` over torch
 tensors on an explicit device (texture), compress / decompress
 (ops.compress) and DDS read / write (io.dds). A texture in a DDS file goes
 through load_from_dds_memory -> compress -> save_to_dds_memory on the
-card, with the BC kernels below. It imports torch and numpy only, never
-jax.
+card, with the BC kernels below.
+
+Between load and compress it has texconv's image ops, as torch ops on the
+texture's device: flip / rotate (ops.fliprotate), resize (ops.resize: two
+products with host-built filter matrices), 2D and 3D mipmaps and alpha
+coverage (ops.mipmaps), premultiplied alpha (ops.pmalpha), the normal map
+(ops.normalmaps), color rotation and PQ (ops.rotatecolor), MSE / PSNR
+(ops.misc), and the Floyd-Steinberg diffusion dither, which runs on the
+host in the package's own C++ (native, built with g++ at first use). It
+imports torch and numpy only, never jax.
 """
 
 from .formats import DXGIFormat, FMT

@@ -4,8 +4,12 @@ The counterpart of directxtex_tpu/ops/dither.py's TEX_FILTER_DITHER: the
 reference's ordered 4x4 dither (g_Dither, DirectXTexConvert.cpp:3863)
 around the quantization round, renormalized so that pack() afterwards
 stores the values losslessly. TEX_FILTER_DITHER_DIFFUSION (Floyd-Steinberg,
-the JAX package's host `native/dither.cpp`) is still to port (ROADMAP
-queue 1 item 5) and raises NotImplementedError.
+the reference's StoreScanlineDither, :4049) is a serpentine scan whose
+rows each wait for the one before: it runs on the host, in the port's own
+copy of the JAX package's native/dither.cpp (directxtex_tpu_torch/native,
+built with g++ at first use). The level goes to the host in one copy and
+comes back to its device in one; `_fs_dither_py` is the same pass in
+numpy, the plain twin the tests hold the library against.
 """
 
 from __future__ import annotations
@@ -13,12 +17,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..formats.dxgi import DXGIFormat, FMT
 from ..numerics import clip
 from ..utils.device import constant
 from .flags import TEX_FILTER_FLAGS as TF
 
-__all__ = ["dither_scales", "ordered_dither", "apply_dither"]
+__all__ = ["dither_scales", "ordered_dither", "diffusion_dither",
+           "apply_dither"]
 
 # the reference's ordered-dither pattern (g_Dither, DirectXTexConvert.cpp:
 # 3863, z=0 plane): B[y & 3][x & 3], values in (-0.5, 0.5)
@@ -74,7 +80,8 @@ def ordered_dither(vals: torch.Tensor, fmt: DXGIFormat) -> torch.Tensor:
         return vals
     scales, clampzero = entry
     dev = vals.device
-    sc = torch.tensor(scales, dtype=torch.float32, device=dev)
+    sc = constant(("dither_scales", fmt),
+                  lambda: np.array(scales, np.float32), dev)
     h, w = vals.shape[-3], vals.shape[-2]
     # B[y & 3][x & 3], gathered on the device
     rows = torch.arange(h, device=dev)[:, None] & 3
@@ -87,6 +94,59 @@ def ordered_dither(vals: torch.Tensor, fmt: DXGIFormat) -> torch.Tensor:
     return torch.div(clip(t, lo, sc), sc)
 
 
+def _fs_dither_py(img: np.ndarray, scales: np.ndarray,
+                  clampzero: bool) -> np.ndarray:
+    """Floyd-Steinberg in numpy, step for step as native/dither.cpp (its
+    clamps keep a zero's sign, as the C comparisons do): the plain twin of
+    the host library (small images only)."""
+    h, w, _ = img.shape
+    out = img.astype(np.float32).copy()
+    err_prev = np.zeros((w + 2, 4), np.float32)
+    lo_v = np.float32(0.0 if clampzero else -1.0)
+    lo_t = np.zeros(4, np.float32) if clampzero else -scales + 1.0
+    for y in range(h):
+        err_next = np.zeros((w + 2, 4), np.float32)
+        rtl = bool(y & 1)
+        verr = np.zeros(4, np.float32)
+        xs = range(w - 1, -1, -1) if rtl else range(w)
+        for x in xs:
+            v = out[y, x] + err_prev[x + 1]
+            v = np.where(v < lo_v, lo_v, np.where(v > 1.0, np.float32(1.0),
+                                                  v)) + verr
+            vs = v * scales
+            # round-half-even, matching XMVectorRound / C nearbyintf
+            target = np.round(vs.astype(np.float64)).astype(np.float32)
+            e = (vs - target) / scales
+            dl, dr = (x + 2, x) if rtl else (x, x + 2)
+            err_next[dl] += e * (3.0 / 16.0)
+            err_next[x + 1] += e * (5.0 / 16.0)
+            err_next[dr] += e * (1.0 / 16.0)
+            verr = e * (7.0 / 16.0)
+            t = np.where(target < lo_t, lo_t, target)
+            out[y, x] = np.where(t > scales, scales, t) / scales
+        err_prev = err_next
+    return out
+
+
+def diffusion_dither(vals: torch.Tensor, fmt: DXGIFormat) -> torch.Tensor:
+    """Floyd-Steinberg error-diffusion dither + quantize + renormalize.
+    vals [N, H, W, 4] or [H, W, 4]: copied to the host, dithered there by
+    the native library (each image on its own), copied back to vals'
+    device."""
+    entry = dither_scales(fmt)
+    if entry is None:
+        return vals
+    scales, clampzero = entry
+    sc = np.asarray(scales, np.float32)
+    # one D2H copy into memory of our own, dithered there in place, one
+    # H2D copy back
+    host = torch.empty(vals.shape, dtype=torch.float32)
+    host.copy_(vals.detach())
+    for img in host.numpy().reshape((-1,) + tuple(vals.shape[-3:])):
+        native.fs_dither(img, sc, clampzero)
+    return host.to(vals.device)
+
+
 def apply_dither(vals: torch.Tensor, fmt: DXGIFormat,
                  filter_flags: int) -> torch.Tensor:
     """Dispatch on TEX_FILTER_DITHER / TEX_FILTER_DITHER_DIFFUSION
@@ -95,8 +155,5 @@ def apply_dither(vals: torch.Tensor, fmt: DXGIFormat,
     if not mode or dither_scales(fmt) is None:
         return vals
     if mode & int(TF.DITHER_DIFFUSION):
-        raise NotImplementedError(
-            "TEX_FILTER_DITHER_DIFFUSION (Floyd-Steinberg error diffusion) "
-            "is not ported yet: ROADMAP.md queue 1 item 5 (image ops, "
-            "ops/dither.py with the host native/dither.cpp)")
+        return diffusion_dither(vals, fmt)
     return ordered_dither(vals, fmt)

@@ -14,8 +14,8 @@ arithmetic, FTZ / DAZ); torch does not, on the CPU or on CUDA, so the
 port keeps them, as IEEE arithmetic and the reference do. The inputs of
 the bit-equal comparisons hold no subnormal;
 `test_the_port_keeps_subnormals_xla_flushes` shows the difference (ROADMAP
-queue 3). TEX_FILTER_DITHER_DIFFUSION is still to port (ROADMAP queue 1 item 5) and
-raises NotImplementedError.
+queue 3). TEX_FILTER_DITHER_DIFFUSION (the host Floyd-Steinberg of
+directxtex_tpu_torch/native) equals the JAX package's bit for bit.
 """
 
 import dataclasses
@@ -241,9 +241,15 @@ def test_ordered_dither_equals_jax(out_fmt):
 
 
 def test_diffusion_dither_is_not_ported_yet():
-    _, mt = _textures("R32G32B32A32_FLOAT", 4, special=False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        conv.convert(mt, FMT.B5G6R5_UNORM, TF.DITHER_DIFFUSION)
+    """The acceptance check of TEX_FILTER_DITHER_DIFFUSION, under its old
+    name: the port's convert(..., B5G6R5_UNORM, DITHER_DIFFUSION) equals
+    the JAX package's (its native Floyd-Steinberg) bit for bit."""
+    jt, mt = _textures("R32G32B32A32_FLOAT", 4, special=False)
+    got = conv.convert(mt, FMT.B5G6R5_UNORM, TF.DITHER_DIFFUSION)
+    want = jconv.convert(jt, JFMT.B5G6R5_UNORM, JTF.DITHER_DIFFUSION)
+    assert got.metadata.format == FMT.B5G6R5_UNORM
+    for a, b in zip(got.levels, want.levels):
+        np.testing.assert_array_equal(_bits(a.numpy()), _bits(b))
     # a format the dither does not take stores as it is, as in the JAX
     # package (StoreScanlineDither's format switch)
     got = conv.convert(mt, FMT.R16G16B16A16_FLOAT, TF.DITHER_DIFFUSION)

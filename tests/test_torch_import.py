@@ -32,9 +32,14 @@ def test_package_imports_no_jax():
         "common, cuda_kernels\n"
         "from directxtex_tpu_torch.models import pipelines\n"
         "from directxtex_tpu_torch.ops import colorspace, normalmaps\n"
+        "from directxtex_tpu_torch import native, ops\n"
+        "from directxtex_tpu_torch.ops import (dither, fliprotate, mipmaps,"
+        " misc, pmalpha, resize, rotatecolor)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'directxtex_tpu']\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "assert 'directxtex_tpu.native' not in sys.modules\n"
+        "assert native._library is None\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
