@@ -55,7 +55,14 @@ every kernel against its plain PyTorch twin on the card:
   runs on the host in directxtex_tpu_torch/native's C++): torch ops on
   the card (resize and the filtered mips as cuBLAS products in f32),
   held against the CPU port, and driven through texconv's chain into the
-  BC7 and BC6H kernels (K2 with mode 7, K3, K1; K5, K4).
+  BC7 and BC6H kernels (K2 with mode 7, K3, K1; K5, K4);
+- the container loaders and texconv (io.tga, hdr, ppm, exr with
+  exr_piz / exr_b44, tools.texconv): a folder of TGA, HDR, EXR and PFM
+  files parsed on the host (the RLE, scanline and Huffman codecs in
+  directxtex_tpu_torch/native's C++), each file's pixels copied to the
+  card once and decoded there, then texconv over the folder, one
+  compress_many per target format into K2 with mode 7 and K3, and K5;
+  the outputs decoded by K1 and K4.
 
 Phases:
 
@@ -282,7 +289,32 @@ Phases:
  36. 3D mips (phase mips_3d): a 128^3 R16G16B16A16_FLOAT volume through
      generate_mipmaps_3d, LINEAR and BOX, timed, no hand kernel launched,
      a 16^3 crop against the CPU port;
- 37. the kernels line: every kernel's launches, error against its twin,
+ 37. the container loaders (phase containers): a folder written by the
+     port's savers, four 2048^2 sRGB RGBA8 TGAs of the bench image with
+     and without alpha (two RLE, one raw 32 bpp, one 24 bpp), a
+     2048 x 1024 RLE .hdr environment map of corpus.npz's HDR contents
+     (exponent bytes about 100-150), one 1024^2 RGBA half EXR in each of
+     ZIP, PIZ, B44 and RLE, and a 1024^2 PFM; each file loaded on the
+     card, its load timed as host parse, H2D copy and device decode
+     (CUDA events, medians of 7) with its host syncs, the texture bit for
+     bit the port's CPU load of the same bytes, each native codec (TGA
+     RLE, HDR scanlines and RLE, PIZ Huffman; EXR RLE's encoder) against
+     its numpy twin on a crop, the texture saved again with bytes equal
+     to the CPU port's save;
+ 38. texconv on the card (phase texconv_batch): tools.texconv.main over
+     that folder, -f BC7_UNORM_SRGB -m 0 over the four TGAs (one
+     compress_many of 4 x 349,527 blocks: K2 with mode 7's list pass and
+     launch, K3) and -f BC6H_UF16 -m 0 over the HDR, EXR and PFM files
+     (one compress_many: K5), each run rc 0 with no FAILED line and one
+     compress_many per (format, flags) group; every output DDS reloaded
+     and decompressed on the card (K1, K4) with its PSNR per level
+     (log-PSNR for HDR), level 0 of one TGA equal to compress() of its
+     loaded texture, the batches' seconds and host syncs; a -timing run
+     (its stage rows, each stage's synchronize counted), a -profile run
+     (a non-empty Chrome trace with kernels), and -f R16G16B16A16_FLOAT
+     -ft exr over the HDR and PFM files (the reloaded EXR is the source
+     rounded to half); both phases' wall time;
+ 39. the kernels line: every kernel's launches, error against its twin,
      time, plain time and bound (bytes or operations, whichever is
      larger, at the H100's published peaks, for the work each block of
      the run needs), and for mode 7's launch, K11, K8, the ranking, K10
@@ -1101,6 +1133,7 @@ def main() -> None:
     bc12345_phases(torch, to_dev, event_ms, smi, enc_ms)
     format_core_phases(torch, dev, to_dev, event_ms, smi)
     image_ops_phases(torch, dev, to_dev, event_ms, smi)
+    container_phases(torch, dev, event_ms, smi)
 
     lines = []
     device_ms = {k: prof[k][0][1] * 1e-3 for k in teams if k in SOURCES}
@@ -3720,6 +3753,427 @@ def image_ops_phases(torch, dev, to_dev, event_ms, smi,
     emit({"phase": "mips_3d", "card": smi, "size": vol, "steps": v_rec,
           "small_values_differ_from_cpu": {
               k: differ[k] for k in ("mips_3d_linear_16", "mips_3d_box_16")}})
+
+
+
+def tga_rle(px: np.ndarray) -> bytes:
+    """TGA RLE packets of [N, bpp] u8 pixels: each run of equal pixels
+    longer than one as run packets of up to 128, the pixels between runs
+    as raw packets of up to 128 (numpy finds the runs; the loop is over
+    runs, not pixels)."""
+    n, bpp = px.shape
+    words = np.zeros(n, np.uint64)
+    for i in range(bpp):
+        words |= px[:, i].astype(np.uint64) << np.uint64(8 * i)
+    starts = np.concatenate([[0], np.flatnonzero(words[1:] != words[:-1])
+                             + 1, [n]])
+    lens = np.diff(starts)
+    out = []
+    raw_from = 0
+
+    def flush_raw(a, b):
+        for c in range(a, b, 128):
+            e = min(b, c + 128)
+            out.append(bytes([e - c - 1]) + px[c:e].tobytes())
+
+    for k in np.flatnonzero(lens > 1):
+        a, ln = int(starts[k]), int(lens[k])
+        flush_raw(raw_from, a)
+        for c in range(0, ln, 128):
+            out.append(bytes([0x80 | (min(128, ln - c) - 1)])
+                       + px[a].tobytes())
+        raw_from = a + ln
+    flush_raw(raw_from, n)
+    return b"".join(out)
+
+
+def tga_bytes(px: np.ndarray, rle: bool, bottom_up: bool) -> bytes:
+    """A TGA 2.0 file of [H, W, 4] RGBA8 pixels (BGRA on disk), RLE or
+    raw, top-down or bottom-up, its footer giving gamma 2.2 (sRGB) and
+    straight alpha."""
+    import struct
+
+    h, w, _ = px.shape
+    rows = px[::-1] if bottom_up else px
+    bgra = np.ascontiguousarray(rows[..., [2, 1, 0, 3]]).reshape(-1, 4)
+    body = tga_rle(bgra) if rle else bgra.tobytes()
+    head = struct.pack("<BBBHHBHHHHBB", 0, 0, 10 if rle else 2, 0, 0, 0, 0,
+                       0, w, h, 32, 8 | (0 if bottom_up else 0x20))
+    ext = bytearray(495)
+    struct.pack_into("<H", ext, 0, 495)
+    struct.pack_into("<HH", ext, 478, 22, 10)
+    ext[494] = 3
+    footer = struct.pack("<II", len(head) + len(body), 0) + \
+        b"TRUEVISION-XFILE.\x00"
+    return head + body + bytes(ext) + footer
+
+
+def hdr_env_map(corpus, height: int = 1024, width: int = 2048) -> np.ndarray:
+    """[H, W, 4] f32: 128^2 tiles of corpus.npz's hdr_china, hdr_flower and
+    hdr_sun (64^2, each texel repeated 2 x 2) in turn, tile k exposed by
+    2 ** ((7 * k) % 37 - 22), so that the RGBE exponent bytes run from
+    about 100 to 150 (where XLA's exp2 misses most of them). Alpha 1."""
+    tiles = [corpus["hdr_china"][..., :3], corpus["hdr_flower"][..., :3],
+             np.repeat(np.repeat(corpus["hdr_sun"][..., :3], 2, 0), 2, 1)]
+    rows = []
+    for i in range(height // 128):
+        row = []
+        for j in range(width // 128):
+            k = i * (width // 128) + j
+            row.append(tiles[k % 3] * np.float32(2.0 ** ((7 * k) % 37 - 22)))
+        rows.append(np.concatenate(row, axis=1))
+    rgb = np.concatenate(rows, axis=0).astype(np.float32)
+    return np.concatenate([rgb, np.ones_like(rgb[..., :1])], -1)
+
+
+def container_files(torch, dev, corpus, tga_size: int = SLICE_SIZE,
+                    exr_size: int = 1024) -> dict:
+    """{file name: bytes} of phase 37's folder, written by the port's own
+    savers (and tga_bytes for the RLE TGAs): four tga_size^2 sRGB RGBA8
+    TGAs of the bench image with and without alpha (two RLE, one raw 32
+    bpp, one 24 bpp), a 2 tga_size x tga_size RLE .hdr environment map, one
+    exr_size^2 RGBA half EXR in each of ZIP, PIZ, B44 and RLE and one
+    exr_size^2 PFM."""
+    from directxtex_tpu_torch.formats import FMT
+    from directxtex_tpu_torch.io import exr, hdr, ppm, tga
+    from directxtex_tpu_torch.texture import Texture
+
+    def rgba8(img):
+        return np.round(img * 255).astype(np.uint8)
+
+    opaque, alpha = (rgba8(bench_image(tga_size, alpha=a))
+                     for a in (False, True))
+    files = {
+        "rgba_rle.tga": tga_bytes(alpha, rle=True, bottom_up=True),
+        "opaque_rle.tga": tga_bytes(opaque, rle=True, bottom_up=False),
+        "rgba_raw.tga": tga.save_to_tga_memory(Texture.from_array(
+            alpha.astype(np.float32) / 255, FMT.R8G8B8A8_UNORM_SRGB,
+            device=dev)),
+        "opaque_24.tga": tga.save_to_tga_memory(Texture.from_array(
+            opaque.astype(np.float32) / 255, FMT.B8G8R8X8_UNORM_SRGB,
+            device=dev)),
+    }
+    env = hdr_env_map(corpus, tga_size // 2, tga_size)
+    files["env.hdr"] = hdr.save_to_hdr_memory(Texture.from_array(
+        env, FMT.R32G32B32A32_FLOAT, device=dev))
+    # halves hold up to 65504: the brightest tiles are clipped there
+    crop = np.minimum(env[:exr_size, :exr_size], np.float32(60000.0))
+    crop[..., 3] = bench_image(exr_size, alpha=True)[..., 3]
+    half = Texture.from_array(crop, FMT.R16G16B16A16_FLOAT, device=dev)
+    for name, comp in (("zip", exr._ZIP), ("piz", exr._PIZ),
+                       ("b44", exr._B44), ("rle", exr._RLE)):
+        files[f"{name}.exr"] = exr.save_to_exr_memory(half,
+                                                      compression=comp)
+    files["map.pfm"] = ppm.save_to_pfm_memory(Texture.from_array(
+        env[-exr_size:, -exr_size:], FMT.R32G32B32A32_FLOAT, device=dev))
+    return files
+
+
+def container_phases(torch, dev, event_ms, smi, tga_size: int = SLICE_SIZE,
+                     exr_size: int = 1024) -> None:
+    """Phases 37-38: the container loaders and texconv on the card, over a
+    folder of source files the port's savers write (container_files). 37:
+    each file loaded on the card, the load timed as host parse, H2D copy
+    and device decode (CUDA events, medians of 7), its host syncs, the
+    texture bit-equal to the port's CPU load of the same bytes, each
+    native codec against its numpy twin on a crop, and the texture saved
+    again, its bytes equal to the CPU port's save; 38: the port's
+    tools.texconv.main over the folder, BC7_UNORM_SRGB with full mips over
+    the four TGAs (one compress_many: K2 with mode 7, K3) and BC6H_UF16
+    over the HDR, EXR and PFM files (one compress_many: K5), each run rc 0
+    with no FAILED line and one compress_many per (format, flags) group,
+    the outputs reloaded and decoded on the card (K1, K4) with their PSNR
+    per level, level 0 of one TGA against compress() called on its loaded
+    texture, a -timing run (its synchronizes counted), a -profile run (a
+    non-empty trace with kernels) and a non-BC run (-f R16G16B16A16_FLOAT
+    -ft exr). Each path is driven with the launch counts set to 0 just
+    before it and read just after."""
+    import contextlib
+    import io as _io
+    import tempfile
+
+    from directxtex_tpu_torch import native, ops
+    from directxtex_tpu_torch.formats import FMT, packing
+    from directxtex_tpu_torch.io import (dds, exr, exr_piz, hdr, load_texture,
+                                         ppm, tga)
+    from directxtex_tpu_torch.ops import compute_psnr, decompress
+    from directxtex_tpu_torch.texture import CompressedTexture
+    from directxtex_tpu_torch.tools import texconv
+
+    pr = Probe(torch, event_ms)
+    t_start = time.perf_counter()
+    corpus = np.load(os.path.join(GOLDEN, "corpus.npz"))
+    files = container_files(torch, dev, corpus, tga_size, exr_size)
+    stages = {".tga": (tga._host_parse, tga._device_decode),
+              ".hdr": (hdr._host_parse, hdr._device_decode),
+              ".exr": (exr._host_parse, exr._device_decode),
+              ".pfm": (ppm._host_parse_pfm, ppm._device_decode)}
+    exr_comp = {"zip.exr": exr._ZIP, "piz.exr": exr._PIZ,
+                "b44.exr": exr._B44, "rle.exr": exr._RLE}
+
+    def saved(tex, name):
+        ext = os.path.splitext(name)[1]
+        if ext == ".tga":
+            return tga.save_to_tga_memory(tex)
+        if ext == ".hdr":
+            return hdr.save_to_hdr_memory(tex)
+        if ext == ".exr":
+            return exr.save_to_exr_memory(tex, compression=exr_comp[name])
+        return ppm.save_to_pfm_memory(tex)
+
+    def twins(name, data):
+        """The file's native codec against its numpy twin on a crop:
+        {codec: values compared}."""
+        if name.endswith("_rle.tga"):
+            n = 65536
+            got = native.tga_rle_decode(data[18:], n, 4)
+            want = tga._decode_rle_py(np.frombuffer(data, np.uint8)[18:], 4,
+                                      n)
+            check(np.array_equal(got, want), f"{name}: native RLE decode")
+            return {"tga_rle_decode": int(got.size)}
+        if name.endswith(".hdr"):
+            w, h, _, off = hdr._parse_header(data)
+            got = native.hdr_decode_scanlines(data, off, w, 8)
+            check(np.array_equal(got, hdr._decode_scanlines_py(data, off, w,
+                                                               8)),
+                  f"{name}: native scanline decode")
+            chans = got[:4].transpose(0, 2, 1).reshape(-1, w)
+            check(all(native.hdr_encode_rle_channel(c)
+                      == hdr._encode_rle_channel_py(c) for c in chans),
+                  f"{name}: native RLE encode")
+            return {"hdr_decode_scanlines": int(got.size),
+                    "hdr_encode_rle_channel": int(chans.size)}
+        if name == "piz.exr":
+            raw = np.ascontiguousarray(packing._f32_to_half(
+                torch.from_numpy(np.asarray(corpus["hdr_china"][:32, :64],
+                                            np.float32))).numpy()
+                .astype(np.uint16)).reshape(-1)
+            stream = exr_piz.huf_compress(raw)
+            check(stream == exr_piz._huf_compress_py(raw)
+                  and np.array_equal(exr_piz.huf_uncompress(stream, raw.size),
+                                     exr_piz._huf_uncompress_py(stream,
+                                                                raw.size)),
+                  f"{name}: native PIZ Huffman")
+            return {"piz_huffman": int(raw.size)}
+        if name == "rle.exr":
+            line = np.frombuffer(data, np.uint8)[-8 * exr_size:]
+            check(exr._rle_encode(line) == exr._rle_encode_py(line),
+                  f"{name}: RLE encode")
+            return {"exr_rle_encode": int(line.size)}
+        return {}
+
+    loads, loaded = {}, {}
+    for name, data in files.items():
+        parse, decode = stages[os.path.splitext(name)[1]]
+        payload, plan = parse(data)
+        payload_d = torch.from_numpy(payload).to(dev)
+        tex, counts = pr.counts_of(lambda: load_texture_bytes(
+            name, data, dev))
+        check(counts == {}, f"{name}: the load launched {counts}")
+        cpu = load_texture_bytes(name, data, "cpu")
+        check(tex.device == dev and all(
+            torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+            for a, b in zip(tex.levels, cpu.levels))
+            and tex.metadata == cpu.metadata,
+            f"{name}: the card's load differs from the CPU's")
+        check(bool(torch.isfinite(tex.levels[0]).all()), f"{name}: finite")
+        t0 = time.perf_counter()
+        again = saved(tex, name)
+        save_s = time.perf_counter() - t0
+        check(again == saved(Probe.cpu_tex(tex), name),
+              f"{name}: the card's save differs from the CPU port's")
+        ms = {"host_parse": pr.host_timed(lambda: parse(data)),
+              "h2d": pr.timed(lambda: torch.from_numpy(payload).to(dev)),
+              "device_decode": pr.timed(lambda: decode(payload_d, plan)),
+              "load": pr.timed(lambda: load_texture_bytes(name, data, dev))}
+        parts = {k: ms[k]["median"] for k in ("host_parse", "h2d",
+                                              "device_decode")}
+        total = ms["load"]["median"]
+        loads[name] = {
+            "bytes": len(data), "payload_bytes": int(payload.nbytes),
+            "shape": list(tex.levels[0].shape), "ms": ms,
+            "share_of_load": {k: v / total for k, v in parts.items()},
+            "host_syncs": pr.host_syncs(lambda: load_texture_bytes(
+                name, data, dev)),
+            "save_s": save_s, "save_bytes_equal_cpu": True,
+            "twins": twins(name, data)}
+        loaded[name] = tex
+        del payload_d
+    env = loaded["env.hdr"].levels[0][0]
+    e = torch.frexp(env[..., :3].amax(-1).double())[1] + 128
+    emit({"phase": "containers", "card": smi, "files": loads,
+          "load_bit_equal_cpu": True, "hdr_exponent_bytes": [
+              int(e[env[..., :3].amax(-1) > 0].min()), int(e.max())],
+          "seconds": time.perf_counter() - t_start})
+
+    # 38. texconv over the folder -------------------------------------------
+    t_batch = time.perf_counter()
+    calls = []
+    real_many = ops.compress_many
+
+    def counting_many(texs, *a, **k):
+        calls.append(len(texs))
+        return real_many(texs, *a, **k)
+
+    def run(args, paths, out):
+        """texconv.main on the card: (rc, stdout, stderr, launches, s)."""
+        o, e = _io.StringIO(), _io.StringIO()
+        calls.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(o), contextlib.redirect_stderr(e):
+            rc, counts = pr.counts_of(lambda: texconv.main(
+                ["-nologo", "-y", *args, "-o", out, *paths], device=dev))
+        secs = time.perf_counter() - t0
+        check(rc == 0 and "FAILED" not in o.getvalue() + e.getvalue(),
+              f"texconv {args}: rc {rc}\n{o.getvalue()}\n{e.getvalue()}")
+        return o.getvalue(), counts, secs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, data in files.items():
+            paths[name] = os.path.join(tmp, name)
+            with open(paths[name], "wb") as f:
+                f.write(data)
+        tgas = [paths[n] for n in files if n.endswith(".tga")]
+        hdrs = [paths[n] for n in files if not n.endswith(".tga")]
+        ops.compress_many = counting_many
+        try:
+            groups = {}
+            for key, fmt, srcs, want in (
+                    ("bc7", "BC7_UNORM_SRGB", tgas,
+                     ["bc7_encode", "bc7_alpha_list", "bc7_mode7",
+                      "bc7_mode_buckets", "bc7_refine_alpha"]),
+                    ("bc6h", "BC6H_UF16", hdrs, ["bc6h_encode"])):
+                out_dir = os.path.join(tmp, key)
+                args = ["-f", fmt, "-m", "0"]
+                _, counts, secs = run(args, srcs, out_dir)
+                pr.need(counts, want, f"texconv {key}")
+                check(calls == [len(srcs)], f"texconv {key}: compress_many "
+                      f"calls {calls} (one per format and flags)")
+                enc = "bc7_encode" if key == "bc7" else "bc6h_encode"
+                check(counts.get(enc) == 1, f"texconv {key}: {counts}")
+                syncs = pr.host_syncs(lambda: texconv.main(
+                    ["-nologo", "-y", *args, "-o", out_dir, *srcs],
+                    device=dev))
+                outputs = {}
+                for src in srcs:
+                    name = os.path.basename(src)
+                    ddsp = os.path.join(out_dir,
+                                        os.path.splitext(name)[0] + ".dds")
+                    with open(ddsp, "rb") as f:
+                        raw = f.read()
+                    ct = dds.load_from_dds_memory(raw, device=dev)
+                    check(isinstance(ct, CompressedTexture)
+                          and ct.metadata.format == getattr(FMT, fmt),
+                          f"{name}: output format")
+                    dec, dcounts = pr.counts_of(lambda: decompress(ct))
+                    pr.need(dcounts, ["bc7_decode" if key == "bc7"
+                                      else "bc6h_decode"], f"{name} decode")
+                    chain = ops.generate_mipmaps(loaded[name])
+                    if key == "bc7":
+                        psnr = [float(compute_psnr(a, b)) for a, b in
+                                zip(dec.levels, chain.levels)]
+                    else:
+                        psnr = [log_psnr(a[0].cpu().numpy(),
+                                         b[0].cpu().numpy())
+                                for a, b in zip(dec.levels, chain.levels)]
+                    check(all(np.isfinite(psnr)) and psnr[0] > (
+                        30.0 if key == "bc7" else 25.0),
+                          f"{name}: PSNR per level {psnr}")
+                    outputs[name] = {
+                        "dds_bytes": len(raw), "levels": ct.mip_levels,
+                        "blocks": sum(int(lvl.numel()) // 16
+                                      for lvl in ct.levels),
+                        "psnr_per_level": psnr}
+                    if name == "rgba_rle.tga":
+                        direct = ops.compress(ops.generate_mipmaps(
+                            loaded[name]), FMT.BC7_UNORM_SRGB)
+                        check(torch.equal(ct.levels[0], direct.levels[0]),
+                              "texconv's level 0 differs from compress() "
+                              "of the loaded texture")
+                        outputs[name]["level0_equals_compress"] = True
+                groups[key] = {"files": len(srcs), "launches": counts,
+                               "compress_many_calls": 1,
+                               "blocks": sum(o["blocks"]
+                                             for o in outputs.values()),
+                               "batch_s": secs, "host_syncs": syncs,
+                               "outputs": outputs}
+
+            # -timing: the serial path, each stage's synchronize counted
+            syncs_seen = []
+            real_sync = torch.cuda.synchronize
+
+            def counting_sync(device=None):
+                syncs_seen.append(device)
+                real_sync(device)
+
+            torch.cuda.synchronize = counting_sync
+            try:
+                text, _, secs = run(["-f", "BC7_UNORM_SRGB", "-m", "0",
+                                     "-timing"], tgas,
+                                    os.path.join(tmp, "timing"))
+            finally:
+                torch.cuda.synchronize = real_sync
+            rows = [ln.strip() for ln in text.splitlines() if "[" in ln]
+            check(len(rows) == len(tgas) and all(
+                "compress" in r and "mipmaps" in r for r in rows),
+                f"-timing rows {rows}")
+            # the stage marks with a texture (load, mipmaps, compress)
+            # each synchronize on its device
+            marks = sum(d is not None for d in syncs_seen)
+            check(marks == 3 * len(tgas),
+                  f"-timing synchronized {marks} times on a device")
+            timing_rec = {"rows": rows, "synchronizes": marks,
+                          "s": secs, "compress_many_calls": len(calls)}
+
+            prof_dir = os.path.join(tmp, "prof")
+            _, counts, secs = run(["-f", "BC6H_UF16", "-m", "0", "-profile",
+                                   prof_dir], [paths["env.hdr"]],
+                                  os.path.join(tmp, "p"))
+            with open(os.path.join(prof_dir, "trace.json"), "rb") as f:
+                trace = f.read()
+            check(len(trace) > 0 and b'"kernel"' in trace,
+                  "-profile: no kernels in the trace")
+            profile_rec = {"trace_bytes": len(trace), "s": secs,
+                           "launches": counts}
+
+            _, counts, secs = run(["-f", "R16G16B16A16_FLOAT", "-ft", "exr"],
+                                  [paths["env.hdr"], paths["map.pfm"]],
+                                  os.path.join(tmp, "exr"))
+            check(counts == {} and calls == [],
+                  f"-ft exr launched {counts}, compress_many {calls}")
+            for name in ("env.hdr", "map.pfm"):
+                back = load_texture(os.path.join(
+                    tmp, "exr", os.path.splitext(name)[0] + ".exr"),
+                    device=dev)
+                src = loaded[name].levels[0]
+                want = packing._half_to_f32(packing._f32_to_half(src))
+                check(torch.equal(back.levels[0].view(torch.int32),
+                                  want.view(torch.int32)),
+                      f"{name} -> EXR: not the source rounded to half")
+            exr_rec = {"s": secs, "files": 2}
+        finally:
+            ops.compress_many = real_many
+    emit({"phase": "texconv_batch", "card": smi, "groups": groups,
+          "timing_run": timing_rec, "profile_run": profile_rec,
+          "exr_run": exr_rec, "no_failed_lines": True,
+          "seconds": time.perf_counter() - t_batch,
+          "phases_37_38_seconds": time.perf_counter() - t_start})
+
+
+def load_texture_bytes(name: str, data: bytes, device):
+    """The port's loader for a file name's extension, on bytes."""
+    from directxtex_tpu_torch.io import exr, hdr, ppm, tga
+
+    ext = os.path.splitext(name)[1]
+    if ext == ".tga":
+        return tga.load_from_tga_memory(data, device=device)
+    if ext == ".hdr":
+        return hdr.load_from_hdr_memory(data, device=device)
+    if ext == ".exr":
+        return exr.load_from_exr_memory(data, device=device)
+    return ppm.load_from_pfm_memory(data, device=device)
 
 
 if __name__ == "__main__":

@@ -29,7 +29,13 @@ products with host-built filter matrices), 2D and 3D mipmaps and alpha
 coverage (ops.mipmaps), premultiplied alpha (ops.pmalpha), the normal map
 (ops.normalmaps), color rotation and PQ (ops.rotatecolor), MSE / PSNR
 (ops.misc), and the Floyd-Steinberg diffusion dither, which runs on the
-host in the package's own C++ (native, built with g++ at first use). It
+host in the package's own C++ (native, built with g++ at first use).
+
+Around them it has the container loaders (io: TGA, HDR, PPM / PFM / PHM,
+EXR, the Pillow and libheif bridges, the runtime loaders; headers and
+byte streams parsed on the host, the byte-serial codecs in native's C++,
+each file's pixels copied to the device once and decoded there), the
+texconv tool (tools.texconv) and the timing helpers (utils.timing). It
 imports torch and numpy only, never jax.
 """
 

@@ -1,12 +1,13 @@
-"""Utilities: the error taxonomy and the default device (timing and
-profiling are still to port, ROADMAP queue 1 item 9)."""
+"""Utilities: the error taxonomy, the default device, and timing and
+profiling (timing.timed, timing.profile_trace)."""
 
 from .errors import (
     TexAbortError, TexArithmeticOverflowError, TexInvalidArgError,
     TexInvalidDataError, TexNotSupportedError,
 )
+from .timing import profile_trace, timed
 
 __all__ = [
     "TexAbortError", "TexArithmeticOverflowError", "TexInvalidArgError",
-    "TexInvalidDataError", "TexNotSupportedError",
+    "TexInvalidDataError", "TexNotSupportedError", "profile_trace", "timed",
 ]

@@ -35,11 +35,18 @@ def test_package_imports_no_jax():
         "from directxtex_tpu_torch import native, ops\n"
         "from directxtex_tpu_torch.ops import (dither, fliprotate, mipmaps,"
         " misc, pmalpha, resize, rotatecolor)\n"
+        "from directxtex_tpu_torch import io, tools, utils\n"
+        "from directxtex_tpu_torch.io import (dds, exr, exr_b44, exr_piz, "
+        "hdr, heif, loaders, ppm, tga, wic)\n"
+        "from directxtex_tpu_torch.tools import texconv\n"
+        "from directxtex_tpu_torch.utils import timing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'directxtex_tpu']\n"
         "assert not bad, bad\n"
         "assert 'directxtex_tpu.native' not in sys.modules\n"
-        "assert native._library is None\n")
+        "assert native._library is None\n"
+        "assert native._codec_library is None\n"
+        "assert native._openexr_library is None\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
