@@ -62,7 +62,14 @@ every kernel against its plain PyTorch twin on the card:
   directxtex_tpu_torch/native's C++), each file's pixels copied to the
   card once and decoded there, then texconv over the folder, one
   compress_many per target format into K2 with mode 7 and K3, and K5;
-  the outputs decoded by K1 and K4.
+  the outputs decoded by K1 and K4;
+- the other tools and parallel/ (tools.texassemble, ddsview, texdiag;
+  parallel.sharding, spatial, library): a cube assembled from the
+  folder's TGAs, its layouts and their inverses, texconv of it into K2 /
+  K3 and ddsview of that through K1; texdiag over texconv's outputs (K1,
+  K4); the texture library through one encoder call (K2, K3; K5) and a
+  mesh that repeats the one card four times (halos, the box mip, the
+  MSE's partial sums, a sharded BC7 encode).
 
 Phases:
 
@@ -296,7 +303,8 @@ Phases:
      (exponent bytes about 100-150), one 1024^2 RGBA half EXR in each of
      ZIP, PIZ, B44 and RLE, and a 1024^2 PFM; each file loaded on the
      card, its load timed as host parse, H2D copy and device decode
-     (CUDA events, medians of 7) with its host syncs, the texture bit for
+     (CUDA events, medians of 7; an EXR's parse and load of 3) with its
+     host syncs, the texture bit for
      bit the port's CPU load of the same bytes, each native codec (TGA
      RLE, HDR scanlines and RLE, PIZ Huffman; EXR RLE's encoder) against
      its numpy twin on a crop, the texture saved again with bytes equal
@@ -314,7 +322,30 @@ Phases:
      (a non-empty Chrome trace with kernels), and -f R16G16B16A16_FLOAT
      -ft exr over the HDR and PFM files (the reloaded EXR is the source
      rounded to half); both phases' wall time;
- 39. the kernels line: every kernel's launches, error against its twin,
+ 39. texassemble and ddsview (phase assemble_view): six 2048^2 faces from
+     phase 37's TGAs -> cube (a DDS) -> h-cross -> cube-from-hc and
+     v-cross-fnz -> cube-from-vc-fnz (the faces back bit for bit),
+     cube-from-mips over the faces' 12-level chains (72 files), merge
+     with a swizzle, texconv of the cube to BC7_UNORM with mips (K2, mode
+     7, K3; level 0 equal to compress()), ddsview -m 1 of that cube (K1,
+     a 4096 x 3072 PNG); every file equal to the CPU port's;
+ 40. texdiag (phase texdiag) over phase 38's BC7_UNORM_SRGB and BC6H_UF16
+     files: info, analyzebc, dumpbc -targetx/-targety (lines equal to the
+     CPU port's on every file), analyze, compare (source against the
+     DDS), diff -c and dumpdds (lines and files equal, the reductions
+     within a stated bound, on one BC7 and one BC6H file; the CPU port
+     decodes every block on the host); each command's time, host syncs
+     and K1 / K4 launches;
+ 41. parallel/ (phase parallel): compress_library over the four TGAs into
+     BC7_UNORM without and with mips (one encoder call; words equal to
+     encode_bc7 of each image) and over the PFM and the HDR into
+     BC6H_UF16 (K5); on a mesh of ("cuda:0",) * 4, sharded_normal_map of
+     an 8192^2 height field bit-equal to one shard and to the CPU port on
+     a crop, halo_exchange_rows at halo 1 and 3 equal to the padded
+     image, sharded_box_mip bit-equal to one shard, sharded_mse against
+     compute_mse, sharded_compress_fn(encode_bc7) equal to the unsharded
+     encode;
+ 42. the kernels line: every kernel's launches, error against its twin,
      time, plain time and bound (bytes or operations, whichever is
      larger, at the H100's published peaks, for the work each block of
      the run needs), and for mode 7's launch, K11, K8, the ranking, K10
@@ -532,6 +563,7 @@ BC6H_2REGION_OPS = (28530, 28530, 38074, 28482, 38074, 28446)
 # K8 per block: modes 4, 5 and 6 over their candidates
 BC7_SINGLE_MODES_OPS = 51970
 UNSHARED_PLAIN_BLOCKS = 16384  # face-512 blocks of the K10 / K11 twins
+FILE_REPS = 3  # timed runs of a tool command that moves 100-200 MB of files
 # (registers, spill stores, spill loads in bytes) of kernel instances, by a
 # piece of each instance's mangled name (NVIDIA H100 80GB HBM3 build;
 # PERF.md section 6): the K9 and K7 teams, mode 7's team, K11's lane
@@ -567,8 +599,16 @@ PTXAS_RECORDED = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line on stdout; the seconds since start and the phase's
+    name on stderr, where each phase's share of the run can be read."""
     print(json.dumps(obj), flush=True)
+    print(f"[{time.perf_counter() - _T0:.1f} s] "
+          f"{obj.get('phase', next(iter(obj), ''))}", file=sys.stderr,
+          flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1133,7 +1173,9 @@ def main() -> None:
     bc12345_phases(torch, to_dev, event_ms, smi, enc_ms)
     format_core_phases(torch, dev, to_dev, event_ms, smi)
     image_ops_phases(torch, dev, to_dev, event_ms, smi)
-    container_phases(torch, dev, event_ms, smi)
+    folder = container_phases(torch, dev, event_ms, smi)
+    tool_phases(torch, dev, event_ms, smi, folder)
+    parallel_phase(torch, dev, event_ms, smi, folder)
 
     lines = []
     device_ms = {k: prof[k][0][1] * 1e-3 for k in teams if k in SOURCES}
@@ -2975,15 +3017,15 @@ class Probe:
         return {"median": float(np.median(t)), "min": float(min(t)),
                 "max": float(max(t))}
 
-    def timed(self, fn) -> dict:
+    def timed(self, fn, reps: int = 7) -> dict:
         fn()
-        return self.spread(self.event_ms(fn, 7))
+        return self.spread(self.event_ms(fn, reps))
 
-    def host_timed(self, fn) -> dict:
-        """Host-clock ms of fn(), which touches no device (7 runs)."""
+    def host_timed(self, fn, reps: int = 7) -> dict:
+        """Host-clock ms of fn(), which touches no device (`reps` runs)."""
         fn()
         t = []
-        for _ in range(7):
+        for _ in range(reps):
             t0 = time.perf_counter()
             fn()
             t.append((time.perf_counter() - t0) * 1e3)
@@ -3870,11 +3912,12 @@ def container_files(torch, dev, corpus, tga_size: int = SLICE_SIZE,
 
 
 def container_phases(torch, dev, event_ms, smi, tga_size: int = SLICE_SIZE,
-                     exr_size: int = 1024) -> None:
+                     exr_size: int = 1024) -> dict:
     """Phases 37-38: the container loaders and texconv on the card, over a
     folder of source files the port's savers write (container_files). 37:
     each file loaded on the card, the load timed as host parse, H2D copy
-    and device decode (CUDA events, medians of 7), its host syncs, the
+    and device decode (CUDA events, medians of 7; of FILE_REPS for an
+    EXR's parse and load, which take 0.1-0.9 s), its host syncs, the
     texture bit-equal to the port's CPU load of the same bytes, each
     native codec against its numpy twin on a crop, and the texture saved
     again, its bytes equal to the CPU port's save; 38: the port's
@@ -3887,7 +3930,9 @@ def container_phases(torch, dev, event_ms, smi, tga_size: int = SLICE_SIZE,
     texture, a -timing run (its synchronizes counted), a -profile run (a
     non-empty trace with kernels) and a non-BC run (-f R16G16B16A16_FLOAT
     -ft exr). Each path is driven with the launch counts set to 0 just
-    before it and read just after."""
+    before it and read just after. Returns {"files": the folder's {name:
+    bytes}, "dds": texconv's BC outputs, {source name: DDS bytes}} for
+    phases 39-41."""
     import contextlib
     import io as _io
     import tempfile
@@ -3982,10 +4027,14 @@ def container_phases(torch, dev, event_ms, smi, tga_size: int = SLICE_SIZE,
         save_s = time.perf_counter() - t0
         check(again == saved(Probe.cpu_tex(tex), name),
               f"{name}: the card's save differs from the CPU port's")
-        ms = {"host_parse": pr.host_timed(lambda: parse(data)),
+        # an EXR load takes 0.1-0.9 s, nearly all of it the host parse:
+        # FILE_REPS runs of its parse and its load, 7 of the rest
+        reps = FILE_REPS if name.endswith(".exr") else 7
+        ms = {"host_parse": pr.host_timed(lambda: parse(data), reps),
               "h2d": pr.timed(lambda: torch.from_numpy(payload).to(dev)),
               "device_decode": pr.timed(lambda: decode(payload_d, plan)),
-              "load": pr.timed(lambda: load_texture_bytes(name, data, dev))}
+              "load": pr.timed(lambda: load_texture_bytes(name, data, dev),
+                               reps)}
         parts = {k: ms[k]["median"] for k in ("host_parse", "h2d",
                                               "device_decode")}
         total = ms["load"]["median"]
@@ -4038,6 +4087,7 @@ def container_phases(torch, dev, event_ms, smi, tga_size: int = SLICE_SIZE,
         tgas = [paths[n] for n in files if n.endswith(".tga")]
         hdrs = [paths[n] for n in files if not n.endswith(".tga")]
         ops.compress_many = counting_many
+        dds_out = {}
         try:
             groups = {}
             for key, fmt, srcs, want in (
@@ -4063,6 +4113,7 @@ def container_phases(torch, dev, event_ms, smi, tga_size: int = SLICE_SIZE,
                                         os.path.splitext(name)[0] + ".dds")
                     with open(ddsp, "rb") as f:
                         raw = f.read()
+                    dds_out[name] = raw
                     ct = dds.load_from_dds_memory(raw, device=dev)
                     check(isinstance(ct, CompressedTexture)
                           and ct.metadata.format == getattr(FMT, fmt),
@@ -4160,6 +4211,497 @@ def container_phases(torch, dev, event_ms, smi, tga_size: int = SLICE_SIZE,
           "exr_run": exr_rec, "no_failed_lines": True,
           "seconds": time.perf_counter() - t_batch,
           "phases_37_38_seconds": time.perf_counter() - t_start})
+    return {"files": files, "dds": dds_out}
+
+
+def run_tool(mod, argv, device) -> tuple:
+    """A tool's main(argv, device) with its output captured: (rc, stdout,
+    stderr). Options go before the command: an older argparse refuses the
+    input files after an option that follows it."""
+    import contextlib
+    import io as _io
+
+    o, e = _io.StringIO(), _io.StringIO()
+    with contextlib.redirect_stdout(o), contextlib.redirect_stderr(e):
+        try:
+            rc = mod.main(["-nologo", *argv], device=device)
+        except SystemExit as exit_:     # argparse refused the arguments
+            rc = exit_.code
+    return rc, o.getvalue(), e.getvalue()
+
+
+def dir_bytes(path: str) -> dict:
+    """{file name: bytes} of a directory's files."""
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def numbers_close(card: str, cpu: str, what: str) -> int:
+    """Printed lines of the card and the CPU port: the same text around the
+    numbers, each number within 1e-5 relative + 1e-9 of the CPU's (0.01
+    for a PSNR, its last printed digit). Returns the lines whose text
+    differs."""
+    import re
+
+    num = re.compile(r"-?\d+\.\d+")
+    a, b = card.splitlines(), cpu.splitlines()
+    check(len(a) == len(b), f"{what}: {len(a)} lines vs {len(b)}")
+    differ = 0
+    for x, y in zip(a, b):
+        check(num.sub("#", x) == num.sub("#", y), f"{what}: {x!r} vs {y!r}")
+        for u, v in zip(map(float, num.findall(x)),
+                        map(float, num.findall(y))):
+            lim = 0.01 if "PSNR" in x else 1e-5 * abs(v) + 1e-9
+            check(abs(u - v) <= lim, f"{what}: {x!r} vs {y!r}")
+        differ += x != y
+    return differ
+
+
+def tool_phases(torch, dev, event_ms, smi, folder: dict,
+                view_mip: int = 1, target: tuple = (517, 301)) -> None:
+    """Phases 39-40: texassemble, ddsview and texdiag on the card, each
+    command through its main(argv, device) as a user calls it, its output
+    files and printed lines held against the CPU port's on the same input.
+    39: six faces from phase 37's TGAs -> cube (a DDS) -> h-cross ->
+    cube-from-hc and v-cross-fnz -> cube-from-vc-fnz (the faces back bit
+    for bit), cube-from-mips over each face's full chain saved as one file
+    a level, merge of two faces with a swizzle, texconv of the cube to
+    BC7_UNORM with its mips (K2, mode 7, K3), and ddsview -m view_mip of
+    that BC7 cube (K1); 40: texdiag's info, analyze, analyzebc, compare
+    (the source against the DDS), diff -c, dumpbc -targetx/-targety and
+    dumpdds over phase 38's BC7_UNORM_SRGB and BC6H_UF16 files (K1, K4),
+    every file's lines and files held against the CPU port's (which reads
+    the card's decode of a file where the command decodes all of it, but
+    for one BC7 and one BC6H file).
+    Each command's CUDA-event time after a warm-up (median [min-max] of 7;
+    of 3 (FILE_REPS) for the commands that read or write 100-200 MB of
+    files, compare, diff and dumpdds; one run of ddsview, whose PNG encode
+    takes seconds, and of compare and diff with an EXR source), its host
+    syncs and its hand-kernel launches (counts
+    set to 0 just before it, read just after)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from directxtex_tpu_torch.io import dds, tga
+    from directxtex_tpu_torch.ops import (compress, decompress,
+                                          generate_mipmaps)
+    from directxtex_tpu_torch.formats import FMT
+    from directxtex_tpu_torch.texture import Texture
+    from directxtex_tpu_torch.tools import (ddsview, texassemble, texconv,
+                                            texdiag)
+
+    pr = Probe(torch, event_ms)
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    try:
+        def step(mod, argv_of, out: str, reps: int = 7, cpu: bool = True,
+                 cpu_argv_of=None):
+            """mod on the card (output under card/out) and, where `cpu`,
+            on the CPU (under cpu/out, with cpu_argv_of's arguments where
+            given): the record, the output paths and both runs' (rc,
+            stdout, stderr). Equal files and lines are checked by the
+            caller. -y where the tool has it (not ddsview)."""
+            paths = {}
+            for side in ("card", "cpu"):
+                d = os.path.join(tmp, side)
+                os.makedirs(d, exist_ok=True)
+                paths[side] = os.path.join(d, out)
+            yes = [] if mod is ddsview else ["-y"]
+            argv = [*yes, *argv_of(paths["card"])]
+            res, counts = pr.counts_of(lambda: run_tool(mod, argv, dev))
+            check(res[0] == 0 and "FAILED" not in res[1] + res[2],
+                  f"{mod.__name__} {argv}: {res}")
+            syncs = pr.host_syncs(lambda: run_tool(mod, argv, dev))
+            ms = pr.spread(event_ms(lambda: run_tool(mod, argv, dev), reps))
+            rec = {"ms": ms, "runs": reps, "host_syncs": syncs,
+                   "launches": counts}
+            cpu_res = None
+            if cpu:
+                cpu_res = run_tool(mod, [*yes, *(cpu_argv_of or argv_of)(
+                    paths["cpu"])], "cpu")
+                check(cpu_res[0] == 0, f"{mod.__name__} on the CPU: "
+                      f"{cpu_res}")
+            return rec, paths, res, cpu_res
+
+        def same_file(paths, what):
+            with open(paths["card"], "rb") as f:
+                a = f.read()
+            with open(paths["cpu"], "rb") as f:
+                b = f.read()
+            check(a == b, f"{what}: the card's file differs from the CPU "
+                  f"port's")
+            return len(a)
+
+        # 39. texassemble and ddsview -------------------------------------
+        files = folder["files"]
+        src = os.path.join(tmp, "src")
+        os.makedirs(src)
+        faces = []
+        for k, name in enumerate(("rgba_rle.tga", "opaque_rle.tga",
+                                  "rgba_raw.tga", "opaque_24.tga",
+                                  "rgba_raw.tga", "opaque_24.tga")):
+            data = files[name]
+            if k >= 4:      # two more faces: the raw files flipped
+                t = tga.load_from_tga_memory(data, device="cpu")
+                data = tga.save_to_tga_memory(t.replace_levels(
+                    [torch.flip(t.levels[0], (1, 2))], t.metadata))
+            faces.append(os.path.join(src, f"face{k}.tga"))
+            with open(faces[-1], "wb") as f:
+                f.write(data)
+        rec39 = {}
+        rec, cube, _, _ = step(texassemble, lambda o: ["-o", o, "cube",
+                                                       *faces], "cube.dds",
+                               FILE_REPS)
+        rec["bytes"] = same_file(cube, "cube")
+        rec39["cube"] = rec
+        ref = dds.load_from_dds_file(cube["card"], device=dev).levels[0]
+        for layout, inverse in (("h-cross", "cube-from-hc"),
+                                ("v-cross-fnz", "cube-from-vc-fnz")):
+            rec, lay, _, _ = step(texassemble, lambda o: [
+                "-o", o, layout, cube["card"]], f"{layout}.dds", FILE_REPS)
+            rec["bytes"] = same_file(lay, layout)
+            rec39[layout] = rec
+            rec, back, _, _ = step(texassemble, lambda o: [
+                "-o", o, inverse, lay["card"]], f"{inverse}.dds", FILE_REPS)
+            rec["bytes"] = same_file(back, inverse)
+            got = dds.load_from_dds_file(back["card"], device=dev)
+            check(got.metadata.is_cubemap() and torch.equal(
+                got.levels[0], ref), f"{layout} -> {inverse}: the faces "
+                "differ from the cube's")
+            rec["faces_bit_equal"] = True
+            rec39[inverse] = rec
+        # cube-from-mips: each face's chain, one TGA a level, face-major
+        levels = []
+        for k, face in enumerate(faces):
+            chain = generate_mipmaps(tga.load_from_tga_memory(
+                open(face, "rb").read(), device=dev))
+            for m, lvl in enumerate(chain.levels):
+                p = os.path.join(src, f"face{k}_mip{m:02d}.tga")
+                with open(p, "wb") as f:
+                    f.write(tga.save_to_tga_memory(Texture.from_array(
+                        lvl[0], chain.metadata.format, device=dev)))
+                levels.append(p)
+        rec, cfm, _, _ = step(texassemble, lambda o: [
+            "-o", o, "cube-from-mips", *levels], "cube_mips.dds", FILE_REPS)
+        rec["bytes"] = same_file(cfm, "cube-from-mips")
+        rec["inputs"] = len(levels)
+        rec39["cube-from-mips"] = rec
+        rec, mrg, _, _ = step(texassemble, lambda o: [
+            "--swizzle", "rGbA", "-o", o, "merge", faces[0], faces[1]],
+            "merge.dds", FILE_REPS)
+        rec["bytes"] = same_file(mrg, "merge")
+        rec39["merge"] = rec
+        # texconv -> BC7 with mips (K2, mode 7, K3), then ddsview of it (K1)
+        bcdir = os.path.join(tmp, "bc7")
+        rec, _, _, _ = step(texconv, lambda o: [
+            "-f", "BC7_UNORM", "-m", "0", "-o", bcdir, cube["card"]],
+            "unused", FILE_REPS, cpu=False)
+        pr.need(rec["launches"], ["bc7_encode", "bc7_alpha_list",
+                                  "bc7_mode7", "bc7_refine_alpha"],
+                "texconv cube -> BC7")
+        bc7 = os.path.join(bcdir, "cube.dds")
+        ct = dds.load_from_dds_file(bc7, device=dev)
+        direct = compress(generate_mipmaps(dds.load_from_dds_file(
+            cube["card"], device=dev)), FMT.BC7_UNORM)
+        check(torch.equal(ct.levels[0], direct.levels[0]),
+              "texconv's cube level 0 differs from compress()")
+        rec["blocks"] = sum(int(lvl.numel()) // 16 for lvl in ct.levels)
+        rec39["texconv_bc7"] = rec
+        rec, view, _, _ = step(ddsview, lambda o: [
+            "-m", str(view_mip), "-o", o, bc7], "view.png", 1, cpu=False)
+        pr.need(rec["launches"], ["bc7_decode"], "ddsview BC7 cube")
+        # the CPU port renders the same level from a DDS of that level
+        # alone (its other levels would only be decoded and dropped)
+        one = type(ct)(dataclasses.replace(
+            ct.metadata, width=ct.metadata.width >> view_mip,
+            height=ct.metadata.height >> view_mip, mip_levels=1),
+            [ct.levels[view_mip].cpu()])
+        lvl_path = os.path.join(tmp, "bc7_level.dds")
+        dds.save_to_dds_file(one, lvl_path)
+        check(run_tool(ddsview, ["-o", view["cpu"], lvl_path], "cpu")[0]
+              == 0, "ddsview on the CPU")
+        rec["bytes"] = same_file(view, "ddsview")
+        from PIL import Image
+        rec["png_size"] = list(Image.open(view["card"]).size)
+        rec39["ddsview"] = rec
+        emit({"phase": "assemble_view", "card": smi, "steps": rec39,
+              "outputs_equal_cpu": True,
+              "seconds": time.perf_counter() - t_start})
+
+        # 40. texdiag over phase 38's files -------------------------------
+        t40 = time.perf_counter()
+        outs = os.path.join(tmp, "dds")
+        os.makedirs(outs)
+        sources = {}
+        for name, data in folder["dds"].items():
+            p = os.path.join(outs, os.path.splitext(name)[0] + ".dds")
+            with open(p, "wb") as f:
+                f.write(data)
+            sources[p] = os.path.join(src, name)
+            with open(sources[p], "wb") as f:
+                f.write(files[name])
+        # the CPU port decodes every block on the host, slowly: the
+        # commands that decode the whole file run there on one BC7 and one
+        # BC6H file as given, and on the others from the card's decode of
+        # the file (one D2H copy), written as an f32 DDS (bit-exact) and,
+        # for compare's sRGB flags, in the decompressed format (an 8-bit
+        # sRGB level reloads within 1 ulp, inside numbers_close's bound)
+        decode_cpu = {os.path.join(outs, "rgba_rle.dds"),
+                      os.path.join(outs, "map.dds")}
+        dec_dir = os.path.join(tmp, "decoded")
+        os.makedirs(dec_dir)
+
+        def decoded_inputs(p, base):
+            d = decompress(dds.load_from_dds_file(p, device=dev))
+            d = type(d)(d.metadata, [lvl.cpu() for lvl in d.levels])
+            exact = os.path.join(dec_dir, f"{base}.dds")
+            native = os.path.join(dec_dir, f"{base}_native.dds")
+            dds.save_to_dds_file(type(d)(d.metadata.with_format(
+                FMT.R32G32B32A32_FLOAT), d.levels), exact)
+            dds.save_to_dds_file(d, native)
+            back = dds.load_from_dds_file(exact, device="cpu")
+            check(all(torch.equal(a, b) for a, b in zip(back.levels,
+                                                        d.levels)),
+                  f"{base}: the decoded f32 DDS does not reload exactly")
+            return exact, native
+
+        rec40 = {}
+        text_differ = 0
+        for p, srcp in sources.items():
+            base = os.path.splitext(os.path.basename(p))[0]
+            fmt_rec = {}
+            bc6 = "BC6H" in dds.get_metadata_from_dds_memory(
+                open(p, "rb").read()).format.name
+            kern = "bc6h_decode" if bc6 else "bc7_decode"
+            exact, native = ((p, p) if p in decode_cpu
+                             else decoded_inputs(p, base))
+            # compare and diff load the source too: an EXR's host parse
+            # takes 0.1-0.9 s, so one timed run
+            src_reps = 1 if srcp.endswith(".exr") else FILE_REPS
+            for cmd, argv_of, cpu_in, reps, decodes in (
+                    ("info", lambda o, f: ["info", f], p, 7, False),
+                    ("analyzebc", lambda o, f: ["analyzebc", f], p, 7,
+                     False),
+                    ("dumpbc", lambda o, f: ["-targetx", str(target[0]),
+                                             "-targety", str(target[1]),
+                                             "dumpbc", f], p, 7, True),
+                    ("analyze", lambda o, f: ["analyze", f], exact, 7,
+                     True),
+                    ("compare", lambda o, f: ["compare", srcp, f], native,
+                     src_reps, True),
+                    ("diff", lambda o, f: ["-c", "FF00FF", "-t", "0.05",
+                                           "-o", o, "diff", srcp, f],
+                     exact, src_reps, True),
+                    ("dumpdds", lambda o, f: ["-ft", "dds", "-o", o,
+                                              "dumpdds", f], exact,
+                     FILE_REPS, True)):
+                out = (f"{base}_diff.dds" if cmd == "diff"
+                       else os.path.join(f"{base}_dump", base)
+                       if cmd == "dumpdds" else "unused")
+                for side in ("card", "cpu"):
+                    os.makedirs(os.path.join(tmp, side, f"{base}_dump"),
+                                exist_ok=True)
+                rec, paths, res, cres = step(
+                    texdiag, lambda o: argv_of(o, p), out, reps=reps,
+                    cpu_argv_of=lambda o: argv_of(o, cpu_in))
+                if decodes:
+                    pr.need(rec["launches"], [kern], f"texdiag {cmd} {base}")
+                a = res[1].replace(os.path.join(tmp, "card"), "#")
+                b = cres[1].replace(os.path.join(tmp, "cpu"), "#")
+                if cmd in ("analyze", "compare"):
+                    rec["lines_text_differ"] = numbers_close(
+                        a, b, f"texdiag {cmd} {base}")
+                    text_differ += rec["lines_text_differ"]
+                else:
+                    check(a == b, f"texdiag {cmd} {base}: lines differ "
+                          f"from the CPU port's\n{a}\n{b}")
+                if cmd == "diff":
+                    rec["bytes"] = same_file(paths, f"diff {base}")
+                if cmd == "dumpdds":
+                    got = dir_bytes(os.path.dirname(paths["card"]))
+                    want = dir_bytes(os.path.dirname(paths["cpu"]))
+                    check(got == want and len(got) > 1,
+                          f"dumpdds {base}: files differ")
+                    rec["surfaces"] = len(got)
+                rec["cpu_input"] = ("as given" if cpu_in == p
+                                    else "the card's decode")
+                fmt_rec[cmd] = rec
+            rec40[base] = fmt_rec
+        emit({"phase": "texdiag", "card": smi, "files": rec40,
+              "lines_with_text_differences": text_differ,
+              "seconds": time.perf_counter() - t40,
+              "phases_39_40_seconds": time.perf_counter() - t_start})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def parallel_phase(torch, dev, event_ms, smi, folder: dict,
+                   size: int = SLICE_SIZE, field: int = 8192,
+                   crop: int = 512, hdr_side: int = 1024) -> None:
+    """Phase 41: parallel/ on the card. The library: compress_library over
+    phase 37's four TGAs into BC7_UNORM without and with mips on a mesh of
+    one entry (one encoder call: K2, mode 7, K3), its words equal to
+    encode_bc7 of each image's blocks (every level's, concatenated), and
+    over the PFM and the HDR resized to hdr_side^2 into BC6H_UF16 (K5).
+    Sharding on one card, a mesh of ("cuda:0",) * 4: sharded_normal_map of
+    a field^2 height field (wrap and mirror_v) bit-equal to a one-entry
+    mesh and, on a crop^2 crop, to the CPU port; halo_exchange_rows at
+    halo 1 and 3 (wrap and clamp) equal to the padded whole image;
+    sharded_box_mip of the field^2 RGBA map bit-equal to one shard;
+    sharded_mse of two maps (one flipped) within 1e-6 relative of
+    compute_mse's channel mean; and
+    sharded_compress_fn(encode_bc7) over 4 shards of the bench image's
+    blocks, its words equal to the unsharded encode. CUDA-event times
+    (median [min-max] of 7 after a warm-up), hand-kernel launches, host
+    syncs, CUDA kernels and device ms (a profiler record a call)."""
+    import tempfile
+
+    from directxtex_tpu_torch import parallel
+    from directxtex_tpu_torch.bc import bc6h, bc67
+    from directxtex_tpu_torch.bc.common import image_to_blocks
+    from directxtex_tpu_torch.formats import FMT
+    from directxtex_tpu_torch.ops import compute_mse
+    from directxtex_tpu_torch.parallel.library import _box_chain
+    from directxtex_tpu_torch.parallel.sharding import gather
+
+    pr = Probe(torch, event_ms)
+    t_start = time.perf_counter()
+    mesh1 = parallel.make_mesh([dev])
+    mesh4 = parallel.make_mesh([dev] * 4)
+    cpu4 = parallel.make_mesh(["cpu"] * 4)
+
+    def timed_step(fn, profiled: bool = False):
+        """fn()'s result and its record: CUDA-event ms, host syncs,
+        hand-kernel launches, and where `profiled` its CUDA kernels and
+        device ms from a profiler record of one call."""
+        out, counts = pr.counts_of(fn)
+        rec = {"ms": pr.timed(fn), "host_syncs": pr.host_syncs(fn),
+               "launches": counts}
+        if profiled:
+            rec["cuda_kernels"], rec["device_ms"] = kernels_and_ms(
+                profile_calls(torch, {"step": fn}, required=False)["step"])
+        return out, rec
+
+    # the library ----------------------------------------------------------
+    lib = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, data in folder["files"].items():
+            paths[name] = os.path.join(tmp, name)
+            with open(paths[name], "wb") as f:
+                f.write(data)
+        tgas = [paths[n] for n in paths if n.endswith(".tga")]
+        for mips in (False, True):
+            outs, rec = timed_step(lambda: parallel.compress_library(
+                tgas, FMT.BC7_UNORM, mesh1, size, size, mips=mips))
+            check(rec["launches"].get("bc7_encode") == 1,
+                  f"compress_library BC7 mips={mips}: {rec['launches']}")
+            batch = parallel.load_library(tgas, size, size, device=dev)
+            levels = _box_chain(batch) if mips else [batch]
+            check(len(outs) == len(levels), "compress_library levels")
+            for i in range(len(tgas)):
+                blocks = [image_to_blocks(lvl[i])[0] for lvl in levels]
+                want = bc67.encode_bc7(torch.cat(blocks)).cpu().numpy()
+                got = np.concatenate([o[i] for o in outs])
+                check(np.array_equal(got, want), f"compress_library image "
+                      f"{i} mips={mips}: words differ from encode_bc7")
+            rec["blocks"] = int(sum(o.shape[0] * o.shape[1] for o in outs))
+            lib[f"bc7_mips_{mips}"] = rec
+        hdrs = [paths["map.pfm"], paths["env.hdr"]]
+        outs, rec = timed_step(lambda: parallel.compress_library(
+            hdrs, FMT.BC6H_UF16, mesh1, hdr_side, hdr_side))
+        pr.need(rec["launches"], ["bc6h_encode"], "compress_library BC6H")
+        batch = parallel.load_library(hdrs, hdr_side, hdr_side, device=dev)
+        for i in range(len(hdrs)):
+            want = bc6h.encode_bc6h(image_to_blocks(batch[i])[0],
+                                    signed=False).cpu().numpy()
+            check(np.array_equal(outs[0][i], want),
+                  f"compress_library BC6H image {i}: words differ")
+        rec["blocks"] = int(outs[0].shape[0] * outs[0].shape[1])
+        lib["bc6h"] = rec
+        del batch
+
+    # sharding on one card -------------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(41)
+    height = torch.rand((field, field), generator=gen, device=dev)
+    shard = {}
+    maps = {}
+    for mirror_v in (False, True):
+        fn4 = parallel.sharded_normal_map(mesh4, 2.0, mirror_v=mirror_v)
+        fn1 = parallel.sharded_normal_map(mesh1, 2.0, mirror_v=mirror_v)
+        out4, rec4 = timed_step(lambda: fn4(height), True)
+        out1, rec1 = timed_step(lambda: fn1(height), True)
+        check(len(out4) == 4 and torch.equal(
+            torch.cat(out4).view(torch.int32), out1[0].view(torch.int32)),
+            f"normal map mirror_v={mirror_v}: 4 shards differ from 1")
+        hc = height[:crop, :crop].contiguous()
+        card = torch.cat(parallel.sharded_normal_map(
+            mesh4, 2.0, mirror_v=mirror_v)(hc)).cpu()
+        cpu = torch.cat(parallel.sharded_normal_map(
+            cpu4, 2.0, mirror_v=mirror_v)(hc.cpu()))
+        check(torch.equal(card.view(torch.int32), cpu.view(torch.int32)),
+              f"normal map mirror_v={mirror_v}: the card differs from the "
+              f"CPU port on the {crop}^2 crop")
+        maps[mirror_v] = out1[0]
+        del out4, out1
+        shard[f"normal_map_mirror_v_{mirror_v}"] = {
+            "4_shards": rec4, "1_shard": rec1,
+            "halo_cost_ms": rec4["ms"]["median"] - rec1["ms"]["median"]}
+    for halo in (1, 3):
+        for wrap in (True, False):
+            parts = parallel.rows_sharding(mesh4).place(height)
+            slabs, rec = timed_step(lambda: parallel.halo_exchange_rows(
+                parts, halo, wrap=wrap), True)
+            if wrap:
+                padded = torch.cat([height[-halo:], height, height[:halo]])
+            else:
+                padded = torch.cat([height[:1].expand(halo, field), height,
+                                    height[-1:].expand(halo, field)])
+            rows = field // 4
+            check(all(torch.equal(s, padded[i * rows:(i + 1) * rows
+                                             + 2 * halo])
+                      for i, s in enumerate(slabs)),
+                  f"halo {halo} wrap={wrap}: not the padded image")
+            del slabs, padded
+            shard[f"halo_{halo}_wrap_{wrap}"] = rec
+    rgba = maps[False]
+    mip4, rec4 = timed_step(lambda: parallel.sharded_box_mip(mesh4)(rgba),
+                            True)
+    mip1, rec1 = timed_step(lambda: parallel.sharded_box_mip(mesh1)(rgba),
+                            True)
+    check(torch.equal(torch.cat(mip4).view(torch.int32),
+                      mip1[0].view(torch.int32)),
+          "box mip: 4 shards differ from 1")
+    shard["box_mip"] = {"4_shards": rec4, "1_shard": rec1}
+    del mip4, mip1
+    other = torch.flip(maps[True], (0,))
+    mse4, rec = timed_step(lambda: parallel.sharded_mse(mesh4)(
+        maps[False], other), True)
+    _, mse_v = compute_mse(maps[False], other)
+    want = float(mse_v.mean())
+    check(abs(float(mse4) - want) <= 1e-6 * want,
+          f"sharded_mse {float(mse4)} vs compute_mse {want}")
+    rec["mse"] = [float(mse4), want]
+    shard["mse"] = rec
+    del maps, rgba, height, other
+    blocks2k = image_to_blocks(torch.from_numpy(bench_image(size)).to(dev))[0]
+    enc4, rec4 = timed_step(lambda: parallel.sharded_compress_fn(
+        bc67.encode_bc7, mesh4)(blocks2k))
+    enc1, rec1 = timed_step(lambda: bc67.encode_bc7(blocks2k))
+    check(torch.equal(gather(enc4), enc1), "sharded encode_bc7: words "
+          "differ from the unsharded encode")
+    check(rec4["launches"].get("bc7_encode") == 4,
+          f"sharded encode: {rec4['launches']}")
+    shard["encode_bc7"] = {"4_shards": rec4, "unsharded": rec1,
+                           "blocks": int(blocks2k.shape[0])}
+    emit({"phase": "parallel", "card": smi, "library": lib,
+          "sharding": shard,
+          "field": field, "mesh": [str(d) for d in mesh4.devices],
+          "seconds": time.perf_counter() - t_start})
 
 
 def load_texture_bytes(name: str, data: bytes, device):

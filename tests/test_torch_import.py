@@ -38,7 +38,11 @@ def test_package_imports_no_jax():
         "from directxtex_tpu_torch import io, tools, utils\n"
         "from directxtex_tpu_torch.io import (dds, exr, exr_b44, exr_piz, "
         "hdr, heif, loaders, ppm, tga, wic)\n"
-        "from directxtex_tpu_torch.tools import texconv\n"
+        "from directxtex_tpu_torch.tools import (ddsview, texassemble, "
+        "texconv, texdiag)\n"
+        "from directxtex_tpu_torch import parallel\n"
+        "from directxtex_tpu_torch.parallel import library, sharding, "
+        "spatial\n"
         "from directxtex_tpu_torch.utils import timing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'directxtex_tpu']\n"
