@@ -207,6 +207,11 @@ Phases:
      count: each mode's words and errors equal the twins' and the team's
      plain form's (bc67._single_modes_jobs_plain, folded), and the errors
      equal the decoded (K1) squared error at weight 1.0;
+ 24b. the module switches the port refuses, on the card: the BC7
+     default tier with BC7_SHARED2SUB and / or BC7_SHARED45 off (opaque,
+     with alpha, with USE_3SUBSETS) and BC7_SHARED_KEEPBETTER /
+     BC6H_SHARED_KEEPBETTER on each raise NotImplementedError on bench512
+     and launch no kernel;
  25. BC1-BC5 gates on the card: the bc1-bc5 golden decode vectors bit
      for bit (BC4/BC5 signed and unsigned), the corpus PSNR floors and
      the frozen reference parity of tests/test_golden.py, the card's
@@ -1170,6 +1175,7 @@ def main() -> None:
                    (nb_of, "nb"), (plain_nb, "nb"), (ops_of, "ops")):
         d.update(r[key])
 
+    refused_settings_phase(torch, to_dev, b512)
     bc12345_phases(torch, to_dev, event_ms, smi, enc_ms)
     format_core_phases(torch, dev, to_dev, event_ms, smi)
     image_ops_phases(torch, dev, to_dev, event_ms, smi)
@@ -2735,6 +2741,51 @@ def bc7_single_modes_phase(torch, to_dev, event_ms, smi, img_opaque,
             "max_err": {"bc7_single_modes": max_err},
             "nb": {"bc7_single_modes": nb},
             "ops": {"bc7_single_modes": BC7_SINGLE_MODES_OPS * float(nb)}}
+
+
+def refused_settings_phase(torch, to_dev, b512) -> None:
+    """Phase 24b: each module switch setting the port refuses raises
+    NotImplementedError on a CUDA tensor and launches no kernel."""
+    from directxtex_tpu_torch.bc import bc6h, bc67, cuda_kernels
+    from directxtex_tpu_torch.bc.common import image_to_blocks
+
+    blocks = image_to_blocks(to_dev(b512["img"]))[0]
+    with_alpha = blocks.clone()
+    with_alpha[::2, :, 3] = 0.5
+    settings = [(bc67, {"BC7_SHARED2SUB": s2, "BC7_SHARED45": s45}, flags,
+                 label, b)
+                for s2, s45 in ((False, True), (True, False), (False, False))
+                for flags, label, b in ((0, "opaque", blocks),
+                                        (0, "alpha", with_alpha),
+                                        (0x80000, "alpha", with_alpha))]
+    settings += [(bc67, {"BC7_SHARED_KEEPBETTER": True}, 0, "opaque",
+                  blocks),
+                 (bc6h, {"BC6H_SHARED_KEEPBETTER": True}, 0, "opaque",
+                  blocks)]
+    refused = []
+    for mod, values, flags, label, b in settings:
+        saved = {k: getattr(mod, k) for k in values}
+        before = cuda_kernels.launch_counts()
+        for k, v in values.items():
+            setattr(mod, k, v)
+        try:
+            if mod is bc6h:
+                bc6h.encode_bc6h(b, False)
+            else:
+                bc67.encode_bc7(b, flags)
+            raised = False
+        except NotImplementedError:
+            raised = True
+        finally:
+            for k, v in saved.items():
+                setattr(mod, k, v)
+        torch.cuda.synchronize()
+        what = f"{values} {label} flags={flags:#x}"
+        check(raised, f"{what}: no NotImplementedError on the card")
+        check(cuda_kernels.launch_counts() == before,
+              f"{what}: launched a kernel before refusing")
+        refused.append(what)
+    emit({"phase": "refused_settings", "refused": refused})
 
 
 def config1_image(size: int) -> np.ndarray:

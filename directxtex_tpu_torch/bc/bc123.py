@@ -39,6 +39,8 @@ __all__ = [
 BC_FLAGS_DITHER_RGB = 0x10000
 BC_FLAGS_DITHER_A = 0x20000
 BC_FLAGS_UNIFORM = 0x40000
+BC_FLAGS_USE_3SUBSETS = 0x80000
+BC_FLAGS_FORCE_BC7_MODE6 = 0x100000
 
 # perceptual luminance weights (BC.cpp:30-31)
 _LUM = (0.2125 / 0.7154, 1.0, 0.0721 / 0.7154)

@@ -64,6 +64,11 @@ BC6H_LS_MAG_CAP = 1024.0
 # BC6H_REFIT_ROUNDS quantized LS rounds (bc67.py:2064; K10, K11)
 BC6H_SHARED_FIT = True
 BC6H_REFIT_ROUNDS = 2
+# the float keep-better guard of the shared trajectory (bc67.py:2093),
+# off in the JAX package, which measured bitwise-identical words without
+# it on every HDR probe content (bc67.py:2084-2092). The port does not
+# implement it: encode_bc6h raises with it on.
+BC6H_SHARED_KEEPBETTER = False
 
 # winner-refine ladders (rounds, deltas), bc67.py:2918-2932
 BC6H_LADDER_LIGHT = (1, (1,))
@@ -1563,11 +1568,18 @@ def encode_bc6h(blocks: torch.Tensor, signed: bool, flags: int = 0,
     (_BC7_MAXQUALITY) the full re-mapping ladder over every two-region
     precision group (BC6H_LADDER_MAXQ, cross2). Both refines run as K6.
     Other flag bits (dither, uniform, USE_3SUBSETS, QUICK) are ignored, as
-    in the JAX package (bc67.py:3364-3365)."""
+    in the JAX package (bc67.py:3364-3365). rows_sel, and
+    BC6H_SHARED_KEEPBETTER on, raise NotImplementedError before any
+    work."""
     if rows_sel is not None:
         raise NotImplementedError(
             "rows_sel is a profiling scope of the JAX package and is not "
             "ported (ROADMAP.md queue 2, levers kept out of the kernels)")
+    if BC6H_SHARED_KEEPBETTER:
+        raise NotImplementedError(
+            "BC6H_SHARED_KEEPBETTER is not ported: the JAX package measured "
+            "bitwise-identical words without the guard on every HDR probe "
+            "content (bc67.py:2084-2092) and ships it off")
     if blocks.dim() != 3 or blocks.shape[1] != 16 or blocks.shape[2] < 3:
         raise ValueError(f"blocks must be [NB, 16, 4], got "
                          f"{tuple(blocks.shape)}")

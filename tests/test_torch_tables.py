@@ -12,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from directxtex_tpu.bc import bc123 as jbc123
 from directxtex_tpu.bc import bc67 as jbc67
 from directxtex_tpu.bc import bc67_tables as jtables
 from directxtex_tpu.bc import common as jcommon
-from directxtex_tpu_torch.bc import bc6h, bc67, common
+from directxtex_tpu_torch.bc import bc6h, bc67, bc123, common
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -59,6 +60,7 @@ def test_bc6h_shipped_settings_match_reference():
     # guard; the row groups are the JAX package's
     assert jbc67.BC6H_SHARED_FIT and not jbc67.BC6H_SHARED_KEEPBETTER
     assert bc6h._bc6h_row_groups() == jbc67._bc6h_row_groups()
+    assert bc6h.BC6H_SHARED_KEEPBETTER is jbc67.BC6H_SHARED_KEEPBETTER
 
 
 @pytest.mark.parametrize("name", [
@@ -73,6 +75,15 @@ def test_default_tier_settings_match_reference():
     # the port implements the shared fits without the float keep-better
     assert jbc67.BC7_SHARED2SUB and jbc67.BC7_SHARED45
     assert not jbc67.BC7_SHARED_KEEPBETTER
+    for name in ("BC7_SHARED2SUB", "BC7_SHARED45", "BC7_SHARED_KEEPBETTER"):
+        assert getattr(bc67, name) is getattr(jbc67, name), name
+    # the BC flags the JAX module keeps beside the others, outside __all__,
+    # and encode_bc7's own flags
+    for name in ("BC_FLAGS_USE_3SUBSETS", "BC_FLAGS_FORCE_BC7_MODE6"):
+        assert getattr(bc123, name) == getattr(jbc123, name), name
+        assert name not in bc123.__all__
+    assert bc123.BC_FLAGS_USE_3SUBSETS == bc67._BC7_USE_3SUBSETS
+    assert bc123.BC_FLAGS_FORCE_BC7_MODE6 == bc67._BC7_QUICK
 
 
 @pytest.mark.parametrize("mode", range(8))
